@@ -1,0 +1,23 @@
+"""PyTorch / CUDA port of medimgen-tpu for one NVIDIA H100.
+
+A second package beside the JAX reference (``medical_image_generation_tpu``),
+checked against it module by module. It imports ``torch`` and never JAX or
+anything of the JAX package: host-side helpers it needs (planner math, the
+config loader) are kept here as its own copies.
+
+Layout: public functions take and return the JAX package's layout
+(B, *spatial, C). Inside, activations are NCDHW tensors in
+``torch.channels_last_3d`` memory, i.e. contiguous (B, Z*Y*X, C) buffers,
+which is the operand the hand-written GroupNorm kernels read in place.
+
+Hand-written Hopper kernels (``csrc/``), each with a plain PyTorch twin in
+the same module and a launch counter on its wrapper:
+
+* ``ops.flash_attention.flash_attention``   <- ``csrc/flash_attn_fwd.cu``
+* ``ops.groupnorm.channel_stats``            <- ``csrc/groupnorm.cu``
+* ``ops.groupnorm.fold_affine``              <- ``csrc/groupnorm.cu``
+* ``ops.groupnorm.affine_act``               <- ``csrc/groupnorm.cu``
+
+A wrapper given a CUDA tensor launches its kernel or raises; the plain
+version runs only for CPU tensors.
+"""
