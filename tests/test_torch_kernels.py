@@ -25,18 +25,25 @@ def cuda():
     return torch.device("cuda")
 
 
+# (rtol, atol) on o: fp32 summation order only; bf16 one ulp of o plus P
+# rounded to bf16 before P V. lse (f32) to 1e-4 in both. A kernel that skips
+# one 64-key K/V tile moves o by ~1e-3 and lse by ~1e-2 at 4096 keys.
+FLASH_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2**-7, 2**-10)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,D", [(2, 64, 2, 8), (1, 1000, 1, 96), (2, 512, 1, 768),
                                      (1, 50, 2, 20)])  # D % 8 != 0: element loads
-def test_flash_kernel_matches_plain_on_gpu(cuda, B, S, H, D, dtype, tol):
+def test_flash_kernel_matches_plain_on_gpu(cuda, B, S, H, D, dtype):
     q, k, v = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, dtype) for s in range(3))
     before = tfa.flash_attention.launches
     o, lse = tfa.flash_attention(q, k, v, D ** -0.5)
     ro, rlse = tfa.flash_attention_plain(q, k, v, D ** -0.5)
     assert tfa.flash_attention.launches == before + 1
-    torch.testing.assert_close(o.float(), ro.float(), rtol=0, atol=tol)
-    torch.testing.assert_close(lse, rlse, rtol=0, atol=10 * tol)
+    rtol, atol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), ro.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
