@@ -5,23 +5,34 @@
 
 Phases (any failure raises and exits non-zero):
 
-1. build    -- compile every kernel in medical_image_generation_tpu_torch/csrc
-               with nvcc (one process per source, in parallel).
-2. kernels  -- each hand-written kernel against its plain PyTorch version on
-               CUDA tensors at the flagship path's shapes, bf16 and fp32:
-               max error against a stated tolerance, and median kernel /
-               plain / library times (CUDA events) beside the card's bound.
-3. parity   -- the tiny 3D config (seeded random weights, fp32) through one
-               U-Net forward and one decode on the CPU (plain versions) and
-               on the GPU (kernels).
-4. slice    -- the flagship 3D LDM at full width (U-Net [256,512,768], VAE
-               decoder [32,64,128], bf16, batch 2, seeded random weights in
-               every layer): 10 DDIM steps through LDMSampler, then decode to
-               (2, 128, 128, 128, 1); checks the output and that every kernel's
-               launch count rose by what the code predicts.
+1. build        -- compile every kernel in medical_image_generation_tpu_torch/csrc
+                   with nvcc (one process per source, in parallel).
+2. kernels      -- each forward kernel against its plain PyTorch version on
+                   CUDA tensors at the flagship path's shapes, bf16 and fp32:
+                   max error against a stated tolerance, and median kernel /
+                   plain / library times (CUDA events) beside the card's bound.
+3. kernels_bwd  -- the same for the backward kernels (flash dQ and dK/dV,
+                   GroupNorm(+SiLU) backward stats and apply).
+4. parity       -- the tiny 3D config (seeded random weights, fp32, TF32 off)
+                   through one U-Net forward and one decode, and through one
+                   whole train step from the same weights and random draws,
+                   on the CPU (plain versions) and on the GPU (kernels).
+5. slice        -- flagship 3D LDM sampling at full width (U-Net
+                   [256,512,768], VAE decoder [32,64,128], bf16, batch 2,
+                   seeded random weights in every layer): 10 DDIM steps
+                   through LDMSampler, then decode to (2, 128, 128, 128, 1);
+                   checks the output and the launch counts the code predicts.
+6. train        -- the flagship train step (whose launch counts the JSON reports): batch
+                   2 of the enlarged (128, 143, 143) loader patch, augment ->
+                   frozen KL-VAE encode -> U-Net forward + backward (bf16
+                   compute, fp32 masters) -> clip + AdamW(bf16 mu); 2 warm-up
+                   and 10 timed steps with the launch counts the code predicts,
+                   a profile of one step, then save_checkpoint and sample one
+                   volume from it through LDMSampler.from_config.
 
-The last two lines of standard output are the kernels' JSON record and the
-device record; the card's name and power limit are printed before them.
+The last two lines of standard output are the kernels' JSON record (launches
+counted on the train path) and the device record; the card's name and power
+limit are printed before them.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -51,6 +63,31 @@ AFFINE_TOL = {  # (rtol, atol) elementwise: |y - y_plain| <= atol + rtol * |y_pl
 }
 STATS_REL_TOL = 1e-4  # stats: max abs error / max |sum|, fp32 summation order
 FOLD_REL_TOL = 1e-5   # fold: max abs error / max |ref|, fp32 (rsqrtf, sum order)
+# Backward kernels, elementwise per tensor: |g - g_plain| <= rtol * |g_plain|
+# + atol * max|g_plain|.
+FLASH_BWD_TOL = {
+    # one bf16 ulp of the output, plus p and ds rounded to bf16 before their
+    # products (sums of random-sign terms: ~2^-9 of a typical element)
+    torch.bfloat16: (2**-7, 2**-8),
+    torch.float32: (1e-5, 1e-5),  # summation order only
+}
+GN_BWD_TOL = {
+    torch.bfloat16: (2**-7, 1e-5),  # one bf16 ulp of dx: fp32 sums in another order flip it
+    torch.float32: (1e-5, 1e-5),    # summation order only
+}
+GN_PARAM_GRAD_TOL = 1e-4  # dscale, dbias, [P, Q]: max abs error / max |ref|, fp32 sums
+# tiny-config train step, fp32 with TF32 off, CPU vs GPU: per-gradient max abs
+# error / max |ref| (summation order over up to 16^3 positions and the
+# gradient-norm clip); loss relative
+PARITY_GRAD_TOL = 1e-4
+PARITY_LOSS_TOL = 1e-5
+LR = 2e-5  # the flagship config's ddpm_learning_rate
+
+GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship paths, batch 2
+    (32768, 256, 32), (32768, 768, 32), (4096, 512, 32), (4096, 1280, 32),
+    (512, 768, 32), (512, 1536, 32), (32768, 128, 16), (262144, 64, 16),
+    (2097152, 32, 16)]
+FLASH_SHAPES = [(2, 4096, 1, 512), (2, 512, 1, 768), (2, 1000, 3, 96)]  # (B, S, H, D)
 
 
 def log(*a):
@@ -71,6 +108,11 @@ def time_ms(fn, warmup=3, iters=10):
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def bound(flops, nbytes, peak_flops):
+    """(least ms for the work on this card, "operations" or "bytes")."""
+    return max((flops / peak_flops * 1e3, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
 
 
 def randomize_(model, seed):
@@ -109,6 +151,15 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def within(got, ref, rtol, atol_rel):
+    """(every element within rtol*|ref| + atol_rel*max|ref|, max abs error,
+    largest error / allowed error over the elements)."""
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    allowed = rtol * r.abs() + atol_rel * r.abs().max()
+    return bool((d <= allowed).all()), d.max().item(), (d / allowed).max().item()
+
+
 def flash_close(o, lse, o_ref, lse_ref, dtype):
     """(o within FLASH_TOL, lse within LSE_TOL, max|o - o_ref|, max|lse - lse_ref|)."""
     rtol, atol = FLASH_TOL[dtype]
@@ -116,6 +167,21 @@ def flash_close(o, lse, o_ref, lse_ref, dtype):
     lerr = _err(lse, lse_ref)
     o_ok = bool((d <= atol + rtol * o_ref.float().abs()).all())
     return o_ok, lerr <= LSE_TOL, d.max().item(), lerr
+
+
+def top_kernel(fn):
+    """Name of the device kernel with the most time in one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return max(by, key=by.get)[:90] if by else "not recorded"
 
 
 def phase_kernels():
@@ -129,7 +195,7 @@ def phase_kernels():
     rec = {}
 
     # ---- flash attention: (B, S, H, D) of the U-Net's attention sites
-    for (B, S, H, D) in [(2, 4096, 1, 512), (2, 512, 1, 768), (2, 1000, 3, 96)]:
+    for (B, S, H, D) in FLASH_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
                        for _ in range(3))
@@ -149,14 +215,13 @@ def phase_kernels():
             flops = 4 * B * H * S * S * D
             nbytes = 4 * B * S * H * D * q.element_size() + 4 * B * H * S
             peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
-            ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-            bound, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+            bnd, bound_by = bound(flops, nbytes, peak)
             rtol, atol = FLASH_TOL[dt]
             log(f"[kernels] flash_attn_fwd {str(dt)[6:]} B={B} S={S} H={H} D={D}: "
                 f"max|o-o_plain|={err:.3e} (tol {atol:g} + {rtol:g}*|o|, max|o_plain|="
                 f"{o_ref.float().abs().max().item():.3e}) max|lse-lse_plain|={lerr:.3e} "
                 f"(tol {LSE_TOL:g}) one-tile-skip caught={cut_seen} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bound:.4f} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bnd:.4f} "
                 f"({bound_by}) ({flops / ms / 1e9:.1f} TFLOP/s) {'OK' if ok and cut_seen else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash attention disagrees with its plain version at "
@@ -167,15 +232,11 @@ def phase_kernels():
             if (B, S, H, D) == (2, 4096, 1, 512) and dt == torch.bfloat16:
                 rec["flash_attn_fwd"] = dict(
                     shape=[B, S, H, D], dtype="bf16", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+                    bound_ms=bnd, bound_by=bound_by, library_ms=lib_ms)
 
     # ---- GroupNorm stats + affine(+SiLU): (B, M, C) activations, groups
-    gn_shapes = [  # (M, C, groups)
-        (32768, 256, 32), (32768, 768, 32), (4096, 512, 32), (4096, 1280, 32),
-        (512, 768, 32), (512, 1536, 32), (32768, 128, 16), (262144, 64, 16),
-        (2097152, 32, 16)]
     B = 2
-    for (M, C, G) in gn_shapes:
+    for (M, C, G) in GN_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             x = (torch.randn((B, M, C), generator=gen, device="cuda") * 1.3 + 0.7).to(dt)
             st = gn.channel_stats(x)
@@ -235,6 +296,154 @@ def phase_kernels():
     return rec
 
 
+def phase_kernels_bwd():
+    """The backward kernels against their plain versions; returns
+    {kernel: record at its representative shape}."""
+    import torch.nn.functional as F
+
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rec = {}
+
+    # ---- flash backward: dQ pass, then dK/dV pass
+    for (B, S, H, D) in FLASH_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+                           for _ in range(4))
+            scale = D ** -0.5
+            o, lse = fa.flash_attention_plain(q, k, v, scale)
+            dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+            dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
+            r_dq, r_delta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, scale)
+            r_dk, r_dv = fa.flash_bwd_dkdv_plain(q, k, v, do, lse, r_delta, scale)
+            # the tolerance must see a backward that skips one 64-key K/V tile
+            # (dq) or one 64-query Q/dO tile (dk, dv)
+            c_dq = fa.flash_attention_bwd_plain(q, k[:, 64:], v[:, 64:], o, lse, do, scale)[0]
+            lse_c = lse.reshape(B * H, S)[:, 64:]
+            _, c_dk, c_dv = fa.flash_attention_bwd_plain(q[:, 64:], k, v, o[:, 64:], lse_c,
+                                                         do[:, 64:], scale)
+            torch.cuda.synchronize()
+            tol = FLASH_BWD_TOL[dt]
+            res = {n: within(g, r, *tol) for n, g, r in
+                   (("dq", dq, r_dq), ("dk", dk, r_dk), ("dv", dv, r_dv))}
+            d_ok, d_err, _ = within(delta, r_delta, 1e-5, 1e-5)
+            ok = all(v_[0] for v_ in res.values()) and d_ok
+            use = max(v_[2] for v_ in res.values())
+            cut_seen = not any(within(g, r, *tol)[0] for g, r in
+                               ((c_dq, r_dq), (c_dk, r_dk), (c_dv, r_dv)))
+            mx = {n: g.float().abs().max().item() for n, g in
+                  (("dq", r_dq), ("dk", r_dk), ("dv", r_dv))}
+            line = (f"[kernels_bwd] flash_attn_bwd {str(dt)[6:]} B={B} S={S} H={H} D={D}: "
+                    + " ".join(f"max|{n}-plain|={e:.3e} (max|{n}|={mx[n]:.3e})"
+                               for n, (_, e, _) in res.items())
+                    + f" max|delta-plain|={d_err:.3e} (tol {tol[1]:g}*max + {tol[0]:g}*|g|;"
+                    f" largest error / allowed {use:.3f}) one-tile-skip caught={cut_seen}")
+            if dt == torch.bfloat16:
+                isz = q.element_size()
+                ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, scale))
+                ms_kv = time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale))
+                plain_dq = time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, o, lse, do, scale), 1, 5)
+                plain_kv = time_ms(lambda: fa.flash_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                                                    scale), 1, 5)
+                qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+                doh = do.transpose(1, 2).contiguous()
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+
+                def sdpa_fwd_bwd():
+                    torch.autograd.grad(sdpa(), (qh, kh, vh), doh)
+
+                lib_ms = time_ms(sdpa_fwd_bwd) - time_ms(sdpa)
+                backend = top_kernel(sdpa_fwd_bwd)
+                n, bhs = B * S * H * D, B * H * S
+                b_dq = bound(6 * B * H * S * S * D, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
+                b_kv = bound(8 * B * H * S * S * D, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
+                b_all = bound(10 * B * H * S * S * D, 8 * n * isz + 4 * bhs, PEAK_BF16_FLOPS)
+                line += (f" | dq ms={ms_dq:.4f} plain_ms={plain_dq:.4f} bound_ms={b_dq[0]:.4f}"
+                         f" ({b_dq[1]}) | dkdv ms={ms_kv:.4f} plain_ms={plain_kv:.4f} "
+                         f"bound_ms={b_kv[0]:.4f} ({b_kv[1]}) | pair ms={ms_dq + ms_kv:.4f} "
+                         f"bound_ms={b_all[0]:.4f} ({b_all[1]}, 5 S^2 D matmuls) | SDPA "
+                         f"backward (fwd+bwd - fwd) ms={lib_ms:.4f}, top kernel {backend!r}")
+                if (B, S, H, D) == (2, 4096, 1, 512):
+                    for name, ms, pl, b_, e in (("flash_attn_bwd_dq", ms_dq, plain_dq, b_dq,
+                                                 res["dq"][1]),
+                                                ("flash_attn_bwd_dkdv", ms_kv, plain_kv, b_kv,
+                                                 max(res["dk"][1], res["dv"][1]))):
+                        rec[name] = dict(shape=[B, S, H, D], dtype="bf16", max_abs_err=e, ms=ms,
+                                         plain_ms=pl, bound_ms=b_[0], bound_by=b_[1],
+                                         library_ms=lib_ms)
+            log(line + (" OK" if ok and cut_seen else " FAIL"))
+            if not ok:
+                raise AssertionError(f"flash backward disagrees with its plain version at "
+                                     f"{(B, S, H, D)} {dt}: {res}, delta {d_err}")
+            if not cut_seen:
+                raise AssertionError(f"flash backward tolerance at {(B, S, H, D)} {dt} cannot "
+                                     "see a skipped tile")
+
+    # ---- GroupNorm(+SiLU) backward: stats pass, apply pass
+    B = 2
+    for (M, C, G) in GN_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn((B, M, C), generator=gen, device="cuda") * 1.3 + 0.7).to(dt)
+            g = torch.randn((B, M, C), generator=gen, device="cuda").to(dt)
+            w = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+            b = 0.1 * torch.randn(C, generator=gen, device="cuda")
+            st = gn.channel_stats_plain(x)
+            A, bb = gn.fold_affine_plain(st, w, b, G, M, 1e-6)
+            for silu in (False, True):
+                coef, ds, db = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
+                dx = gn.gn_bwd_apply(x, g, A, bb, coef, silu)
+                r_coef, r_ds, r_db = gn.gn_bwd_stats_plain(x, g, A, bb, st, w, G, 1e-6, silu)
+                r_dx = gn.gn_bwd_apply_plain(x, g, A, bb, r_coef, silu)
+                torch.cuda.synchronize()
+                x_ok, x_err, x_use = within(dx, r_dx, *GN_BWD_TOL[dt])
+                p_rel = max(_err(t_, r_) / r_.abs().max().item()
+                            for t_, r_ in ((coef, r_coef), (ds, r_ds), (db, r_db)))
+                ok = x_ok and p_rel <= GN_PARAM_GRAD_TOL
+                line = (f"[kernels_bwd] gn_bwd {str(dt)[6:]} silu={silu} B={B} M={M} C={C}: "
+                        f"max|dx-plain|={x_err:.3e} (max|dx|={r_dx.float().abs().max().item():.3e},"
+                        f" tol {GN_BWD_TOL[dt][1]:g}*max + {GN_BWD_TOL[dt][0]:g}*|dx|; largest "
+                        f"error / allowed {x_use:.3f}) "
+                        f"coef/dscale/dbias rel_err={p_rel:.3e} (tol {GN_PARAM_GRAD_TOL:g})")
+                if silu:
+                    isz = x.element_size()
+                    s_ms = time_ms(lambda: gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, True))
+                    s_plain = time_ms(lambda: gn.gn_bwd_stats_plain(x, g, A, bb, st, w, G, 1e-6,
+                                                                    True), 1, 5)
+                    a_ms = time_ms(lambda: gn.gn_bwd_apply(x, g, A, bb, coef, True))
+                    a_plain = time_ms(lambda: gn.gn_bwd_apply_plain(x, g, A, bb, coef, True),
+                                      1, 5)
+                    xg = x.detach().requires_grad_()
+                    wl, bl = w.to(dt).requires_grad_(), b.to(dt).requires_grad_()
+                    y = F.silu(F.group_norm(xg.permute(0, 2, 1), G, wl, bl, 1e-6))
+                    gl = g.permute(0, 2, 1)
+                    lib_ms = time_ms(lambda: torch.autograd.grad(y, (xg, wl, bl), gl,
+                                                                 retain_graph=True))
+                    s_bound = (2 * B * M * C * isz + 9 * B * C * 4) / PEAK_BYTES * 1e3
+                    a_bound = (3 * B * M * C * isz + 4 * B * C * 4) / PEAK_BYTES * 1e3
+                    line += (f" | stats ms={s_ms:.4f} plain_ms={s_plain:.4f} bound_ms="
+                             f"{s_bound:.4f} (bytes) | apply ms={a_ms:.4f} plain_ms={a_plain:.4f} "
+                             f"bound_ms={a_bound:.4f} (bytes) | F.group_norm+F.silu backward "
+                             f"ms={lib_ms:.4f}")
+                    if (M, C) == (32768, 256) and dt == torch.bfloat16:
+                        rec["gn_bwd_stats"] = dict(
+                            shape=[B, M, C], dtype="bf16", max_abs_err=_err(coef, r_coef),
+                            ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by="bytes",
+                            library_ms=None)
+                        rec["gn_bwd_apply"] = dict(
+                            shape=[B, M, C], dtype="bf16", max_abs_err=x_err, ms=a_ms,
+                            plain_ms=a_plain, bound_ms=a_bound, bound_by="bytes",
+                            library_ms=lib_ms)
+                log(line + (" OK" if ok else " FAIL"))
+                if not ok:
+                    raise AssertionError(f"GroupNorm backward disagrees at {(B, M, C)} {dt} "
+                                         f"silu={silu}: dx {x_err}, params {p_rel}")
+    return rec
+
+
 def _build_models(dtype, device, tiny, seed):
     from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
     from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
@@ -252,12 +461,25 @@ def _build_models(dtype, device, tiny, seed):
     return unet, vae, latent, ddpm_p, image
 
 
+def _train_config(tiny):
+    from medical_image_generation_tpu_torch.planning.planner import (
+        create_config_dict,
+        flagship_configs,
+    )
+
+    vae_p, ddpm_p, image = flagship_configs(tiny=tiny)
+    ds = {"median_shape": tuple(image), "max_shape": tuple(image)}
+    return create_config_dict(ds, [0], 1, vae_p, ddpm_p)
+
+
 def _counters():
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
     from medical_image_generation_tpu_torch.ops import groupnorm as gn
 
-    return {"flash_attn_fwd": fa.flash_attention, "gn_channel_stats": gn.channel_stats,
-            "gn_fold_affine": gn.fold_affine, "gn_affine_act": gn.affine_act}
+    return {"flash_attn_fwd": fa.flash_attention, "flash_attn_bwd_dq": fa.flash_bwd_dq,
+            "flash_attn_bwd_dkdv": fa.flash_bwd_dkdv, "gn_channel_stats": gn.channel_stats,
+            "gn_fold_affine": gn.fold_affine, "gn_affine_act": gn.affine_act,
+            "gn_bwd_stats": gn.gn_bwd_stats, "gn_bwd_apply": gn.gn_bwd_apply}
 
 
 def _reset_counts():
@@ -283,14 +505,71 @@ def phase_parity():
         eps_gpu, img_gpu = unet_g(x.cuda(), t.cuda()), vae_g.decode(x.cuda())
         torch.cuda.synchronize()
     counts = _read_counts()
+    fwd = ("flash_attn_fwd", "gn_channel_stats", "gn_fold_affine", "gn_affine_act")
     tol = 1e-4  # fp32 everywhere (TF32 off); summation order only
     e1 = _err(eps_gpu.cpu(), eps_cpu) / max(1.0, eps_cpu.abs().max().item())
     e2 = _err(img_gpu.cpu(), img_cpu) / max(1.0, img_cpu.abs().max().item())
     log(f"[parity] tiny 3D config fp32, CPU plain vs GPU kernels: unet err={e1:.3e} "
         f"decode err={e2:.3e} (max abs / max(1, max|ref|), tol {tol:g}); "
         f"GPU launches {counts}")
-    if not (e1 <= tol and e2 <= tol and all(v > 0 for v in counts.values())):
+    if not (e1 <= tol and e2 <= tol and all(counts[k] > 0 for k in fwd)):
         raise AssertionError("tiny-config CPU/GPU parity failed")
+    if any(counts[k] for k in counts if k not in fwd):
+        raise AssertionError(f"backward kernels launched under no_grad: {counts}")
+
+
+def phase_parity_train():
+    """One whole train_step of the tiny config on the CPU (plain versions)
+    and on the GPU (kernels), from the same weights and the same draws."""
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_config(tiny=True)
+    unet, vae, _, _, _ = _build_models(torch.float32, "cpu", True, 11)
+    unet.train()
+    unet_g, vae_g = copy.deepcopy(unet).cuda(), copy.deepcopy(vae).cuda()
+    cpu = LDMTrainer(cfg, unet, vae, device="cpu")
+    gpu = LDMTrainer(cfg, unet_g, vae_g, device="cuda")
+    cpu.scale_factor = gpu.scale_factor = 0.7
+    initial = compute_initial_patch_size(cfg["ddpm_transformations"])
+    x = torch.rand((2, *initial, 1), generator=torch.Generator().manual_seed(5))
+    draws = cpu.make_draws(x, generator=torch.Generator().manual_seed(6))
+    old = [p.detach().clone() for p in cpu.params]
+    loss_c = cpu.train_step(x, draws=draws)
+    _reset_counts()
+    loss_g = gpu.train_step(x.cuda(), draws=draws)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    l_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    names = [n for n, p in cpu.unet.named_parameters() if p.requires_grad]
+    g_err = max(_err(pg.grad.cpu(), pc.grad) / max(pc.grad.abs().max().item(), 1e-30)
+                for pc, pg in zip(cpu.params, gpu.params))
+    # Adam's first update is -lr * (g / (|g| + eps) + wd * p): u = g / (|g| + eps)
+    # is about sign(g). Where |u_cpu| > 0.99 the GPU's u agrees to 1e-3; where
+    # |g| is near eps the sign hangs on rounding, so those (at most 1%) are
+    # only held to |u| <= 1.
+    n_off, n_all, u_err = 0, 0, 0.0
+    for name, p0, pc, pg in zip(names, old, cpu.params, gpu.params):
+        u_c = (p0 - pc.detach()) / LR - 1e-2 * p0
+        u_g = (p0 - pg.detach().cpu()) / LR - 1e-2 * p0
+        firm = u_c.abs() > 0.99
+        if firm.any():
+            u_err = max(u_err, _err(u_g[firm], u_c[firm]))
+        if not bool((u_g.abs() <= 1.0 + 2.0 ** -22 * p0.abs() / LR + 1e-6).all()):
+            raise AssertionError(f"train parity: |update| of {name} beyond lr")
+        n_off += int((~firm).sum())
+        n_all += firm.numel()
+    log(f"[parity] tiny 3D train step fp32, CPU plain vs GPU kernels: loss rel_err={l_err:.3e} "
+        f"(tol {PARITY_LOSS_TOL:g}); max gradient err / max|grad| over {len(names)} params="
+        f"{g_err:.3e} (tol {PARITY_GRAD_TOL:g}); Adam update max|u_gpu-u_cpu|={u_err:.3e} "
+        f"(tol 1e-3) on |u|>0.99, {n_off}/{n_all} elements below; GPU launches {counts}")
+    if not (l_err <= PARITY_LOSS_TOL and g_err <= PARITY_GRAD_TOL and u_err <= 1e-3
+            and n_off <= 0.01 * n_all):
+        raise AssertionError("tiny-config train-step CPU/GPU parity failed")
+    if not all(v > 0 for v in counts.values()):
+        raise AssertionError(f"a kernel did not launch in the GPU train step: {counts}")
 
 
 def phase_slice(steps=10):
@@ -302,7 +581,7 @@ def phase_slice(steps=10):
     dev = torch.device("cuda")
     unet, vae, latent, ddpm_p, image = _build_models(torch.bfloat16, dev, False, 1234)
     n_params = sum(p.numel() for p in unet.parameters())
-    n_vae = sum(p.numel() for p in vae.parameters())
+    n_vae = sum(p.numel() for p in vae.decoder.parameters())
     log(f"[slice] flagship U-Net {ddpm_p['num_channels']} params={n_params:,}; VAE decoder "
         f"params={n_vae:,}; latent {latent}x{ddpm_p['in_channels']} -> image {image}; bf16 batch 2")
     B = 2
@@ -314,7 +593,7 @@ def phase_slice(steps=10):
 
     flash_per_fwd = count(unet, AttentionBlock)
     gn_per_fwd = count(unet, GroupNorm)
-    gn_per_decode = count(vae, GroupNorm)
+    gn_per_decode = count(vae.decoder, GroupNorm)
     gen = torch.Generator(device=dev).manual_seed(0)
     sampler.sample(B, sampler="ddim", num_inference_steps=2, generator=gen)  # warm-up
     torch.cuda.synchronize()
@@ -328,10 +607,11 @@ def phase_slice(steps=10):
     counts = _read_counts()
 
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    expect = {"flash_attn_fwd": flash_per_fwd * steps,
-              "gn_channel_stats": gn_per_fwd * steps + gn_per_decode,
-              "gn_fold_affine": gn_per_fwd * steps + gn_per_decode,
-              "gn_affine_act": gn_per_fwd * steps + gn_per_decode}
+    expect = {k: 0 for k in counts}
+    expect.update({"flash_attn_fwd": flash_per_fwd * steps,
+                   "gn_channel_stats": gn_per_fwd * steps + gn_per_decode,
+                   "gn_fold_affine": gn_per_fwd * steps + gn_per_decode,
+                   "gn_affine_act": gn_per_fwd * steps + gn_per_decode})
     log(f"[slice] launches per U-Net forward: flash {flash_per_fwd}, GroupNorm {gn_per_fwd}; "
         f"per decode: GroupNorm {gn_per_decode}; {steps} DDIM steps + decode: counted "
         f"{counts}, expected {expect}")
@@ -357,11 +637,143 @@ def phase_slice(steps=10):
     with torch.no_grad():
         profile_breakdown("U-Net forward", lambda: unet(x, t))
         profile_breakdown("decode", lambda: sampler.decode(x))
+
+
+def phase_train(warmup=2, steps=10):
+    """The flagship train step; returns the launch counts of the timed steps."""
+    from medical_image_generation_tpu_torch.data.augment import augment_batch
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.ops import _build
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+    from medical_image_generation_tpu_torch.training.sample import (
+        LDMSampler,
+        load_torch_checkpoint,
+    )
+    from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    dev = torch.device("cuda")
+    cfg = _train_config(tiny=False)
+    vae_f32 = AutoencoderKL.from_config(cfg["vae_params"], dtype=torch.float32, device=dev)
+    randomize_(vae_f32, 4321)
+    trainer = LDMTrainer.from_config(cfg, vae_f32.state_dict(), device=dev,
+                                     dtype=torch.bfloat16, seed=0)
+    del vae_f32
+    randomize_(trainer.unet, 4322)  # every layer, the zero-initialised output conv too
+    unet, vae = trainer.unet, trainer.vae
+    n_params = sum(p.numel() for p in trainer.params)
+    initial = tuple(compute_initial_patch_size(cfg["ddpm_transformations"]))
+    B = 2
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = torch.rand((B, *initial, 1), generator=gen, device=dev)
+    scale_factor, latent_shape = trainer.probe_latent(batch)
+    log(f"[train] flagship U-Net {cfg['ddpm_params']['num_channels']} trainable params="
+        f"{n_params:,} (fp32 masters, bf16 compute); batch {tuple(batch.shape)} -> crop "
+        f"{trainer.aug_cfg.crop_to} -> latent {latent_shape}; scale_factor={scale_factor:.5f}; "
+        f"lr {cfg['ddpm_learning_rate']}, clip {trainer.clip}, adam mu "
+        f"{trainer.opt.mu[0].dtype}")
+    if initial != (128, 143, 143) or n_params != 441_490_952:
+        raise AssertionError(f"not the flagship config: patch {initial}, params {n_params}")
+
+    def count(mod, cls):
+        return sum(isinstance(m, cls) for m in mod.modules())
+
+    attn_u, gn_u = count(unet, AttentionBlock), count(unet, GroupNorm)
+    attn_e, gn_e = count(vae.encoder, AttentionBlock), count(vae.encoder, GroupNorm)
+    per_step = {"flash_attn_fwd": attn_u + attn_e, "flash_attn_bwd_dq": attn_u,
+                "flash_attn_bwd_dkdv": attn_u, "gn_channel_stats": gn_u + gn_e,
+                "gn_fold_affine": gn_u + gn_e, "gn_affine_act": gn_u + gn_e,
+                "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u}
+
+    p0 = [p.detach().clone() for p in trainer.params[:4]]
+    losses = [trainer.train_step(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    gn.gn_bwd_apply.grad_copies = 0
+    t0 = time.perf_counter()
+    losses += [trainer.train_step(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _read_counts()
+    copies = gn.gn_bwd_apply.grad_copies
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    expect = {k: v * steps for k, v in per_step.items()}
+    changed = all(not torch.equal(a, p.detach()) for a, p in zip(p0, trainer.params[:4]))
+    log(f"[train] losses {['%.5f' % v for v in losses]}")
+    log(f"[train] launches per step predicted {per_step} (U-Net: {attn_u} attention, {gn_u} "
+        f"GroupNorm; encoder: {attn_e} attention, {gn_e} GroupNorm); {steps} steps counted "
+        f"{counts}, expected {expect}; GroupNorm gradients copied to channels-last: "
+        f"{copies / steps:g} a step")
+    ms_step = secs * 1e3 / steps
+    log(f"[train] {steps} steps in {secs * 1e3:.1f} ms: {ms_step:.3f} ms per step = "
+        f"{1e3 / ms_step:.3f} steps/s; peak memory {peak_gb:.2f} GiB; params changed={changed}; "
+        f"mu dtype {trainer.opt.mu[0].dtype}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if counts != expect or attn_u != 11 or gn_u != 46 or gn_e != 13:
+        raise AssertionError(f"launch counts {counts} != expected {expect}")
+    if not changed or trainer.opt.mu[0].dtype != torch.bfloat16:
+        raise AssertionError("params unchanged by the steps, or mu not stored in bf16")
+
+    # U-Net forward + backward alone, and the optimizer alone, on fixed inputs
+    z = torch.randn(latent_shape, generator=gen, device=dev)
+    t = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+
+    def fwd_bwd():
+        for p in trainer.params:
+            p.grad = None
+        torch.mean((unet(z, t).float() - z) ** 2).backward()
+
+    fb_ms = time_ms(fwd_bwd, 1, 5)
+    grads = [p.grad for p in trainer.params]
+    opt_ms = time_ms(lambda: trainer.opt.step(grads), 1, 5)
+    draws = trainer.make_draws(batch)
+    aug_ms = time_ms(lambda: augment_batch(batch, draws.augment, trainer.aug_cfg), 1, 5)
+    imgs = augment_batch(batch, draws.augment, trainer.aug_cfg)
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: vae.encode_stage_2_inputs(imgs, draws.eps), 1, 5)
+    log(f"[train] ms of U-Net forward+backward alone={fb_ms:.3f}; ms of clip+AdamW "
+        f"alone={opt_ms:.3f}; ms of augment alone={aug_ms:.3f}; ms of the frozen encode "
+        f"alone={enc_ms:.3f}")
+    profile_breakdown("train step", lambda: trainer.train_step(batch))
+
+    # the trained model goes straight into the sampler
+    ckpt_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "ldm.pt")
+    trainer.save_checkpoint(path)
+    del trainer, unet, vae, grads, imgs
+    torch.cuda.empty_cache()
+    payload = load_torch_checkpoint(path)
+    os.remove(path)
+    sampler = LDMSampler.from_config(cfg, payload["unet"], payload["vae"],
+                                     payload["scale_factor"], payload["latent_shape"],
+                                     dtype=torch.bfloat16, device=dev)
+    images = sampler.sample(1, sampler="ddim", num_inference_steps=2,
+                            generator=torch.Generator(device=dev).manual_seed(8))
+    ok = images.shape == (1, 128, 128, 128, 1) and bool(torch.isfinite(
+        torch.from_numpy(images)).all())
+    log(f"[train] save_checkpoint -> LDMSampler.from_config -> 2 DDIM steps: images "
+        f"{images.shape} finite={ok} std={float(images.std()):.4f}")
+    if not ok:
+        raise AssertionError("sampling from the saved checkpoint failed")
     return counts
 
 
+PORT_KERNELS = {  # profile name patterns of each port kernel
+    "flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
+    "flash_bwd_dkdv": ("flash_bwd_dkdv",), "gn_stats": ("stats_partial", "stats_reduce"),
+    "gn_fold": ("::fold_kernel",), "gn_affine": ("affine_",),
+    "gn_bwd_stats": ("bwd_partial", "bwd_reduce", "bwd_fold"), "gn_bwd_apply": ("::apply_",),
+}
+
+
 def profile_breakdown(label, fn):
-    """One call under torch.profiler: device time by kernel, the three port
+    """One call under torch.profiler: device time by kernel, the port
     kernels' share, and the device's busy share of the call's wall time
     (single stream, so kernels do not overlap); plus the host's enqueue time."""
     from torch.profiler import ProfilerActivity, profile
@@ -384,14 +796,12 @@ def profile_breakdown(label, fn):
         by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     busy = sum(v[0] for v in by_name.values()) / 1e3
     span = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)) / 1e3
-    port = {"flash_attn": "flash_fwd", "gn_stats": "stats_", "gn_fold": "fold_kernel",
-            "gn_affine": "affine"}
-    shares = {k: sum(v[0] for n, v in by_name.items() if pat in n) / 1e3
-              for k, pat in port.items()}
+    shares = {k: sum(v[0] for n, v in by_name.items() if any(p in n for p in pats)) / 1e3
+              for k, pats in PORT_KERNELS.items()}
     log(f"[profile] {label}: {len(kern)} kernels, device busy {busy:.3f} ms over a "
         f"{span:.3f} ms span (idle share {1 - busy / span:.3f}); host enqueue "
         f"{host_ms:.3f} ms; port kernels ms {({k: round(v, 3) for k, v in shares.items()})}")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {us / 1e3:8.3f} ms  x{n:<4d} {name[:110]}")
 
 
@@ -404,8 +814,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     rec = phase_kernels()
+    rec.update(phase_kernels_bwd())
     phase_parity()
-    counts = phase_slice()
+    phase_parity_train()
+    phase_slice()
+    counts = phase_train()
     log(f"[env] total {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -413,15 +826,16 @@ def main() -> int:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
     print(smi.stdout.strip().splitlines()[0])
     src = "medical_image_generation_tpu_torch/csrc/"
+    jax_ops = "medical_image_generation_tpu/ops/"
     meta = {
-        "flash_attn_fwd": (src + "flash_attn_fwd.cu",
-                           "medical_image_generation_tpu/ops/pallas_attention.py:153"),
-        "gn_channel_stats": (src + "groupnorm.cu",
-                             "medical_image_generation_tpu/ops/pallas_groupnorm.py:107"),
-        "gn_fold_affine": (src + "groupnorm.cu",
-                           "medical_image_generation_tpu/ops/pallas_groupnorm.py:226"),
-        "gn_affine_act": (src + "groupnorm.cu",
-                          "medical_image_generation_tpu/ops/pallas_groupnorm.py:204"),
+        "flash_attn_fwd": (src + "flash_attn_fwd.cu", jax_ops + "pallas_attention.py:153"),
+        "flash_attn_bwd_dq": (src + "flash_attn_bwd.cu", jax_ops + "pallas_attention.py:326"),
+        "flash_attn_bwd_dkdv": (src + "flash_attn_bwd.cu", jax_ops + "pallas_attention.py:326"),
+        "gn_channel_stats": (src + "groupnorm.cu", jax_ops + "pallas_groupnorm.py:107"),
+        "gn_fold_affine": (src + "groupnorm.cu", jax_ops + "pallas_groupnorm.py:226"),
+        "gn_affine_act": (src + "groupnorm.cu", jax_ops + "pallas_groupnorm.py:204"),
+        "gn_bwd_stats": (src + "groupnorm_bwd.cu", jax_ops + "pallas_groupnorm.py:372"),
+        "gn_bwd_apply": (src + "groupnorm_bwd.cu", jax_ops + "pallas_groupnorm.py:372"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

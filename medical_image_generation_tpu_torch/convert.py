@@ -65,7 +65,8 @@ def flax_to_state_dict(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
             out.update(flax_to_state_dict(v, f"{prefix}{k}."))
         else:
             name, a = _leaf(k, v)
-            out[f"{prefix}{name}"] = torch.from_numpy(np.ascontiguousarray(a))
+            # C-contiguous and writeable (a copy only where the input is not)
+            out[f"{prefix}{name}"] = torch.from_numpy(np.require(a, requirements=["C", "W"]))
     return out
 
 
@@ -75,9 +76,16 @@ def unet_from_flax(params) -> Dict[str, torch.Tensor]:
     return flax_to_state_dict(migrate_groupnorm_params(dict(params))[0])
 
 
+def vae_from_flax(params) -> Dict[str, torch.Tensor]:
+    """State dict of the whole ``models.autoencoder_kl.AutoencoderKL``
+    (encoder, quant convs, decoder) from the flax ``AutoencoderKL`` params."""
+    return flax_to_state_dict(migrate_groupnorm_params(dict(params))[0])
+
+
 def vae_decoder_from_flax(params) -> Dict[str, torch.Tensor]:
-    """State dict of ``models.autoencoder_kl.AutoencoderKL`` (decoding half)
-    from the flax ``AutoencoderKL`` params; encoder entries are dropped."""
+    """State dict of the decoding half of ``models.autoencoder_kl.
+    AutoencoderKL`` (``with_encoder=False``, what sampling builds) from the
+    flax ``AutoencoderKL`` params; encoder entries are dropped."""
     tree = migrate_groupnorm_params(dict(params))[0]
     return flax_to_state_dict(
         {k: tree[k] for k in ("post_quant_conv", "decoder")})

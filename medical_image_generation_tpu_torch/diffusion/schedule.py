@@ -2,7 +2,8 @@
 
 Port of ``medical_image_generation_tpu/diffusion/schedule.py``: the same
 ``make_betas`` ramps, the same fp32 tables, and the same closed-form
-``pred_x0`` / ancestral ``step`` / ``ddim_step``. Random draws are passed in
+``add_noise`` / ``training_target`` / ``pred_x0`` / ancestral ``step`` /
+``ddim_step``. Random draws are passed in
 as tensors, never drawn here.
 """
 
@@ -93,6 +94,25 @@ class NoiseSchedule:
 
     def _gather(self, table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
         return self._bcast(table[t], ndim)
+
+    def add_noise(self, x0, noise, t):
+        """q(x_t | x_0) forward noising."""
+        a = self._gather(self.sqrt_alphas_cumprod, t, x0.ndim)
+        s = self._gather(self.sqrt_one_minus_alphas_cumprod, t, x0.ndim)
+        return a * x0 + s * noise
+
+    def velocity(self, x0, noise, t):
+        """v-prediction target: sqrt(acp) eps - sqrt(1 - acp) x0."""
+        a = self._gather(self.sqrt_alphas_cumprod, t, x0.ndim)
+        s = self._gather(self.sqrt_one_minus_alphas_cumprod, t, x0.ndim)
+        return a * noise - s * x0
+
+    def training_target(self, x0, noise, t):
+        if self.prediction_type == "epsilon":
+            return noise
+        if self.prediction_type == "v_prediction":
+            return self.velocity(x0, noise, t)
+        return x0
 
     def pred_x0(self, model_out, x_t, t):
         """Recover x0 from the model output under the prediction type."""

@@ -6,8 +6,13 @@ weight converter maps parameter paths one to one.
 
 Tensors are N C *spatial in channels-last memory (``channels_last_3d`` in
 3D); every op used here preserves that format, and GroupNorm checks it.
-Parameters of the compute layers (convs, linears) are created in the compute
-``dtype``; GroupNorm parameters stay fp32, as in the JAX modules.
+Parameters of the compute layers (convs, linears) are held in
+``param_dtype`` (default: the compute ``dtype``) and cast to ``dtype`` where
+they are used, as flax's ``param_dtype`` / ``dtype`` pair does: training
+holds fp32 masters and computes in bf16, so gradients arrive in fp32 on the
+fp32 params; sampling holds bf16 weights and the cast is a no-op. GroupNorm
+parameters stay fp32, as in the JAX modules. No autocast: the dtypes are
+explicit, and the GroupNorm kernels check them.
 
 Two TPU execution strategies of the JAX module are not copied, because they
 compute the same math:
@@ -38,25 +43,49 @@ def _per_axis(value, ndim: int):
     return tuple(int(v) for v in value)
 
 
+def _cast(p, dtype):
+    return None if p is None else p.to(dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` holding its parameters in ``param_dtype`` and computing
+    in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
+                 param_dtype=None, device=None):
+        super().__init__(in_features, out_features, dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        return F.linear(x, _cast(self.weight, d), _cast(self.bias, d))
+
+
 class ConvND(nn.Module):
     """Conv with per-axis kernel/stride/padding; the conv is the child
     ``Conv_0`` (flax ``ConvND_k/Conv_0``). Its weight is kept channels-last
-    so cuDNN runs NDHWC convolutions."""
+    so cuDNN runs NDHWC convolutions; it is held in ``param_dtype`` and cast
+    to ``dtype`` for the conv."""
 
     def __init__(self, in_channels: int, features: int, kernel_size=3, strides=1,
                  padding=1, spatial_dims: int = 3, use_bias: bool = True,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         conv = nn.Conv3d if spatial_dims == 3 else nn.Conv2d
+        self.dtype = dtype
         self.Conv_0 = conv(
             in_channels, features, _per_axis(kernel_size, spatial_dims),
             stride=_per_axis(strides, spatial_dims), padding=_per_axis(padding, spatial_dims),
-            bias=use_bias, dtype=dtype, device=device)
+            bias=use_bias, dtype=param_dtype or dtype, device=device)
         fmt = torch.channels_last_3d if spatial_dims == 3 else torch.channels_last
         self.Conv_0.weight.data = self.Conv_0.weight.data.contiguous(memory_format=fmt)
 
     def forward(self, x):
-        return self.Conv_0(x)
+        c = self.Conv_0
+        y = c._conv_forward(x, _cast(c.weight, self.dtype), _cast(c.bias, self.dtype))
+        # a batch of one can come back NC*spatial-contiguous; GroupNorm needs
+        # channels-last (a no-op otherwise)
+        return y.contiguous(memory_format=channels_last_format(y))
 
 
 class GroupNorm(nn.Module):
@@ -82,13 +111,14 @@ class ResBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, norm_num_groups: int = 32,
                  norm_eps: float = 1e-6, spatial_dims: int = 3,
-                 temb_channels: Optional[int] = None, dtype=torch.float32, device=None):
+                 temb_channels: Optional[int] = None, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.GroupNorm_0 = GroupNorm(in_channels, norm_num_groups, norm_eps, device)
         self.ConvND_0 = ConvND(in_channels, out_channels, 3, 1, 1, spatial_dims, **kw)
         if temb_channels is not None:
-            self.Dense_0 = nn.Linear(temb_channels, out_channels, **kw)
+            self.Dense_0 = Linear(temb_channels, out_channels, **kw)
         self.GroupNorm_1 = GroupNorm(out_channels, norm_num_groups, norm_eps, device)
         self.ConvND_1 = ConvND(out_channels, out_channels, 3, 1, 1, spatial_dims, **kw)
         if in_channels != out_channels:
@@ -111,13 +141,14 @@ class AttentionBlock(nn.Module):
     residual add."""
 
     def __init__(self, channels: int, num_head_channels: int = -1, norm_num_groups: int = 32,
-                 norm_eps: float = 1e-6, dtype=torch.float32, device=None):
+                 norm_eps: float = 1e-6, dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.num_heads = channels // num_head_channels if num_head_channels > 0 else 1
         self.head_dim = channels // self.num_heads
         self.GroupNorm_0 = GroupNorm(channels, norm_num_groups, norm_eps, device)
-        self.Dense_0 = nn.Linear(channels, 3 * channels, dtype=dtype, device=device)
-        self.Dense_1 = nn.Linear(channels, channels, dtype=dtype, device=device)
+        self.Dense_0 = Linear(channels, 3 * channels, **kw)
+        self.Dense_1 = Linear(channels, channels, **kw)
 
     def forward(self, x):
         B, C = x.shape[:2]
@@ -137,10 +168,10 @@ class Downsample(nn.Module):
     """Strided conv with per-axis geometry."""
 
     def __init__(self, channels: int, stride, kernel_size, padding, spatial_dims: int = 3,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         self.ConvND_0 = ConvND(channels, channels, kernel_size, stride, padding, spatial_dims,
-                               dtype=dtype, device=device)
+                               dtype=dtype, param_dtype=param_dtype, device=device)
 
     def forward(self, x):
         return self.ConvND_0(x)
@@ -155,13 +186,14 @@ class Upsample(nn.Module):
     variant (``use_convtranspose``) is not ported yet."""
 
     def __init__(self, channels: int, stride, spatial_dims: int = 3,
-                 use_convtranspose: bool = False, dtype=torch.float32, device=None):
+                 use_convtranspose: bool = False, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
         if use_convtranspose:
             raise NotImplementedError("use_convtranspose=True is not ported yet")
         self.stride = _per_axis(stride, spatial_dims)
         self.ConvND_0 = ConvND(channels, channels, 3, 1, 1, spatial_dims, dtype=dtype,
-                               device=device)
+                               param_dtype=param_dtype, device=device)
 
     def forward(self, x):
         if any(s > 1 for s in self.stride):

@@ -1,4 +1,5 @@
-"""Strided diffusion U-Net (2D/3D), forward pass.
+"""Strided diffusion U-Net (2D/3D); trained through autograd (the
+GroupNorm and attention kernels are autograd Functions).
 
 Port of ``DiffusionUNet`` (``medical_image_generation_tpu/models/
 diffusion_unet.py:109-285``): fp32 time MLP, optional class embedding,
@@ -37,14 +38,17 @@ from medical_image_generation_tpu_torch.models.blocks import (
 class DiffusionUNet(nn.Module):
     """``forward(x, timesteps, class_labels=None)`` with x in (B, *spatial,
     C_in) returns the fp32 prediction in (B, *spatial, C_out). Build from the
-    planner's ddpm_params with ``from_config``."""
+    planner's ddpm_params with ``from_config``. ``param_dtype`` (default:
+    ``dtype``) holds the conv / linear weights: fp32 for training with bf16
+    compute."""
 
     def __init__(self, spatial_dims=3, in_channels=8, out_channels=8,
                  num_channels=(256, 512, 768), attention_levels=(False, True, True),
                  num_head_channels=(0, 512, 768), num_res_blocks=2, norm_num_groups=32,
                  strides=((1, 1, 1), (2, 2, 2), (2, 2, 2)),
                  kernel_sizes=((3, 3, 3),) * 3, paddings=((1, 1, 1),) * 3,
-                 num_class_embeds: Optional[int] = None, dtype=torch.float32, device=None):
+                 num_class_embeds: Optional[int] = None, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
         n = len(num_channels)
         nrb = per_level(num_res_blocks, n)
@@ -53,7 +57,7 @@ class DiffusionUNet(nn.Module):
         self.attention_levels = tuple(attention_levels)
         self.nrb = nrb
         sd, G = spatial_dims, norm_num_groups
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         ted = num_channels[0] * 4
         self.Dense_0 = nn.Linear(num_channels[0], ted, device=device)  # fp32 time MLP
         self.Dense_1 = nn.Linear(ted, ted, device=device)
@@ -106,7 +110,8 @@ class DiffusionUNet(nn.Module):
         nn.init.zeros_(self.ConvND_1.Conv_0.bias)
 
     @staticmethod
-    def from_config(params: dict, dtype=torch.bfloat16, device=None) -> "DiffusionUNet":
+    def from_config(params: dict, dtype=torch.bfloat16, param_dtype=None,
+                    device=None) -> "DiffusionUNet":
         return DiffusionUNet(
             spatial_dims=params["spatial_dims"],
             in_channels=params["in_channels"],
@@ -121,6 +126,7 @@ class DiffusionUNet(nn.Module):
             paddings=tuple(tuple(p) for p in params["paddings"]),
             num_class_embeds=params.get("num_class_embeds"),
             dtype=dtype,
+            param_dtype=param_dtype,
             device=device,
         )
 

@@ -1,10 +1,12 @@
 """Planner math for model configs: the port's own copy.
 
 Copied from ``medical_image_generation_tpu/planning/planner.py`` (the
-numpy-free functions at :28-169) so the port builds planner configs without
+numpy-free functions at :28-286) so the port builds planner configs without
 importing the JAX package. Same semantics: the nnU-Net-style per-axis
-stride/kernel/padding derivation and the KL-VAE / diffusion U-Net
-architecture dicts derived from a dataset's median shape.
+stride/kernel/padding derivation, the KL-VAE / diffusion U-Net architecture
+dicts derived from a dataset's median shape, and the full training config
+(``create_config_dict``: augmentation switches, learning rates, noise
+schedule).
 """
 
 from __future__ import annotations
@@ -127,6 +129,123 @@ def create_ddpm_dict(dataset_config: Dict, spatial_dims: int) -> Dict:
         "strides": [p[0] for p in ddpm_down],
         "kernel_sizes": [p[1] for p in ddpm_down],
         "paddings": [p[2] for p in ddpm_down],
+    }
+
+
+def create_config_dict(
+    dataset_config: Dict,
+    input_channels: Sequence[int],
+    n_epochs_multiplier: int,
+    autoencoder_dict: Dict,
+    ddpm_dict: Dict,
+) -> Dict:
+    """Full derived training config (reference configuration.py:907-1027).
+
+    Loss weights, learning rates, epoch counts, noise schedule, and the soft
+    augmentation switch set are reproduced verbatim so training dynamics match.
+    """
+    spatial_dims = autoencoder_dict["spatial_dims"]
+    patch_size = snap_patch_size(
+        dataset_config["median_shape"], dataset_config["max_shape"], spatial_dims
+    )
+    batch_size = 24 if spatial_dims == 2 else 2
+
+    ae_transformations = {
+        "patch_size": patch_size,
+        "scaling": True,
+        "rotation": True,
+        "gaussian_noise": False,
+        "gaussian_blur": False,
+        "low_resolution": False,
+        "brightness": True,
+        "contrast": True,
+        "gamma": True,
+        "mirror": True,
+        "dummy_2d": False,
+        "elastic": False,  # reference CLI switch (configuration.py:70), off by default
+        # "soft" = the reference's image-generation branch
+        # (data_processing.py:400-416); "nnunet" = its heavy nnU-Net branch
+        # (:371-397) with anisotropy-aware 3D rotation and wider ranges
+        "aug_preset": "soft",
+        # extract a rotation/scale-enlarged training patch and crop back to
+        # patch_size AFTER the device spatial transform, so rotated/zoomed
+        # samples have no zero-filled corners (nnU-Net get_initial_patch_size,
+        # reference data_processing.py:339-359). Emitted true for new plans;
+        # configs without the key keep the reference soft-branch behavior
+        # (final-size patch, zero corners under rotation).
+        "initial_patch_enlargement": True,
+    }
+    ddpm_transformations = dict(ae_transformations, rotation=False)
+
+    if spatial_dims == 2:
+        perceptual_params = {"spatial_dims": 2, "network_type": "vgg"}
+    else:
+        perceptual_params = {
+            "spatial_dims": 3,
+            "network_type": "vgg",
+            "is_fake_3d": True,
+            "fake_3d_ratio": 0.2,
+        }
+
+    discriminator_params = {
+        "spatial_dims": spatial_dims,
+        "in_channels": autoencoder_dict["in_channels"],
+        "out_channels": 1,
+        "num_channels": 64,
+        "num_layers_d": 3,
+    }
+
+    n_epochs = (300 if spatial_dims == 3 else 200) * n_epochs_multiplier
+    ae_batch_size = batch_size
+    ddpm_batch_size = ae_batch_size * 2
+
+    return {
+        "input_channels": list(input_channels),
+        "ae_transformations": ae_transformations,
+        "ddpm_transformations": ddpm_transformations,
+        "ae_batch_size": ae_batch_size,
+        "ddpm_batch_size": ddpm_batch_size,
+        "n_epochs": n_epochs,
+        "val_plot_interval": 10,
+        "grad_clip_max_norm": 1,
+        "grad_accumulate_step": 1,
+        "oversample_ratio": 0.33,
+        # False = batch-position oversampling (_oversample_last_XX_percent,
+        # the reference default); True = per-sample coin at oversample_ratio
+        # (reference _probabilistic_oversampling, data_processing.py:431)
+        "probabilistic_oversampling": False,
+        "num_workers": 8,
+        "lr_scheduler": None,
+        "lr_scheduler_params": {"total_iters": n_epochs, "power": 0.9},
+        "time_scheduler_params": {
+            "num_train_timesteps": 1000,
+            "schedule": "scaled_linear_beta",
+            "beta_start": 0.0015,
+            "beta_end": 0.0205,
+            "prediction_type": "epsilon",
+        },
+        # the pixel-space DDPM trainer's OWN schedule (reference
+        # train_ddpm.py:380-381 hardcodes beta 0.0005->0.0195 on MONAI's
+        # default linear_beta ramp, distinct from the LDM's scaled-linear
+        # 0.0015->0.0205); filter_config_by_mode swaps it in for train_ddpm
+        "ddpm_time_scheduler_params": {
+            "num_train_timesteps": 1000,
+            "schedule": "linear_beta",
+            "beta_start": 0.0005,
+            "beta_end": 0.0195,
+            "prediction_type": "epsilon",
+        },
+        "ae_learning_rate": 5e-5,
+        "d_learning_rate": 5e-5,
+        "autoencoder_warm_up_epochs": 5,
+        "adv_weight": 0.01,
+        "perc_weight": 0.5 if spatial_dims == 2 else 0.125,
+        "kl_weight": 1e-6 if spatial_dims == 2 else 1e-7,
+        "vae_params": autoencoder_dict,
+        "perceptual_params": perceptual_params,
+        "discriminator_params": discriminator_params,
+        "ddpm_learning_rate": 2e-5,
+        "ddpm_params": ddpm_dict,
     }
 
 

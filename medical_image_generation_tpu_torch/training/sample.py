@@ -58,7 +58,8 @@ class LDMSampler:
                     device: str | torch.device = "cuda") -> "LDMSampler":
         """Build the networks from a run config (``vae_params``,
         ``ddpm_params``, ``time_scheduler_params``, optional
-        ``class_conditioning``) and load their state_dicts."""
+        ``class_conditioning``) and load their state_dicts; ``vae_state`` may
+        be the whole KL-VAE or its decoding half (only that half is built)."""
         dev = resolve_device(device)
         ddpm_params = dict(config["ddpm_params"])
         cc = config.get("class_conditioning") or None
@@ -67,9 +68,11 @@ class LDMSampler:
             num_classes = int(cc["num_classes"])
             ddpm_params["num_class_embeds"] = num_classes + 1
         unet = DiffusionUNet.from_config(ddpm_params, dtype=dtype, device=dev)
-        vae = AutoencoderKL.from_config(config["vae_params"], dtype=dtype, device=dev)
+        vae = AutoencoderKL.from_config(config["vae_params"], dtype=dtype, device=dev,
+                                        with_encoder=False)
         unet.load_state_dict(unet_state)
-        vae.load_state_dict(vae_state)
+        vae.load_state_dict({k: v for k, v in vae_state.items()
+                             if k.startswith(("post_quant_conv.", "decoder."))})
         schedule = NoiseSchedule.from_config(config["time_scheduler_params"], device=dev)
         return LDMSampler(unet, vae, schedule, scale_factor, latent_shape, num_classes,
                           float((cc or {}).get("guidance_scale", 2.0)), dev)

@@ -11,6 +11,7 @@ import torch
 from medical_image_generation_tpu.models import blocks as jblocks
 from medical_image_generation_tpu_torch import convert
 from medical_image_generation_tpu_torch.models import blocks as tblocks
+from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
 from medical_image_generation_tpu_torch.planning.planner import flagship_configs
 from torch_parity import internal, nd, public, rand_params, tiny_unet_pair, tiny_vae_pair
@@ -85,6 +86,12 @@ def test_tiny_vae_decode_matches_flax():
         got = tm.decode(torch.from_numpy(z))
     assert got.shape == (2, 32, 32, 32, 1)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    # the decoding half alone (what the sampler builds) from the decoder's params
+    half = AutoencoderKL.from_config(vae_p, dtype=torch.float32, device="cpu",
+                                     with_encoder=False)
+    half.load_state_dict(convert.vae_decoder_from_flax(params))
+    with torch.no_grad():
+        torch.testing.assert_close(half.eval().decode(torch.from_numpy(z)), got, rtol=0, atol=0)
 
 
 def test_converter_migrates_legacy_groupnorm_nesting():

@@ -75,10 +75,12 @@ def tiny_unet_pair(num_class_embeds=None, seed=0):
 
 
 def tiny_vae_pair(seed=1):
+    """(flax module, flax params, port module, vae_params) of the tiny 3D
+    KL-VAE, encoder and decoder, with the same seeded weights."""
     vae_p, _, image = flagship_configs(tiny=True)
     jm = JAutoencoderKL.from_config(vae_p, dtype=jnp.float32)
     params = rand_params(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, *image, 1)),
                                  jax.random.PRNGKey(1))["params"], seed)
     tm = AutoencoderKL.from_config(vae_p, dtype=torch.float32, device="cpu")
-    tm.load_state_dict(convert.vae_decoder_from_flax(params))
+    tm.load_state_dict(convert.vae_from_flax(params))
     return jm, params, tm.eval(), vae_p
