@@ -6,13 +6,18 @@
 Phases (any failure raises and exits non-zero):
 
 1. build        -- compile every kernel in medical_image_generation_tpu_torch/csrc
-                   with nvcc (one process per source, in parallel).
+                   with nvcc (one process per source, in parallel), print each
+                   instantiation's registers and spills, and check in the SASS
+                   (cuobjdump) that every bf16 flash forward and dK/dV kernel
+                   issues HGMMA (wgmma).
 2. kernels      -- each forward kernel against its plain PyTorch version on
                    CUDA tensors at the flagship path's shapes, bf16 and fp32:
                    max error against a stated tolerance, and median kernel /
-                   plain / library times (CUDA events) beside the card's bound.
+                   plain / library times (CUDA events) beside the card's bound
+                   (flash: TFLOP/s and the ratio to SDPA at both sites).
 3. kernels_bwd  -- the same for the backward kernels (flash dQ and dK/dV,
-                   GroupNorm(+SiLU) backward stats and apply).
+                   GroupNorm(+SiLU) backward stats and apply); dK/dV must give
+                   the same bits twice.
 4. parity       -- the tiny 3D config (seeded random weights, fp32, TF32 off)
                    through one U-Net forward and one decode, and through one
                    whole train step from the same weights and random draws,
@@ -41,6 +46,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -88,6 +94,9 @@ GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship paths, batch 
     (512, 768, 32), (512, 1536, 32), (32768, 128, 16), (262144, 64, 16),
     (2097152, 32, 16)]
 FLASH_SHAPES = [(2, 4096, 1, 512), (2, 512, 1, 768), (2, 1000, 3, 96)]  # (B, S, H, D)
+FLAGSHIP_FLASH = FLASH_SHAPES[:2]  # the U-Net's two attention sites
+FLASH_TILE = 32  # keys a tile of the forward kernel, queries a tile of the dK/dV kernel
+DQ_TILE = 64     # keys a tile of the dQ kernel
 
 
 def log(*a):
@@ -145,6 +154,29 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    check_hgmma(_build)
+
+
+def check_hgmma(build):
+    """Every instantiation of the bf16 flash forward and dK/dV kernels must
+    issue HGMMA (wgmma) in its SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib, kernel in (("flash_attn_fwd", "flash_fwd_bf16"), ("flash_attn_bwd", "flash_bwd_dkdv_bf16")):
+        sass = subprocess.run([tool, "--dump-sass", build.lib_path(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts, cur = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                cur = fn if kernel in fn else None
+                if cur:
+                    counts[cur] = 0
+            elif cur and "HGMMA" in line:
+                counts[cur] += 1
+        log(f"[build] SASS {lib}: HGMMA instructions per {kernel} instantiation "
+            f"{sorted(counts.values())}")
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"{kernel} has no HGMMA in its SASS: {counts}")
 
 
 def _err(a, b):
@@ -184,6 +216,15 @@ def top_kernel(fn):
     return max(by, key=by.get)[:90] if by else "not recorded"
 
 
+def add_record(rec, name, r):
+    """The first flagship shape's record is the kernel's; later shapes are
+    listed under "other_shapes"."""
+    if name in rec:
+        rec[name].setdefault("other_shapes", []).append(r)
+    else:
+        rec[name] = r
+
+
 def phase_kernels():
     """Returns {kernel: record at its representative shape}."""
     import torch.nn.functional as F
@@ -202,8 +243,9 @@ def phase_kernels():
             scale = D ** -0.5
             o, lse = fa.flash_attention(q, k, v, scale)
             o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
-            # each tolerance, o's and lse's, must see a kernel that skips one 64-key K/V tile
-            o_cut, lse_cut = fa.flash_attention_plain(q, k[:, 64:], v[:, 64:], scale)
+            # each tolerance, o's and lse's, must see a kernel that skips one K/V tile
+            o_cut, lse_cut = fa.flash_attention_plain(q, k[:, FLASH_TILE:], v[:, FLASH_TILE:],
+                                                      scale)
             torch.cuda.synchronize()
             o_ok, l_ok, err, lerr = flash_close(o, lse, o_ref, lse_ref, dt)
             ok = o_ok and l_ok
@@ -222,17 +264,19 @@ def phase_kernels():
                 f"{o_ref.float().abs().max().item():.3e}) max|lse-lse_plain|={lerr:.3e} "
                 f"(tol {LSE_TOL:g}) one-tile-skip caught={cut_seen} "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bnd:.4f} "
-                f"({bound_by}) ({flops / ms / 1e9:.1f} TFLOP/s) {'OK' if ok and cut_seen else 'FAIL'}")
+                f"({bound_by}) ({flops / ms / 1e9:.1f} TFLOP/s, {ms / lib_ms:.2f}x SDPA's time) "
+                f"{'OK' if ok and cut_seen else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash attention disagrees with its plain version at "
                                      f"{(B, S, H, D)} {dt}: {err} / {lerr}")
             if not cut_seen:
                 raise AssertionError(f"flash tolerance at {(B, S, H, D)} {dt} cannot see a "
                                      "skipped K/V tile")
-            if (B, S, H, D) == (2, 4096, 1, 512) and dt == torch.bfloat16:
-                rec["flash_attn_fwd"] = dict(
+            if (B, S, H, D) in FLAGSHIP_FLASH and dt == torch.bfloat16:
+                add_record(rec, "flash_attn_fwd", dict(
                     shape=[B, S, H, D], dtype="bf16", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bnd, bound_by=bound_by, library_ms=lib_ms)
+                    bound_ms=bnd, bound_by=bound_by, library_ms=lib_ms,
+                    tflops=flops / ms / 1e9))
 
     # ---- GroupNorm stats + affine(+SiLU): (B, M, C) activations, groups
     B = 2
@@ -318,12 +362,17 @@ def phase_kernels_bwd():
             dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
             r_dq, r_delta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, scale)
             r_dk, r_dv = fa.flash_bwd_dkdv_plain(q, k, v, do, lse, r_delta, scale)
-            # the tolerance must see a backward that skips one 64-key K/V tile
-            # (dq) or one 64-query Q/dO tile (dk, dv)
-            c_dq = fa.flash_attention_bwd_plain(q, k[:, 64:], v[:, 64:], o, lse, do, scale)[0]
-            lse_c = lse.reshape(B * H, S)[:, 64:]
-            _, c_dk, c_dv = fa.flash_attention_bwd_plain(q[:, 64:], k, v, o[:, 64:], lse_c,
-                                                         do[:, 64:], scale)
+            # the tolerance must see a backward that skips one K/V tile of the
+            # dq kernel or one Q/dO tile of the dk/dv kernel
+            c_dq = fa.flash_attention_bwd_plain(q, k[:, DQ_TILE:], v[:, DQ_TILE:], o, lse, do,
+                                                scale)[0]
+            lse_c = lse.reshape(B * H, S)[:, FLASH_TILE:]
+            _, c_dk, c_dv = fa.flash_attention_bwd_plain(q[:, FLASH_TILE:], k, v,
+                                                         o[:, FLASH_TILE:], lse_c,
+                                                         do[:, FLASH_TILE:], scale)
+            # dk/dv: no atomics, the cluster sums in a fixed order
+            dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
+            same_bits = torch.equal(dk, dk2) and torch.equal(dv, dv2)
             torch.cuda.synchronize()
             tol = FLASH_BWD_TOL[dt]
             res = {n: within(g, r, *tol) for n, g, r in
@@ -339,7 +388,8 @@ def phase_kernels_bwd():
                     + " ".join(f"max|{n}-plain|={e:.3e} (max|{n}|={mx[n]:.3e})"
                                for n, (_, e, _) in res.items())
                     + f" max|delta-plain|={d_err:.3e} (tol {tol[1]:g}*max + {tol[0]:g}*|g|;"
-                    f" largest error / allowed {use:.3f}) one-tile-skip caught={cut_seen}")
+                    f" largest error / allowed {use:.3f}) one-tile-skip caught={cut_seen}"
+                    f" dk/dv bit-identical on a rerun={same_bits}")
             if dt == torch.bfloat16:
                 isz = q.element_size()
                 ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, scale))
@@ -362,19 +412,23 @@ def phase_kernels_bwd():
                 b_dq = bound(6 * B * H * S * S * D, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
                 b_kv = bound(8 * B * H * S * S * D, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
                 b_all = bound(10 * B * H * S * S * D, 8 * n * isz + 4 * bhs, PEAK_BF16_FLOPS)
+                fl = B * H * S * S * D
                 line += (f" | dq ms={ms_dq:.4f} plain_ms={plain_dq:.4f} bound_ms={b_dq[0]:.4f}"
-                         f" ({b_dq[1]}) | dkdv ms={ms_kv:.4f} plain_ms={plain_kv:.4f} "
-                         f"bound_ms={b_kv[0]:.4f} ({b_kv[1]}) | pair ms={ms_dq + ms_kv:.4f} "
+                         f" ({b_dq[1]}; {6 * fl / ms_dq / 1e9:.1f} TFLOP/s) | dkdv ms={ms_kv:.4f}"
+                         f" plain_ms={plain_kv:.4f} bound_ms={b_kv[0]:.4f} ({b_kv[1]}; "
+                         f"{8 * fl / ms_kv / 1e9:.1f} TFLOP/s) | pair ms={ms_dq + ms_kv:.4f} "
                          f"bound_ms={b_all[0]:.4f} ({b_all[1]}, 5 S^2 D matmuls) | SDPA "
-                         f"backward (fwd+bwd - fwd) ms={lib_ms:.4f}, top kernel {backend!r}")
-                if (B, S, H, D) == (2, 4096, 1, 512):
-                    for name, ms, pl, b_, e in (("flash_attn_bwd_dq", ms_dq, plain_dq, b_dq,
-                                                 res["dq"][1]),
-                                                ("flash_attn_bwd_dkdv", ms_kv, plain_kv, b_kv,
-                                                 max(res["dk"][1], res["dv"][1]))):
-                        rec[name] = dict(shape=[B, S, H, D], dtype="bf16", max_abs_err=e, ms=ms,
-                                         plain_ms=pl, bound_ms=b_[0], bound_by=b_[1],
-                                         library_ms=lib_ms)
+                         f"backward (fwd+bwd - fwd) ms={lib_ms:.4f} (pair "
+                         f"{(ms_dq + ms_kv) / lib_ms:.2f}x its time), top kernel {backend!r}")
+                if (B, S, H, D) in FLAGSHIP_FLASH:
+                    for name, ms, pl, b_, e, f_ in (
+                            ("flash_attn_bwd_dq", ms_dq, plain_dq, b_dq, res["dq"][1], 6 * fl),
+                            ("flash_attn_bwd_dkdv", ms_kv, plain_kv, b_kv,
+                             max(res["dk"][1], res["dv"][1]), 8 * fl)):
+                        add_record(rec, name, dict(
+                            shape=[B, S, H, D], dtype="bf16", max_abs_err=e, ms=ms, plain_ms=pl,
+                            bound_ms=b_[0], bound_by=b_[1], library_ms=lib_ms,
+                            tflops=f_ / ms / 1e9))
             log(line + (" OK" if ok and cut_seen else " FAIL"))
             if not ok:
                 raise AssertionError(f"flash backward disagrees with its plain version at "
@@ -382,6 +436,8 @@ def phase_kernels_bwd():
             if not cut_seen:
                 raise AssertionError(f"flash backward tolerance at {(B, S, H, D)} {dt} cannot "
                                      "see a skipped tile")
+            if not same_bits:
+                raise AssertionError(f"flash dK/dV at {(B, S, H, D)} {dt} differs between runs")
 
     # ---- GroupNorm(+SiLU) backward: stats pass, apply pass
     B = 2
@@ -483,12 +539,22 @@ def _counters():
 
 
 def _reset_counts():
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
     for fn in _counters().values():
         fn.launches = 0
+    fa.flash_attention.input_copies = fa.flash_bwd_dkdv.input_copies = 0
 
 
 def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _input_copies():
+    """Inputs the flash wrappers had to copy before TMA could load them."""
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention.input_copies + fa.flash_bwd_dkdv.input_copies
 
 
 def phase_parity():
@@ -605,6 +671,7 @@ def phase_slice(steps=10):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = _read_counts()
+    copies = _input_copies()
 
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     expect = {k: 0 for k in counts}
@@ -614,14 +681,15 @@ def phase_slice(steps=10):
                    "gn_affine_act": gn_per_fwd * steps + gn_per_decode})
     log(f"[slice] launches per U-Net forward: flash {flash_per_fwd}, GroupNorm {gn_per_fwd}; "
         f"per decode: GroupNorm {gn_per_decode}; {steps} DDIM steps + decode: counted "
-        f"{counts}, expected {expect}")
+        f"{counts}, expected {expect}; flash inputs copied for TMA: {copies}")
     finite = bool(torch.isfinite(torch.from_numpy(images)).all())
     shape_ok = images.shape == (B, *image, 1)
     spread = float(images.std())
     log(f"[slice] images shape={images.shape} finite={finite} min={images.min():.4f} "
         f"max={images.max():.4f} std={spread:.4f}")
-    if counts != expect or flash_per_fwd != 11:
-        raise AssertionError(f"launch counts {counts} != expected {expect}")
+    if counts != expect or flash_per_fwd != 11 or copies:
+        raise AssertionError(f"launch counts {counts} != expected {expect}, or {copies} "
+                             "flash inputs copied")
     if not (finite and shape_ok and spread > 0):
         raise AssertionError("sampled volumes are not finite / of the expected shape")
 
@@ -635,8 +703,9 @@ def phase_slice(steps=10):
         f"{steps}-step DDIM + decode of {B} volumes: {secs * 1e3:.1f} ms "
         f"= {vols_min:.2f} volumes/min; peak memory {peak_gb:.2f} GiB")
     with torch.no_grad():
-        profile_breakdown("U-Net forward", lambda: unet(x, t))
+        busy = profile_breakdown("U-Net forward", lambda: unet(x, t))
         profile_breakdown("decode", lambda: sampler.decode(x))
+    log(f"[slice] device busy per U-Net forward={busy:.3f} ms (profiler)")
 
 
 def phase_train(warmup=2, steps=10):
@@ -699,6 +768,7 @@ def phase_train(warmup=2, steps=10):
     secs = time.perf_counter() - t0
     counts = _read_counts()
     copies = gn.gn_bwd_apply.grad_copies
+    flash_copies = _input_copies()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     expect = {k: v * steps for k, v in per_step.items()}
@@ -707,15 +777,16 @@ def phase_train(warmup=2, steps=10):
     log(f"[train] launches per step predicted {per_step} (U-Net: {attn_u} attention, {gn_u} "
         f"GroupNorm; encoder: {attn_e} attention, {gn_e} GroupNorm); {steps} steps counted "
         f"{counts}, expected {expect}; GroupNorm gradients copied to channels-last: "
-        f"{copies / steps:g} a step")
+        f"{copies / steps:g} a step; flash inputs copied for TMA: {flash_copies}")
     ms_step = secs * 1e3 / steps
     log(f"[train] {steps} steps in {secs * 1e3:.1f} ms: {ms_step:.3f} ms per step = "
         f"{1e3 / ms_step:.3f} steps/s; peak memory {peak_gb:.2f} GiB; params changed={changed}; "
         f"mu dtype {trainer.opt.mu[0].dtype}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    if counts != expect or attn_u != 11 or gn_u != 46 or gn_e != 13:
-        raise AssertionError(f"launch counts {counts} != expected {expect}")
+    if counts != expect or attn_u != 11 or gn_u != 46 or gn_e != 13 or flash_copies:
+        raise AssertionError(f"launch counts {counts} != expected {expect}, or {flash_copies} "
+                             "flash inputs copied")
     if not changed or trainer.opt.mu[0].dtype != torch.bfloat16:
         raise AssertionError("params unchanged by the steps, or mu not stored in bf16")
 
@@ -739,7 +810,8 @@ def phase_train(warmup=2, steps=10):
     log(f"[train] ms of U-Net forward+backward alone={fb_ms:.3f}; ms of clip+AdamW "
         f"alone={opt_ms:.3f}; ms of augment alone={aug_ms:.3f}; ms of the frozen encode "
         f"alone={enc_ms:.3f}")
-    profile_breakdown("train step", lambda: trainer.train_step(batch))
+    busy = profile_breakdown("train step", lambda: trainer.train_step(batch))
+    log(f"[train] device busy per train step={busy:.3f} ms (profiler)")
 
     # the trained model goes straight into the sampler
     ckpt_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "chip_smoke")
@@ -775,7 +847,8 @@ PORT_KERNELS = {  # profile name patterns of each port kernel
 def profile_breakdown(label, fn):
     """One call under torch.profiler: device time by kernel, the port
     kernels' share, and the device's busy share of the call's wall time
-    (single stream, so kernels do not overlap); plus the host's enqueue time."""
+    (single stream, so kernels do not overlap); plus the host's enqueue time.
+    Returns the device busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -788,8 +861,7 @@ def profile_breakdown(label, fn):
         torch.cuda.synchronize()
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
-        log(f"[profile] {label}: the profiler recorded no device kernels")
-        return
+        raise AssertionError(f"[profile] {label}: the profiler recorded no device kernels")
     by_name = {}
     for e in kern:
         tot, n = by_name.get(e.name, (0.0, 0))
@@ -803,6 +875,7 @@ def profile_breakdown(label, fn):
         f"{host_ms:.3f} ms; port kernels ms {({k: round(v, 3) for k, v in shares.items()})}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {us / 1e3:8.3f} ms  x{n:<4d} {name[:110]}")
+    return busy
 
 
 def main() -> int:

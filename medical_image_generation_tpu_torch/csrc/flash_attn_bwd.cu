@@ -13,7 +13,7 @@
 // no atomics:
 //   * dq kernel: a block owns 32 query rows and walks the K/V tiles. Its
 //     prologue computes delta for its rows and writes it to (B*H, S) f32.
-//   * dk/dv kernel (launched after it on the same stream): a block owns 16
+//   * dk/dv kernel (launched after it on the same stream): a cluster owns 64
 //     keys and walks the Q/dO tiles, reading lse and delta.
 // Both recompute q k^T and dO v^T, so the pair does 7 S^2 D matmuls where
 // the fused form does 5; fusing the two needs atomics or a cluster
@@ -24,32 +24,50 @@
 // (q, k, v, o, dO read once, dq, dk, dv written once) bound only the small
 // (S = 512, D = 768) sites.
 //
-// Design (bf16, the model's path): tensor-core mma.sync m16n8k16 with f32
-// accumulation, operands from shared memory by ldmatrix, as in
-// flash_attn_fwd.cu. At head dims 512 and 768 an accumulator of 32 rows is
-// 64-96 KB of f32, too much for one warp, so the 8 warps split the D axis:
-// warp w keeps the columns [w*D/8, (w+1)*D/8) of every accumulator row in
-// registers (dq: 32 rows; dk and dv: 16 rows each, so 2 x 16 rows fit the
-// same registers). Score tiles (q k^T, dO v^T) are computed over the full D
-// as 16x8 mma tiles, staged in shared memory in f32, turned into bf16 p / ds
-// by all threads, and multiplied back. The dq kernel prefetches the next V
-// tile with cp.async while it forms ds and multiplies by K; the dk/dv kernel
-// loads each Q/dO tile synchronously (the two tiles fill its shared memory
-// at D = 768). Tile sizes: dq kernel 32 queries x 64 keys while it fits the
-// 227 KB of shared memory (D <= 512), else x 32; dk/dv kernel 16 keys x 64
-// queries (D <= 640), else x 32. 16 keys a block keeps the dk and dv
-// accumulators (2 x 16 rows) in the registers the dq kernel's 32 rows take,
-// but each block then re-reads every Q and dO tile: the dk/dv pass moves
-// S/16 times the bytes of q and dO, the first thing to change for speed.
+// dq kernel (bf16): tensor-core mma.sync m16n8k16 with f32 accumulation,
+// operands from shared memory by ldmatrix; the 8 warps split the D axis of
+// the 32-row accumulator; score tiles over the full D are staged in shared
+// memory in f32, turned into bf16 ds, multiplied back; the next V tile is
+// prefetched with cp.async. Tiles: 32 queries x 64 keys while they fit the
+// 227 KB of shared memory (D <= 512), else x 32.
+//
+// dk/dv kernel (bf16): the dK and dV accumulators of 64 keys are 2 x 64 x D
+// f32 (65,536 registers at D = 512, the whole register file), so the head
+// dim is split across a cluster of n CTAs: CTA rank r owns the 64-column
+// chunks [r*CPC, (r+1)*CPC) (CPC <= 4; n = 2 at D = 512, 3 at D = 768), and
+// its two consumer warpgroups take one accumulator each (at most 128 floats a
+// thread):
+//   * warpgroup 0 forms the partial S^T = K_r Q_r^T (64 keys x 32 queries,
+//     wgmma m64n32k16, both operands K-major in shared memory), warpgroup 1
+//     the partial dP^T = V_r dO_r^T. The cluster's n partials of each are
+//     summed in rank order through DSMEM (mbarrier arrivals at cluster scope,
+//     ld.shared::cluster), so every CTA holds the same bits.
+//   * warpgroup 0 turns S^T into P^T = exp2(scale log2e s - lse log2e) in
+//     registers and passes it to warpgroup 1 through shared memory (mbarrier
+//     handoff, double-buffered); warpgroup 1 forms dS^T = scale P^T (dP^T -
+//     delta). Both feed their tile straight from registers into the A operand
+//     of dV += P^T dO_r and dK += dS^T Q_r (wgmma m64nNk16, N = 64*CPC), with
+//     dO and Q read MN-major from the same shared-memory tiles the scores read
+//     K-major: nothing is transposed.
+//   * when the grid would not fill the card once (the 512-token sites), a
+//     cluster also splits the queries in two halves: twice the CTAs, each
+//     walking half the Q/dO tiles; at the end the half-1 CTA leaves its
+//     accumulators in shared memory and the half-0 CTA adds them (DSMEM, in
+//     that order) and stores dk and dv.
+//   * one producer warpgroup (one thread) loads K_r and V_r once and the
+//     Q_r / dO_r tiles (32 queries) through TMA into a 3-stage ring
+//     (128-byte swizzle, zero fill outside S and D); setmaxnreg moves
+//     registers from the producer (40) to the consumers (232).
+//   * fixed summation orders and no atomics: dk and dv are the same bits on
+//     every run. Queries past S get p = ds = 0; keys past S are not stored.
+// Shared memory at D = 512: K and V 64 KB, three Q/dO stages 96 KB, partial
+// and P slots 48 KB.
 //
 // f32 (used to check the port against the CPU in fp32): the same two-pass
 // tiling with scalar f32 FMAs and shared-memory accumulators.
 //
-// D is zero-padded in shared memory and ragged S is masked: padded keys and
-// padded queries get p = ds = 0 and padded rows are never stored.
-//
-// Not yet: wgmma, TMA, warp specialisation, a persistent grid, fusing the
-// two passes.
+// Not yet: the dq kernel on wgmma/TMA, fusing the two passes, a persistent
+// grid, TMA multicast of the Q/dO tiles to the CTAs of a cluster.
 
 #include "flash_common.cuh"
 
@@ -58,7 +76,6 @@ namespace {
 // ----------------------------------------------------------------- bf16 path
 
 constexpr int BQA = 32;  // dq kernel: query rows per block
-constexpr int BKB = 16;  // dk/dv kernel: key rows per block
 
 struct LayoutDq {
     int Dp, ldt, lds, ldp;
@@ -79,28 +96,7 @@ struct LayoutDq {
     }
 };
 
-struct LayoutDkv {
-    int Dp, ldt, lds, ldp;
-    size_t off_v, off_q, off_do, off_s, off_dp, off_p, off_ds, off_stat, total;
-    __host__ __device__ LayoutDkv(int D, int BQ) {
-        Dp = (D + 63) & ~63;
-        ldt = Dp + 8;
-        lds = BQ + 4;
-        ldp = BQ + 8;
-        off_v = align128(sizeof(bf16) * BKB * ldt);
-        off_q = off_v + align128(sizeof(bf16) * BKB * ldt);
-        off_do = off_q + align128(sizeof(bf16) * BQ * ldt);
-        off_s = off_do + align128(sizeof(bf16) * BQ * ldt);
-        off_dp = off_s + align128(sizeof(float) * BKB * lds);
-        off_p = off_dp + align128(sizeof(float) * BKB * lds);
-        off_ds = off_p + align128(sizeof(bf16) * BKB * ldp);
-        off_stat = off_ds + align128(sizeof(bf16) * BKB * ldp);
-        total = off_stat + align128(sizeof(float) * 2 * BQ);
-    }
-};
-
 int pick_dq_bk(int D) { return LayoutDq(D, 64).total <= MAX_SMEM ? 64 : 32; }
-int pick_dkv_bq(int D) { return LayoutDkv(D, 64).total <= MAX_SMEM ? 64 : 32; }
 
 // Scores of one m16 x n8 tile over the full (padded) head dim:
 // acc += A[a_row0 .. +16, :] * B[b_row0 .. +8, :]^T, both row-major in smem.
@@ -275,107 +271,237 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     store_acc<NT>(dq, dq_off, o_ss, 16, nq, col0, D, acc[1]);
 }
 
-// dk, dv for 16 keys of one (batch, head), walking all queries. Reads the
-// delta the dq kernel wrote.
-template <int NT, int BQ>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S, int D,
-                    long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-                    long long v_sb, long long v_ss, float scale, bool vec) {
-    constexpr int NQ8 = BQ / 8;  // n8 score tiles of one matrix
-    extern __shared__ __align__(128) unsigned char smem[];
-    const LayoutDkv L(D, BQ);
-    const int Dp = L.Dp, ldt = L.ldt, lds = L.lds, ldp = L.ldp;
-    bf16* sK = reinterpret_cast<bf16*>(smem);
-    bf16* sV = reinterpret_cast<bf16*>(smem + L.off_v);
-    bf16* sQ = reinterpret_cast<bf16*>(smem + L.off_q);
-    bf16* sdO = reinterpret_cast<bf16*>(smem + L.off_do);
-    float* sS = reinterpret_cast<float*>(smem + L.off_s);
-    float* sdP = reinterpret_cast<float*>(smem + L.off_dp);
-    bf16* sP = reinterpret_cast<bf16*>(smem + L.off_p);
-    bf16* sdS = reinterpret_cast<bf16*>(smem + L.off_ds);
-    float* sLse = reinterpret_cast<float*>(smem + L.off_stat);
-    float* sDelta = sLse + BQ;
+constexpr int DKV_STAGES = 3;     // Q/dO ring depth
 
-    const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-    const int k0 = blockIdx.x * BKB, nk = min(BKB, S - k0);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const long long o_ss = (long long)H * D;
-    const long long o_base = ((long long)b * S * H + h) * D;
-    const bf16* qb = q + b * q_sb + (long long)h * D;
-    const bf16* kb = k + b * k_sb + (long long)h * D;
-    const bf16* vb = v + b * v_sb + (long long)h * D;
-
-    load_tile_bf16(sK, ldt, kb + k0 * k_ss, k_ss, nk, BKB, D, Dp, vec);
-    load_tile_bf16(sV, ldt, vb + k0 * v_ss, v_ss, nk, BKB, D, Dp, vec);
-
-    float adk[NT][4], adv[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
-
-    const int col0 = warp * 8 * NT;
-    for (int i0 = 0; i0 < S; i0 += BQ) {
-        const int nq = min(BQ, S - i0);
-        load_tile_bf16(sQ, ldt, qb + i0 * q_ss, q_ss, nq, BQ, D, Dp, vec);
-        load_tile_bf16(sdO, ldt, dO + o_base + i0 * o_ss, o_ss, nq, BQ, D, Dp, vec);
-        cp_async_commit();
-        for (int c = threadIdx.x; c < BQ; c += NTHREADS) {
-            sLse[c] = c < nq ? lse[(long long)bh * S + i0 + c] : 0.f;
-            sDelta[c] = c < nq ? delta[(long long)bh * S + i0 + c] : 0.f;
-        }
-        cp_async_wait<0>();
-        __syncthreads();
-
-        // S^T = K Q^T and dP^T = V dO^T (16 x BQ each), one n8 tile a task
-        for (int task = warp; task < 2 * NQ8; task += NWARPS) {
-            const bool is_dp = task >= NQ8;
-            const int n = is_dp ? task - NQ8 : task;
-            float sc[4] = {0.f, 0.f, 0.f, 0.f};
-            score_tile(sc, is_dp ? sV : sK, 0, is_dp ? sdO : sQ, n * 8, ldt, Dp);
-            store_score(is_dp ? sdP : sS, lds, 0, n * 8, sc);
-        }
-        __syncthreads();
-
-        // p^T and ds^T in bf16; padded keys or queries give 0
-        for (int idx = threadIdx.x; idx < BKB * BQ; idx += NTHREADS) {
-            const int r = idx / BQ, c = idx - r * BQ;
-            float p = 0.f, ds = 0.f;
-            if (r < nk && c < nq) {
-                p = expf(sS[r * lds + c] * scale - sLse[c]);
-                ds = scale * p * (sdP[r * lds + c] - sDelta[c]);
-            }
-            sP[r * ldp + c] = __float2bfloat16(p);
-            sdS[r * ldp + c] = __float2bfloat16(ds);
-        }
-        __syncthreads();
-
-        // dV += P^T dO, dK += dS^T Q on this warp's columns
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-            unsigned ap[4], ads[4];
-            ldsm_x4(ap, sP + (lane % 16) * ldp + kk * 16 + (lane / 16) * 8);
-            ldsm_x4(ads, sdS + (lane % 16) * ldp + kk * 16 + (lane / 16) * 8);
-            const int trow = kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                unsigned bdo[2], bq[2];
-                ldsm_x2_trans(bdo, sdO + trow * ldt + col0 + nt * 8);
-                ldsm_x2_trans(bq, sQ + trow * ldt + col0 + nt * 8);
-                mma_bf16(adv[nt], ap, bdo);
-                mma_bf16(adk[nt], ads, bq);
-            }
-        }
-        __syncthreads();  // Q / dO tiles consumed before the next load
+// Head-dim split of one key block: NC 64-column chunks over n CTAs, cpc each
+// (both warpgroups of a CTA work on the same cpc chunks).
+struct DkvSplit {
+    int n, cpc;
+    explicit DkvSplit(int D) {
+        const int nc = (D + BOX - 1) / BOX;
+        n = (nc + 3) / 4;
+        cpc = (nc + n - 1) / n;
     }
+};
 
-    const long long off = o_base + k0 * o_ss;
-    store_acc<NT>(dk, off, o_ss, 0, nk, col0, D, adk);
-    store_acc<NT>(dv, off, o_ss, 0, nk, col0, D, adv);
+struct DkvLayout {
+    unsigned kv, qdo, slots, bars, total;
+    __host__ __device__ explicit DkvLayout(int cpc) {
+        kv = 0;                                              // K at +0, V at +cpc boxes
+        qdo = kv + 2 * cpc * BOX_BYTES;                      // stage s: Q at +0, dO at +cpc tiles
+        slots = qdo + DKV_STAGES * 2 * cpc * TBOX_BYTES;     // [2 buffers][S^T, dP^T, P]
+        bars = slots + 6 * SLOT_F4 * 16;
+        total = bars + (2 * DKV_STAGES + 7) * 8 + 1024;     // + alignment slack
+    }
+};
+
+// dk, dv for 64 keys of one (batch, head) and head-dim chunks
+// [rank*CPC, (rank+1)*CPC), walking every 32-query Q/dO tile; reads the delta
+// the dq kernel wrote. One CTA of an n-CTA cluster. Warpgroup 0 forms
+// S^T = K Q^T, P^T and dV += P^T dO; warpgroup 1 forms dP^T = V dO^T, dS^T
+// (from warpgroup 0's P^T) and dK += dS^T Q; thread 256 issues the TMA loads.
+template <int CPC>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S, int D, int n,
+                    int halves, float scale, float scale_log2) {
+    constexpr int NACC = CPC * 32;  // dv or dk accumulator floats a thread (64 x 64*CPC)
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align1024(smem_raw);
+    const DkvLayout L(CPC);
+    float4* slots = reinterpret_cast<float4*>(smem + L.slots);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);  // [stage]
+    uint64_t* empty = full + DKV_STAGES;                              // [stage]
+    uint64_t* ready = empty + DKV_STAGES;  // [buffer][warpgroup]: the cluster's partials
+    uint64_t* p_ready = ready + 4;         // [buffer]: warpgroup 0's P^T is in its slot
+    uint64_t* p_free = p_ready + 2;        // [buffer]: warpgroup 1 has read it
+    uint64_t* kvbar = p_free + 2;
+
+    // cluster rank = half * n + r: column group r, query half `half`
+    const unsigned rank = cluster_ctarank();
+    const int r0 = rank - rank % n, half = rank / n;  // r0: rank of this half's column group 0
+    const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+    const int k0 = (blockIdx.x / (n * halves)) * BOX;
+    const int col0 = (rank % n) * CPC * BOX;
+    const int per = ((S + TILE - 1) / TILE + halves - 1) / halves;  // query tiles a half
+    const int jb = half * per, ntiles = max(0, min(per, (S + TILE - 1) / TILE - jb));
+    const bool clustered = n * halves > 1;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < DKV_STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 256);
+        }
+        for (int s = 0; s < 2; ++s) {
+            mbar_init(&ready[2 * s], n);
+            mbar_init(&ready[2 * s + 1], n);
+            mbar_init(&p_ready[s], 128);
+            mbar_init(&p_free[s], 128);
+        }
+        mbar_init(kvbar, 1);
+        mbar_init_fence();
+    }
+    __syncthreads();
+    if (clustered) cluster_sync();  // every CTA's barriers exist before any remote arrive
+
+    // warp-uniform role, so that setmaxnreg can size each branch
+    const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    if (role == 2) {  // ---- producer warpgroup: one thread feeds the Q/dO ring
+        producer_regs();
+        if (threadIdx.x == 256) {
+            mbar_expect_tx(kvbar, 2 * CPC * BOX_BYTES);
+#pragma unroll 1
+            for (int c = 0; c < CPC; ++c) {
+                tma_load_box(smem + L.kv + c * BOX_BYTES, &mk, col0 + c * BOX, h, k0, b, kvbar);
+                tma_load_box(smem + L.kv + (CPC + c) * BOX_BYTES, &mv, col0 + c * BOX, h, k0, b,
+                             kvbar);
+            }
+        }
+        auto load_tile = [&](int j) {
+            const int s = j % DKV_STAGES;
+            if (j >= DKV_STAGES) mbar_wait(&empty[s], ((j / DKV_STAGES) - 1) & 1);
+            unsigned char* sQ = smem + L.qdo + s * 2 * CPC * TBOX_BYTES;
+            unsigned char* sdO = sQ + CPC * TBOX_BYTES;
+            mbar_expect_tx(&full[s], 2 * CPC * TBOX_BYTES);
+#pragma unroll 1
+            for (int c = 0; c < CPC; ++c) {
+                const int q0 = (jb + j) * TILE;
+                tma_load_box(sQ + c * TBOX_BYTES, &mq, col0 + c * BOX, h, q0, b, &full[s]);
+                tma_load_box(sdO + c * TBOX_BYTES, &mdo, col0 + c * BOX, h, q0, b, &full[s]);
+            }
+        };
+        if (threadIdx.x == 256) {
+#pragma unroll 1
+            for (int j = 0; j < ntiles; ++j) load_tile(j);
+        }
+        if (clustered) end_syncs(halves);  // matches the consumers' cluster barriers
+    } else {  // ---- consumer warpgroups: wg 0 -> dV, wg 1 -> dK
+        consumer_regs();
+        const int wg = role, t = threadIdx.x % 128;
+        const int w = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+        // wg 0: S^T = K Q^T, then dV += P^T dO; wg 1: dP^T = V dO^T, then dK += dS^T Q
+        const unsigned char* sA = smem + L.kv + wg * CPC * BOX_BYTES;
+        float acc[NACC];
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+        const float* row_bh = (wg == 0 ? lse : delta) + (long long)bh * S;
+        mbar_wait(kvbar, 0);
+
+        for (int j = 0; j < ntiles; ++j) {
+            const int s = j % DKV_STAGES, buf = j & 1, i0 = (jb + j) * TILE;
+            const unsigned char* sQ = smem + L.qdo + s * 2 * CPC * TBOX_BYTES;
+            const unsigned char* sdO = sQ + CPC * TBOX_BYTES;
+            const unsigned char* sB = wg == 0 ? sQ : sdO;  // score operand (K-major)
+            const unsigned char* sM = wg == 0 ? sdO : sQ;  // product operand (MN-major)
+
+            mbar_wait(&full[s], (j / DKV_STAGES) & 1);
+
+            // partial S^T (wg 0) or dP^T (wg 1) over this CTA's head-dim columns
+            float sc[16];
+            wgmma_fence();
+#pragma unroll
+            for (int c = 0; c < CPC; ++c)
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_m64n32k16_ss(sc, kmajor_desc(sA + c * BOX_BYTES + kk * 32),
+                                       kmajor_desc(sB + c * TBOX_BYTES + kk * 32), c + kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operand(sc);
+
+            // this thread's 8 query columns i0 + 8i + 2tq + e: lse (log2 units) or delta
+            float rowv[8];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int q = i0 + 8 * i + 2 * tq + e;
+                    rowv[2 * i + e] = wg == 0 ? (q < S ? row_bh[q] * LOG2E : INFINITY)
+                                              : (q < S ? row_bh[q] : 0.f);
+                }
+
+            if (n > 1) {  // sum the cluster's n partials of this matrix, in rank order
+                float4* mine = slots + (3 * buf + wg) * SLOT_F4;
+                slot_store(mine, sc, t);
+                slot_publish(&ready[2 * buf + wg], wg, t, n, r0);
+                slot_wait(&ready[2 * buf + wg], (j >> 1) & 1, wg, t);
+                for (int r = 0; r < n; ++r) slot_add(sc, mine, t, r0 + r, true, r == 0);
+            }
+
+            float4* pslot = slots + (3 * buf + 2) * SLOT_F4;
+            if (wg == 0) {  // p^T = exp(scale s^T - lse), 0 past S; hand it to wg 1
+#pragma unroll
+                for (int i = 0; i < 16; ++i)
+                    sc[i] = exp2f(fmaf(sc[i], scale_log2, -rowv[2 * (i >> 2) + (i & 1)]));
+                if (j >= 2) mbar_wait(&p_free[buf], ((j >> 1) - 1) & 1);
+                slot_store(pslot, sc, t);
+                mbar_arrive(&p_ready[buf]);
+            } else {  // ds^T = scale p^T (dP^T - delta), p^T read as it is used
+                mbar_wait(&p_ready[buf], (j >> 1) & 1);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float4 p = pslot[i * 128 + t];
+                    const float d0 = rowv[2 * i], d1 = rowv[2 * i + 1];
+                    sc[4 * i] = scale * p.x * (sc[4 * i] - d0);
+                    sc[4 * i + 1] = scale * p.y * (sc[4 * i + 1] - d1);
+                    sc[4 * i + 2] = scale * p.z * (sc[4 * i + 2] - d0);
+                    sc[4 * i + 3] = scale * p.w * (sc[4 * i + 3] - d1);
+                }
+                mbar_arrive(&p_free[buf]);
+            }
+
+            // dV += P^T dO_c or dK += dS^T Q_c (dO and Q read MN-major: no transpose)
+            unsigned a[2][4];
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) acc_to_a(a[kk], sc, kk);
+            fence_operand(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk)
+                wgmma_m64k16_rs(acc, a[kk], mnmajor_desc(sM + kk * 16 * 128, TBOX_BYTES));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operand(acc);
+            mbar_arrive(&empty[s]);
+        }
+
+        if (halves > 1) {  // dk / dv = the half-0 sums + the half-1 sums, in that order
+            float4* stash = reinterpret_cast<float4*>(smem + L.qdo) + wg * (NACC / 4) * 128;
+            cluster_sync();  // every tile of the cluster is done: stages and slots are free
+            if (half == 1)
+#pragma unroll
+                for (int i = 0; i < NACC / 4; ++i)
+                    stash[i * 128 + t] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                                                     acc[4 * i + 3]);
+            cluster_sync();
+            if (half == 0)
+#pragma unroll
+                for (int i = 0; i < NACC / 4; ++i) {
+                    const float4 v = ld_dsmem_f4(&stash[i * 128 + t], rank + n);
+                    acc[4 * i] += v.x; acc[4 * i + 1] += v.y;
+                    acc[4 * i + 2] += v.z; acc[4 * i + 3] += v.w;
+                }
+        }
+        bf16* out = wg == 0 ? dv : dk;
+        if (half == 0) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int row = k0 + 16 * w + g + 8 * r;
+                if (row >= S) continue;
+                bf16* orow = out + (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+                for (int i = 0; i < NACC / 4; ++i) {
+                    const int c = col0 + 8 * i + 2 * tq;
+                    if (c < D)
+                        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                            __floats2bfloat162_rn(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+                }
+            }
+        }
+        if (clustered) cluster_sync();  // no CTA leaves while a peer may read its shared memory
+    }
 }
 
 struct Args {
@@ -405,18 +531,47 @@ int launch_dq_bf16(const Args& a) {
     return (int)cudaGetLastError();
 }
 
-template <int NT, int BQ>
-int launch_dkdv_bf16(const Args& a) {
-    const size_t smem = LayoutDkv(a.D, BQ).total;
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16<NT, BQ>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((a.S + BKB - 1) / BKB, a.B * a.H);
-    flash_bwd_dkdv_bf16<NT, BQ><<<grid, NTHREADS, smem, a.st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dO), a.lse, a.delta,
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.S, a.D, a.q_sb, a.q_ss,
-        a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.scale, a.vec);
+// Query halves: two when the grid would not fill the card once (the U-Net's
+// 512-token sites), so that twice the CTAs each walk half the queries.
+int pick_halves(const Args& a, int n) {
+    static int sms = 0;  // the SMs of the first device this runs on
+    int dev = 0;
+    if (!sms && (cudaGetDevice(&dev) != cudaSuccess ||
+                 cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess))
+        return 1;
+    const long long ctas = (long long)a.B * a.H * ((a.S + BOX - 1) / BOX) * n;
+    return 2 * ctas <= sms && a.S > TILE ? 2 : 1;
+}
+
+template <int CPC>
+int launch_dkdv_bf16(const Args& a, int n) {
+    const long long o_ss = (long long)a.H * a.D, o_sb = o_ss * a.S;  // dO: contiguous BSHD
+    CUtensorMap mq, mk, mv, mdo;
+    int err = make_map_bshd(&mq, a.q, a.B, a.H, a.S, a.D, a.q_sb, a.q_ss, TILE);
+    if (!err) err = make_map_bshd(&mk, a.k, a.B, a.H, a.S, a.D, a.k_sb, a.k_ss, BOX);
+    if (!err) err = make_map_bshd(&mv, a.v, a.B, a.H, a.S, a.D, a.v_sb, a.v_ss, BOX);
+    if (!err) err = make_map_bshd(&mdo, a.dO, a.B, a.H, a.S, a.D, o_sb, o_ss, TILE);
+    if (err) return err;
+    const unsigned smem = DkvLayout(CPC).total;
+    if (const int e = allow_smem<flash_bwd_dkdv_bf16<CPC>>(smem)) return e;
+    cudaLaunchConfig_t cfg = {};
+    const int halves = pick_halves(a, n);
+    cfg.gridDim = dim3(n * halves * ((a.S + BOX - 1) / BOX), a.B * a.H);
+    cfg.blockDim = dim3(WS_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = a.st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n * halves;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, flash_bwd_dkdv_bf16<CPC>, mq, mk, mv, mdo, a.lse, (const float*)a.delta,
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.S, a.D, n, halves, a.scale,
+        a.scale * LOG2E);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
@@ -635,35 +790,45 @@ int launch_f32(const Args& a, bool dq_pass) {
     return (int)cudaGetLastError();
 }
 
-constexpr int MAX_NT = 12;  // bf16 instantiations cover D <= 64 * MAX_NT
+constexpr int MAX_NT = 12;  // bf16 covers D <= 64 * MAX_NT
 
 size_t smem_bytes(int D, int dtype) {
     if (dtype == 1) {
         if ((D + 63) / 64 > MAX_NT) return ~size_t(0);
         const size_t a = LayoutDq(D, pick_dq_bk(D)).total;
-        const size_t b = LayoutDkv(D, pick_dkv_bq(D)).total;
+        const size_t b = DkvLayout(DkvSplit(D).cpc).total;
         return a > b ? a : b;
     }
     const LayoutF32 L(D);
     return L.dq_total > L.dkv_total ? L.dq_total : L.dkv_total;
 }
 
-// The tile sizes follow from NT alone (the padded head dim is 64 * NT), so one
-// instantiation per NT: the dq kernel's 64-key tiles fit the 227 KB up to
-// NT = 8 (D <= 512), the dk/dv kernel's 64-query tiles up to NT = 10.
+// The dq kernel's tile sizes follow from NT alone (the padded head dim is
+// 64 * NT): its 64-key tiles fit the 227 KB up to NT = 8 (D <= 512).
 template <int NT>
-int launch_bf16(const Args& a, bool dq_pass) {
-    constexpr int BK = NT <= 8 ? 64 : 32, BQ = NT <= 10 ? 64 : 32;
-    if (pick_dq_bk(a.D) != BK || pick_dkv_bq(a.D) != BQ) return (int)cudaErrorInvalidValue;
-    return dq_pass ? launch_dq_bf16<NT, BK>(a) : launch_dkdv_bf16<NT, BQ>(a);
+int launch_dq_nt(const Args& a) {
+    constexpr int BK = NT <= 8 ? 64 : 32;
+    if (pick_dq_bk(a.D) != BK) return (int)cudaErrorInvalidValue;
+    return launch_dq_bf16<NT, BK>(a);
 }
 
 int run(const Args& a, int dtype, bool dq_pass) {
     if (a.D < 1 || smem_bytes(a.D, dtype) > MAX_SMEM) return (int)cudaErrorInvalidValue;
     if (dtype == 0) return launch_f32(a, dq_pass);
     if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (!dq_pass) {
+        if (!a.vec) return (int)cudaErrorInvalidValue;  // TMA needs aligned, 8-element strides
+        const DkvSplit sp(a.D);
+        switch (sp.cpc) {
+            case 1: return launch_dkdv_bf16<1>(a, sp.n);
+            case 2: return launch_dkdv_bf16<2>(a, sp.n);
+            case 3: return launch_dkdv_bf16<3>(a, sp.n);
+            case 4: return launch_dkdv_bf16<4>(a, sp.n);
+            default: return (int)cudaErrorInvalidValue;
+        }
+    }
 #define MEDIMGEN_NT(N) \
-    case N: return launch_bf16<N>(a, dq_pass);
+    case N: return launch_dq_nt<N>(a);
     switch ((a.D + 63) / 64) {
         MEDIMGEN_NT(1) MEDIMGEN_NT(2) MEDIMGEN_NT(3) MEDIMGEN_NT(4) MEDIMGEN_NT(5)
         MEDIMGEN_NT(6) MEDIMGEN_NT(7) MEDIMGEN_NT(8) MEDIMGEN_NT(9) MEDIMGEN_NT(10)

@@ -11,44 +11,56 @@
 // cores); the bytes (Q, K, V read once, O written once) are ~1% of that time
 // at the U-Net's shapes (S=4096, D=512 and S=512, D=768).
 //
-// Design. The TPU kernel walks K blocks sequentially inside one grid step;
-// here a CUDA block owns BQ = 32 query rows of one (batch, head) and loops
-// over K/V tiles of BK rows, so blocks are independent.
+// Design (bf16, the model's path). The TPU kernel walks K blocks inside one
+// grid step; here a CTA, or a cluster of n CTAs, owns 64 query rows of one
+// (batch, head) and walks K/V tiles of 32 keys, so blocks are independent.
+//   * Registers decide the shape. The f32 O accumulator of 64 rows is 64 x D
+//     floats (49,152 registers at D = 768), so the head dim is split: each
+//     CTA holds two consumer warpgroups, and warpgroup w of CTA rank r owns
+//     the 64-column chunks [(2r + w)*CPC, (2r + w + 1)*CPC) of Q, K, V and O
+//     (CPC <= 4: at most 128 accumulator floats a thread). n = 1 up to
+//     D = 512 (CPC = 4 at 512), n = 2 above (CPC = 3 at 768, the largest D
+//     taken).
+//   * Each warpgroup computes a partial score tile Q_w K_w^T (64 x 32, f32)
+//     over its columns with wgmma (m64n32k16, both operands K-major from
+//     shared memory). The 2n partials are summed in one fixed order, (rank,
+//     warpgroup), by every warpgroup: through shared memory inside the CTA
+//     (a named barrier when n = 1) and through DSMEM across the cluster
+//     (mbarrier arrivals at cluster scope, ld.shared::cluster). Every
+//     warpgroup then holds the same bits, so they agree on m and l. Slots
+//     are double-buffered: one barrier a tile.
+//   * The softmax runs in registers: row max and sum over the 4 threads of a
+//     quad (shuffles), exp2 with the scale folded into log2 units. P goes
+//     from the score accumulator straight into the register A operand of the
+//     P V wgmma (m64nNk16, N = 64*CPC) after conversion to bf16; V is read
+//     MN-major from shared memory, so nothing is transposed.
+//   * One producer warpgroup (one thread) loads Q once and K/V tiles through
+//     TMA (cp.async.bulk.tensor, 128-byte swizzle, zero fill outside S and D)
+//     into a ring of 2 stages, completing on mbarriers; consumers release a
+//     stage with an arrival of each thread. setmaxnreg moves registers from
+//     the producer (24) to the consumers (240).
+//   * Ragged S: keys past S get score -inf, query rows past S are not stored;
+//     D is padded with TMA's zero fill, and the wrapper copies inputs TMA
+//     cannot describe (misaligned base, strides or D not multiples of 8).
+// Shared memory at D = 512: Q 64 KB, two K/V stages 128 KB, partial slots
+// 32 KB.
 //
-// bf16 (the model's path): tensor-core mma.sync m16n8k16 with f32
-// accumulation, operands fed from shared memory by ldmatrix. The head dims
-// here (512, 768) are too wide for one warp to hold a row block's output
-// accumulator, so the 8 warps split the output's D axis: warp w keeps the
-// f32 accumulator of all 32 rows x its D/8 columns in registers (up to 96
-// floats a thread at D=768) and rescales it in place with the online-softmax
-// correction. Scores are computed by the warps as 16x8 tiles over the full
-// D, staged in shared memory (f32), turned into bf16 probabilities by one
-// warp per row, and multiplied by V. Q, K and V tiles are copied into shared
-// memory with cp.async: the next K tile is in flight during the softmax and
-// P V, the V tile during Q K^T. BK is 64 while Q + K + V tiles fit the 227 KB
-// of shared memory (D <= 640) and 32 above.
+// f32 (used to check the port against the CPU in fp32): scalar f32 FMAs with
+// a shared-memory accumulator, BQ = BK = 16, any D it fits.
 //
-// f32 (used to check the port against the CPU in fp32): the same tiling with
-// scalar f32 FMAs and a shared-memory accumulator, BQ = BK = 16.
-//
-// D is zero-padded in shared memory (to a multiple of 64 for bf16, of 4 for
-// f32) and ragged S is masked: padded keys get probability 0 and padded
-// query rows are never stored, so any S and any D that fits are taken.
-//
-// Not yet: wgmma, TMA, warp specialisation, a persistent grid.
+// Not yet: overlapping one tile's softmax and exchange with the next tile's
+// Q K^T (two score accumulators), ping-pong between warpgroups on different
+// row blocks, a persistent grid, TMA stores of O.
 
 #include "flash_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ void store_p(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_p(bf16* p, float v) { *p = __float2bfloat16(v); }
-
 // Online softmax over one score tile: sS (BQ x BK f32, unscaled) -> sP
 // (probabilities), updating the running max sM and sum sL and writing the
 // accumulator correction sC = exp(m_old - m_new). One warp per row; BK <= 64.
-template <typename P>
-__device__ void online_softmax(const float* sS, int lds, P* sP, int ldp, float* sM, float* sL,
+// (The f32 path; the bf16 kernel keeps its softmax in registers.)
+__device__ void online_softmax(const float* sS, int lds, float* sP, int ldp, float* sM, float* sL,
                                float* sC, int BQ, int BK, int nk, float scale) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     for (int r = warp; r < BQ; r += NWARPS) {
@@ -68,7 +80,7 @@ __device__ void online_softmax(const float* sS, int lds, P* sP, int ldp, float* 
             const int c = lane + 32 * i;
             const float p = (c < BK && c < nk) ? expf(s[i] - m_new) : 0.f;
             psum += p;
-            if (c < BK) store_p(sP + r * ldp + c, p);
+            if (c < BK) sP[r * ldp + c] = p;
         }
         psum = warp_sum(psum);
         if (lane == 0) {
@@ -82,184 +94,238 @@ __device__ void online_softmax(const float* sS, int lds, P* sP, int ldp, float* 
 
 // ----------------------------------------------------------------- bf16 path
 
-constexpr int BQ16 = 32;  // query rows per block (two m16 tiles)
+constexpr int FWD_STAGES = 2;     // K/V ring depth
 
-struct LayoutBf16 {
-    int Dp, ldt, lds, ldp;
-    size_t off_k, off_v, off_s, off_p, off_stat, total;
-    __host__ __device__ LayoutBf16(int D, int BK) {
-        Dp = (D + 63) & ~63;
-        ldt = Dp + 8;  // +16 bytes a row: conflict-free ldmatrix
-        lds = BK + 4;
-        ldp = BK + 8;
-        off_k = align128(sizeof(bf16) * BQ16 * ldt);
-        off_v = off_k + align128(sizeof(bf16) * BK * ldt);
-        off_s = off_v + align128(sizeof(bf16) * BK * ldt);
-        off_p = off_s + align128(sizeof(float) * BQ16 * lds);
-        off_stat = off_p + align128(sizeof(bf16) * BQ16 * ldp);
-        total = off_stat + align128(sizeof(float) * 3 * BQ16);
+// Head-dim split of one row block: NC 64-column chunks over n CTAs x 2
+// warpgroups, cpc chunks each (n = 1 up to D = 512, 2 up to D = 1024).
+struct Split {
+    int n, cpc;
+    explicit Split(int D) {
+        const int nc = (D + BOX - 1) / BOX;
+        n = nc <= 8 ? 1 : 2;
+        cpc = (nc + 2 * n - 1) / (2 * n);
     }
 };
 
-// NT: n8 tiles of the output each warp owns (D padded to 64*NT); BK: keys a tile.
-template <int NT, int BK>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-               int H, int S, int D, long long q_sb, long long q_ss, long long k_sb,
-               long long k_ss, long long v_sb, long long v_ss, float scale, bool vec) {
-    constexpr int NPW = BK / 32;  // score n8 tiles per warp: 2 m16 x BK/8 tiles over 8 warps
-    extern __shared__ __align__(128) unsigned char smem[];
-    const LayoutBf16 L(D, BK);
-    const int Dp = L.Dp, ldt = L.ldt, lds = L.lds, ldp = L.ldp;
-    bf16* sQ = reinterpret_cast<bf16*>(smem);
-    bf16* sK = reinterpret_cast<bf16*>(smem + L.off_k);
-    bf16* sV = reinterpret_cast<bf16*>(smem + L.off_v);
-    float* sS = reinterpret_cast<float*>(smem + L.off_s);
-    bf16* sP = reinterpret_cast<bf16*>(smem + L.off_p);
-    float* sM = reinterpret_cast<float*>(smem + L.off_stat);
-    float* sL = sM + BQ16;
-    float* sC = sL + BQ16;
+struct FwdLayout {
+    unsigned q, kv, slots, bars, total;
+    __host__ __device__ explicit FwdLayout(int cpc) {
+        q = 0;                                          // warpgroup w's Q chunks at w*cpc boxes
+        kv = q + 2 * cpc * BOX_BYTES;                   // stage s: K at +0, V at +2*cpc tiles
+        slots = kv + FWD_STAGES * 4 * cpc * TBOX_BYTES; // [2 buffers][2 warpgroups] partials
+        bars = slots + 4 * SLOT_F4 * 16;                // full[2], empty[2], ready[2], q
+        total = bars + 7 * 8 + 1024;                    // + alignment slack
+    }
+};
 
+// One CTA of an n-CTA cluster: 64 query rows of one (batch, head). Warpgroup
+// w of CTA rank r owns head-dim chunks [(2r + w)*CPC, (2r + w + 1)*CPC); warp
+// 8 loads.
+template <int CPC, bool CLUSTER>  // CLUSTER: n > 1
+__global__ void __launch_bounds__(WS_THREADS, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+               float* __restrict__ lse, int H, int S, int D, int n, float scale_log2) {
+    constexpr int NACC = CPC * 32;  // O accumulator floats a thread (64 x 64*CPC)
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align1024(smem_raw);
+    const FwdLayout L(CPC);
+    float4* slots = reinterpret_cast<float4*>(smem + L.slots);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+    uint64_t* empty = full + 2;
+    uint64_t* ready = full + 4;
+    uint64_t* qbar = full + 6;
+
+    const unsigned rank = cluster_ctarank();
     const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-    const int q0 = blockIdx.x * BQ16;
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int g = lane / 4, t = lane % 4;
-    const bf16* qb = q + b * q_sb + (long long)h * D;
-    const bf16* kb = k + b * k_sb + (long long)h * D;
-    const bf16* vb = v + b * v_sb + (long long)h * D;
-    const int ntiles = (S + BK - 1) / BK;
+    const int q0 = (blockIdx.x / n) * BOX;
+    const int col0 = rank * 2 * CPC * BOX;  // this CTA's first head-dim column
+    const int ntiles = (S + TILE - 1) / TILE;
 
-    load_tile_bf16(sQ, ldt, qb + q0 * q_ss, q_ss, min(BQ16, S - q0), BQ16, D, Dp, vec);
-    load_tile_bf16(sK, ldt, kb, k_ss, min(BK, S), BK, D, Dp, vec);
-    cp_async_commit();
-    load_tile_bf16(sV, ldt, vb, v_ss, min(BK, S), BK, D, Dp, vec);
-    cp_async_commit();
-    for (int i = threadIdx.x; i < BQ16; i += NTHREADS) { sM[i] = -1e30f; sL[i] = 0.f; }
-
-    float acc[2][NT][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
-
-    const int col0 = warp * 8 * NT;  // this warp's first output column
-    for (int j = 0; j < ntiles; ++j) {
-        const int k0 = j * BK, nk = min(BK, S - k0);
-        const bool more = j + 1 < ntiles;
-        cp_async_wait<1>();  // Q and this K tile landed; this V tile may be in flight
-        __syncthreads();
-
-        {  // scores: warp (mi, n tiles nb..nb+NPW-1) of the 32 x BK tile, over all of Dp
-            const int mi = warp & 1, nb = (warp >> 1) * NPW;
-            float sc[NPW][4];
-#pragma unroll
-            for (int i = 0; i < NPW; ++i)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
-            for (int kk = 0; kk < Dp / 16; ++kk) {
-                unsigned a[4];
-                ldsm_x4(a, sQ + (mi * 16 + (lane % 16)) * ldt + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-                for (int i = 0; i < NPW; ++i) {
-                    unsigned bfr[2];
-                    ldsm_x2(bfr, sK + ((nb + i) * 8 + (lane % 8)) * ldt + kk * 16 +
-                                     ((lane / 8) % 2) * 8);
-                    mma_bf16(sc[i], a, bfr);
-                }
-            }
-#pragma unroll
-            for (int i = 0; i < NPW; ++i) {
-                const int c = (nb + i) * 8 + 2 * t;
-                *reinterpret_cast<float2*>(sS + (mi * 16 + g) * lds + c) =
-                    make_float2(sc[i][0], sc[i][1]);
-                *reinterpret_cast<float2*>(sS + (mi * 16 + g + 8) * lds + c) =
-                    make_float2(sc[i][2], sc[i][3]);
-            }
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < 2; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 256);
+            mbar_init(&ready[s], 2 * n);
         }
-        __syncthreads();  // K tile consumed: start the next one
-        if (more) {
-            load_tile_bf16(sK, ldt, kb + (k0 + BK) * k_ss, k_ss, min(BK, S - k0 - BK), BK, D,
-                           Dp, vec);
-            cp_async_commit();
-        }
-
-        online_softmax(sS, lds, sP, ldp, sM, sL, sC, BQ16, BK, nk, scale);
-        if (more) cp_async_wait<1>(); else cp_async_wait<0>();  // this V tile landed
-        __syncthreads();
-
-        // O = O * corr + P V on this warp's columns
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-            const float c_lo = sC[mi * 16 + g], c_hi = sC[mi * 16 + g + 8];
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                acc[mi][nt][0] *= c_lo; acc[mi][nt][1] *= c_lo;
-                acc[mi][nt][2] *= c_hi; acc[mi][nt][3] *= c_hi;
-            }
-        }
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            unsigned a0[4], a1[4];
-            ldsm_x4(a0, sP + (lane % 16) * ldp + kk * 16 + (lane / 16) * 8);
-            ldsm_x4(a1, sP + (16 + lane % 16) * ldp + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                unsigned bfr[2];
-                ldsm_x2_trans(bfr, sV + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * ldt +
-                                       col0 + nt * 8);
-                mma_bf16(acc[0][nt], a0, bfr);
-                mma_bf16(acc[1][nt], a1, bfr);
-            }
-        }
-        __syncthreads();  // V tile consumed: start the next one
-        if (more) {
-            load_tile_bf16(sV, ldt, vb + (k0 + BK) * v_ss, v_ss, min(BK, S - k0 - BK), BK, D,
-                           Dp, vec);
-            cp_async_commit();
-        }
+        mbar_init(qbar, 1);
+        mbar_init_fence();
     }
+    __syncthreads();
+    if (CLUSTER) cluster_sync();  // every CTA's barriers exist before any remote arrive
 
-    // O = acc / l into (B, S, H, D); lse = m + log(l) into (B*H, S)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int r = mi * 16 + g + 8 * half;
-            if (q0 + r >= S) continue;
-            const float inv = 1.f / sL[r];
-            bf16* orow = o + (((long long)b * S + q0 + r) * H + h) * D;
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                const int c = col0 + nt * 8 + 2 * t;
-                if (c < D) orow[c] = __float2bfloat16(acc[mi][nt][2 * half] * inv);
-                if (c + 1 < D) orow[c + 1] = __float2bfloat16(acc[mi][nt][2 * half + 1] * inv);
-            }
+    // warp-uniform role, so that setmaxnreg can size each branch
+    const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    if (role == 2) {  // ---- producer warpgroup: one thread feeds the K/V ring
+        producer_regs();
+        if (threadIdx.x == 256) {
+            mbar_expect_tx(qbar, 2 * CPC * BOX_BYTES);
+#pragma unroll 1
+            for (int c = 0; c < 2 * CPC; ++c)
+                tma_load_box(smem + L.q + c * BOX_BYTES, &mq, col0 + c * BOX, h, q0, b, qbar);
         }
+        auto load_tile = [&](int j) {
+            const int s = j % FWD_STAGES;
+            if (j >= FWD_STAGES) mbar_wait(&empty[s], ((j / FWD_STAGES) - 1) & 1);
+            unsigned char* sK = smem + L.kv + s * 4 * CPC * TBOX_BYTES;
+            unsigned char* sV = sK + 2 * CPC * TBOX_BYTES;
+            mbar_expect_tx(&full[s], 4 * CPC * TBOX_BYTES);
+#pragma unroll 1
+            for (int c = 0; c < 2 * CPC; ++c) {
+                const int d0 = col0 + c * BOX, k0 = j * TILE;
+                tma_load_box(sK + c * TBOX_BYTES, &mk, d0, h, k0, b, &full[s]);
+                tma_load_box(sV + c * TBOX_BYTES, &mv, d0, h, k0, b, &full[s]);
+            }
+        };
+        if (threadIdx.x == 256) {
+#pragma unroll 1
+            for (int j = 0; j < ntiles; ++j) load_tile(j);
+        }
+        if (CLUSTER) cluster_sync();  // matches the consumers' final cluster barrier
+    } else {  // ---- consumer warpgroups
+        consumer_regs();
+        const int wg = role, t = threadIdx.x % 128;
+        const int w = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+        const unsigned char* sQ = smem + L.q + wg * CPC * BOX_BYTES;
+        float acc[NACC];
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+        float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+        mbar_wait(qbar, 0);
+
+        for (int j = 0; j < ntiles; ++j) {
+            const int s = j % FWD_STAGES, buf = j & 1;
+            const unsigned char* sK = smem + L.kv + (4 * s + wg) * CPC * TBOX_BYTES;
+            const unsigned char* sV = sK + 2 * CPC * TBOX_BYTES;
+            mbar_wait(&full[s], (j / FWD_STAGES) & 1);
+
+            // partial scores over this warpgroup's head-dim columns: Q_w K_w^T
+            float sc[16];
+            wgmma_fence();
+#pragma unroll
+            for (int c = 0; c < CPC; ++c)
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_m64n32k16_ss(sc, kmajor_desc(sQ + c * BOX_BYTES + kk * 32),
+                                       kmajor_desc(sK + c * TBOX_BYTES + kk * 32), c + kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operand(sc);
+
+            // sum the 2n partials of the cluster, in the order (rank, warpgroup)
+            float4* mine = slots + (2 * buf + wg) * SLOT_F4;
+            slot_store(mine, sc, t);
+            if (CLUSTER) {
+                slot_publish(&ready[buf], wg, t, n);
+                slot_wait(&ready[buf], (j >> 1) & 1, wg, t);
+            } else {
+                named_bar_sync(3, 256);  // both warpgroups' partials are in place
+            }
+            for (int r = 0; r < (CLUSTER ? n : 1); ++r)
+#pragma unroll
+                for (int v = 0; v < 2; ++v)
+                    slot_add(sc, slots + (2 * buf + v) * SLOT_F4, t, r, CLUSTER, r + v == 0);
+
+            // online softmax in registers (log2 units); rows g and g + 8 of warp w
+            const int k0 = j * TILE;
+            if (k0 + TILE > S) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        if (k0 + 8 * i + 2 * tq + (e & 1) >= S) sc[4 * i + e] = -INFINITY;
+            }
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int i = 0; i < 16; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+            float corr[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+                corr[r] = exp2f(m[r] - m_new);
+                m[r] = m_new;
+            }
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+                const int r = (i >> 1) & 1;
+                sc[i] = exp2f(fmaf(sc[i], scale_log2, -m[r]));
+                ls[r] += sc[i];
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
+                ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
+                l[r] = l[r] * corr[r] + ls[r];
+            }
+
+            // O = O * corr + P V_w, P straight from registers
+            unsigned a[2][4];
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) acc_to_a(a[kk], sc, kk);
+            fence_operand(acc);
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) acc[i] *= corr[(i >> 1) & 1];
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk)
+                wgmma_m64k16_rs(acc, a[kk], mnmajor_desc(sV + kk * 16 * 128, TBOX_BYTES));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operand(acc);
+            mbar_arrive(&empty[s]);
+        }
+
+        // O = acc / l into (B, S, H, D); lse = m + log(l) into (B*H, S)
+        const int wcol0 = col0 + wg * CPC * BOX;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = q0 + 16 * w + g + 8 * r;
+            if (row >= S) continue;
+            const float inv = 1.f / l[r];
+            bf16* orow = o + (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+            for (int i = 0; i < NACC / 4; ++i) {
+                const int c = wcol0 + 8 * i + 2 * tq;
+                if (c < D)
+                    *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+                        acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+            }
+            if (rank == 0 && wg == 0 && tq == 0)
+                lse[(long long)bh * S + row] = (m[r] + log2f(l[r])) * LN2;
+        }
+        if (CLUSTER) cluster_sync();  // no CTA leaves while a peer may read its slots
     }
-    const int nq = min(BQ16, S - q0);
-    for (int r = threadIdx.x; r < nq; r += NTHREADS)
-        lse[(long long)bh * S + q0 + r] = sM[r] + logf(sL[r]);
 }
 
-int pick_bk(int D) { return LayoutBf16(D, 64).total <= MAX_SMEM ? 64 : 32; }
-
-template <int NT, int BK>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                int H, int S, int D, long long q_sb, long long q_ss, long long k_sb,
-                long long k_ss, long long v_sb, long long v_ss, float scale, int vec,
-                cudaStream_t st) {
-    const size_t smem = LayoutBf16(D, BK).total;
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<NT, BK>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S + BQ16 - 1) / BQ16, B * H);
-    flash_fwd_bf16<NT, BK><<<grid, NTHREADS, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
-        vec != 0);
+template <int CPC, bool CLUSTER>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                int S, int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                long long v_sb, long long v_ss, float scale, int n, cudaStream_t st) {
+    CUtensorMap mq, mk, mv;
+    int err = make_map_bshd(&mq, q, B, H, S, D, q_sb, q_ss, BOX);
+    if (!err) err = make_map_bshd(&mk, k, B, H, S, D, k_sb, k_ss, TILE);
+    if (!err) err = make_map_bshd(&mv, v, B, H, S, D, v_sb, v_ss, TILE);
+    if (err) return err;
+    const unsigned smem = FwdLayout(CPC).total;
+    if (const int e = allow_smem<flash_fwd_bf16<CPC, CLUSTER>>(smem)) return e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n * ((S + BOX - 1) / BOX), B * H);
+    cfg.blockDim = dim3(WS_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, flash_fwd_bf16<CPC, CLUSTER>, mq, mk, mv,
+                                             static_cast<bf16*>(o), lse, H, S, D, n,
+                                             scale * LOG2E);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
@@ -364,10 +430,10 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
     return (int)cudaGetLastError();
 }
 
-constexpr int MAX_NT = 12;  // bf16 instantiations cover D <= 64 * MAX_NT
+constexpr int MAX_D = 768;  // bf16: up to 2 CTAs x 2 warpgroups x 3 chunks of 64 columns
 
 size_t smem_bytes(int D, int dtype) {
-    if (dtype == 1) return (D + 63) / 64 > MAX_NT ? ~size_t(0) : LayoutBf16(D, pick_bk(D)).total;
+    if (dtype == 1) return D > MAX_D ? ~size_t(0) : FwdLayout(Split(D).cpc).total;
     return LayoutF32(D).total;
 }
 
@@ -382,8 +448,9 @@ long long medimgen_flash_attn_smem_limit() { return (long long)MAX_SMEM; }
 
 // q/k/v: element (b, s, h, d) at base + b*sb + s*ss + h*D + d.
 // o: contiguous (B, S, H, D); lse: contiguous f32 (B*H, S).
-// vec != 0 (bf16): every base pointer is 16-byte aligned and D and all
-// strides are multiples of 8 elements. Returns the cudaError_t code.
+// vec != 0: every base pointer is 16-byte aligned and D and all strides are
+// multiples of 8 elements. The bf16 kernel loads through TMA and needs it
+// (the caller copies other inputs first). Returns the cudaError_t code.
 int medimgen_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                             int B, int H, int S, int D, int dtype,
                             long long q_sb, long long q_ss, long long k_sb, long long k_ss,
@@ -394,18 +461,21 @@ int medimgen_flash_attn_fwd(const void* q, const void* k, const void* v, void* o
     if (dtype == 0)
         return launch_f32(q, k, v, o, lse, B, H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                           scale, st);
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-#define MEDIMGEN_NT(N, BK)                                                                    \
-    case N:                                                                                   \
-        return launch_bf16<N, BK>(q, k, v, o, lse, B, H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, \
-                                  v_ss, scale, vec, st);
-    switch ((D + 63) / 64) {
-        MEDIMGEN_NT(1, 64) MEDIMGEN_NT(2, 64) MEDIMGEN_NT(3, 64) MEDIMGEN_NT(4, 64)
-        MEDIMGEN_NT(5, 64) MEDIMGEN_NT(6, 64) MEDIMGEN_NT(7, 64) MEDIMGEN_NT(8, 64)
-        MEDIMGEN_NT(9, 64) MEDIMGEN_NT(10, 64) MEDIMGEN_NT(11, 32) MEDIMGEN_NT(12, 32)
+    if (dtype != 1 || !vec) return (int)cudaErrorInvalidValue;
+    const Split sp(D);
+    // n > 1 only from D = 513, where cpc is 3
+#define MEDIMGEN_ARGS \
+    q, k, v, o, lse, B, H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, sp.n, st
+    if (sp.n > 1)
+        return sp.cpc == 3 ? launch_bf16<3, true>(MEDIMGEN_ARGS) : (int)cudaErrorInvalidValue;
+    switch (sp.cpc) {
+        case 1: return launch_bf16<1, false>(MEDIMGEN_ARGS);
+        case 2: return launch_bf16<2, false>(MEDIMGEN_ARGS);
+        case 3: return launch_bf16<3, false>(MEDIMGEN_ARGS);
+        case 4: return launch_bf16<4, false>(MEDIMGEN_ARGS);
         default: return (int)cudaErrorInvalidValue;
     }
-#undef MEDIMGEN_NT
+#undef MEDIMGEN_ARGS
 }
 
 }  // extern "C"

@@ -17,7 +17,10 @@ q, k, v, o and lse, and the backward is ``flash_attention_bwd``.
 CPU tensors go to the plain versions; CUDA tensors launch the kernels or
 raise. Launch counters: ``flash_attention.launches`` (forward),
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkdv.launches`` (the two backward
-passes).
+passes). The bf16 forward and dK/dV kernels load through TMA, which needs
+16-byte aligned bases and D and strides in multiples of 8 elements; inputs
+that are not are copied first (``tma_inputs``), and the copies are counted
+in ``flash_attention.input_copies`` and ``flash_bwd_dkdv.input_copies``.
 """
 
 from __future__ import annotations
@@ -138,6 +141,22 @@ def _vec_ok(D: int, itemsize: int, *tensors) -> bool:
         for t in tensors)
 
 
+def tma_inputs(D: int, *tensors):
+    """(tensors, D', copies) for a bf16 TMA kernel: the inputs themselves when
+    ``_vec_ok`` holds, else fresh contiguous copies zero-padded to D' = D
+    rounded up to 8. Zero columns add nothing to q k^T, dO v^T or the
+    products, so the callers drop the outputs' extra columns."""
+    if _vec_ok(D, 2, *tensors):
+        return tensors, D, 0
+    Dp = -(-D // 8) * 8
+    copies = []
+    for t in tensors:
+        c = t.new_zeros((*t.shape[:-1], Dp))
+        c[..., :D] = t
+        copies.append(c)
+    return tuple(copies), Dp, len(copies)
+
+
 def _check_smem(need: int, D: int, what: str):
     limit = _lib_fwd().medimgen_flash_attn_smem_limit()
     if need > limit:
@@ -157,16 +176,20 @@ def _fwd(q, k, v, scale: float):
     lib = _lib_fwd()
     dt = _DTYPES[q.dtype]
     _check_smem(lib.medimgen_flash_attn_smem_bytes(D, dt), D, "the flash forward")
-    o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    Dk = D
+    if q.dtype == torch.bfloat16:
+        (q, k, v), Dk, n_copies = tma_inputs(D, q, k, v)
+        flash_attention.input_copies += n_copies
+    o = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     err = lib.medimgen_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, H, S, D, dt, *_strides(q, k, v),
-        float(scale), int(_vec_ok(D, q.element_size(), q, k, v)),
+        B, H, S, Dk, dt, *_strides(q, k, v),
+        float(scale), int(_vec_ok(Dk, q.element_size(), q, k, v)),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attn_fwd launch")
     flash_attention.launches += 1
-    return o, lse
+    return (o if Dk == D else o[..., :D].contiguous()), lse
 
 
 def _bwd_args(q, k, v, o, lse, do):
@@ -209,14 +232,21 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
     lib, dt, vec, stream = _bwd_args(q, k, v, do, lse, do)
     if delta.shape != lse.shape or delta.dtype != torch.float32 or not delta.is_contiguous():
         raise ValueError(f"delta must be contiguous fp32 {tuple(lse.shape)}")
-    dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    Dk = D
+    if q.dtype == torch.bfloat16:
+        (q, k, v, do), Dk, n_copies = tma_inputs(D, q, k, v, do)
+        flash_bwd_dkdv.input_copies += n_copies
+        vec = True
+    dk = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     err = lib.medimgen_flash_attn_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, S, D, dt, *_strides(q, k, v),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, S, Dk, dt, *_strides(q, k, v),
         float(scale), int(vec), stream)
     _build.check(err, "flash_attn_bwd dkdv launch")
     flash_bwd_dkdv.launches += 1
+    if Dk != D:
+        dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
 
 
@@ -257,3 +287,5 @@ def flash_attention(q, k, v, scale: float):
 flash_attention.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
+flash_attention.input_copies = 0
+flash_bwd_dkdv.input_copies = 0

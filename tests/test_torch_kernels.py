@@ -32,10 +32,16 @@ def cuda():
 FLASH_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2**-7, 2**-10)}
 
 
+# (B, S, H, D): the U-Net's two sites, ragged S, head dims whose 64-column
+# chunks do not fill the last CTA of a cluster (8, 96, 640), and D % 8 != 0
+# (the bf16 kernels then run on zero-padded copies).
+FLASH_SHAPES = [(2, 64, 2, 8), (1, 1000, 1, 96), (2, 512, 1, 768), (2, 4096, 1, 512),
+                (1, 300, 1, 640), (1, 50, 2, 20)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,D", [(2, 64, 2, 8), (1, 1000, 1, 96), (2, 512, 1, 768),
-                                     (1, 50, 2, 20)])  # D % 8 != 0: element loads
+@pytest.mark.parametrize("B,S,H,D", FLASH_SHAPES)
 def test_flash_kernel_matches_plain_on_gpu(cuda, B, S, H, D, dtype):
     q, k, v = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, dtype) for s in range(3))
     before = tfa.flash_attention.launches
@@ -67,8 +73,7 @@ def _close(got, ref, rtol, atol_rel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,D", [(2, 64, 2, 8), (1, 1000, 1, 96), (2, 512, 1, 768),
-                                     (1, 50, 2, 20), (1, 300, 1, 512)])
+@pytest.mark.parametrize("B,S,H,D", FLASH_SHAPES + [(1, 300, 1, 512)])
 def test_flash_backward_kernels_match_plain_on_gpu(cuda, B, S, H, D, dtype):
     q, k, v, do = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, dtype) for s in range(4))
     scale = D ** -0.5
@@ -81,6 +86,67 @@ def test_flash_backward_kernels_match_plain_on_gpu(cuda, B, S, H, D, dtype):
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.dtype == dtype
         _close(g, r, *FLASH_BWD_TOL[dtype])
+
+
+def _views(kind, B, S, H, D, device, dtype):
+    """q, k, v as the three thirds of one fused QKV tensor, or as views whose
+    base pointers are 2 bytes off 16-byte alignment."""
+    if kind == "qkv":
+        qkv = torch.from_numpy(nd((B, S, 3 * H * D), 40)).to(device, dtype)
+        return tuple(qkv[..., i * H * D:(i + 1) * H * D].view(B, S, H, D) for i in range(3))
+    n = B * S * H * D
+    flat = torch.from_numpy(nd((3 * n + 1,), 41)).to(device, dtype)
+    return tuple(flat[1 + i * n:1 + (i + 1) * n].view(B, S, H, D) for i in range(3))
+
+
+@pytest.mark.parametrize("kind,D", [("qkv", 64), ("misaligned", 64), ("qkv", 20),
+                                    ("misaligned", 8)])
+def test_tma_inputs_copies_only_what_tma_cannot_describe(kind, D):
+    q, k, v = _views(kind, 2, 16, 1, D, "cpu", torch.bfloat16)
+    (cq, ck, cv), Dp, copies = tfa.tma_inputs(D, q, k, v)
+    copied = kind == "misaligned" or D % 8 != 0
+    assert copies == (3 if copied else 0) and Dp == -(-D // 8) * 8
+    for c, t in zip((cq, ck, cv), (q, k, v)):
+        assert (c is t) != copied and c.data_ptr() % 16 == 0
+        assert torch.equal(c[..., :D], t) and not c[..., D:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["qkv", "misaligned"])
+def test_flash_strided_views_on_gpu(cuda, kind):
+    """Fused-QKV thirds go to TMA as they are; misaligned views are copied
+    first (and counted); both agree with the plain versions."""
+    B, S, H, D = 2, 200, 2, 64
+    q, k, v = _views(kind, B, S, H, D, cuda, torch.bfloat16)
+    do = torch.from_numpy(nd((B, S, H, D), 42)).to(cuda, torch.bfloat16)
+    scale = D ** -0.5
+    before = (tfa.flash_attention.input_copies, tfa.flash_bwd_dkdv.input_copies)
+    o, lse = tfa.flash_attention(q, k, v, scale)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    after = (tfa.flash_attention.input_copies, tfa.flash_bwd_dkdv.input_copies)
+    expect = (3, 4) if kind == "misaligned" else (0, 0)
+    assert tuple(a - b for a, b in zip(after, before)) == expect
+    ro, rlse = tfa.flash_attention_plain(q, k, v, scale)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), ro.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    for g, r in zip(got, tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)):
+        _close(g, r, *FLASH_BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D", [(2, 512, 1, 768), (1, 1000, 1, 512)])
+def test_flash_dkdv_is_bit_identical_across_runs_on_gpu(cuda, B, S, H, D):
+    """The cluster sums its partial scores in a fixed order, with no atomics."""
+    q, k, v, do = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, torch.bfloat16)
+                   for s in range(4))
+    scale = D ** -0.5
+    o, lse = tfa.flash_attention(q, k, v, scale)
+    _, delta = tfa.flash_bwd_dq(q, k, v, o, lse, do, scale)
+    first = tfa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
+    second = tfa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert torch.equal(o, tfa.flash_attention(q, k, v, scale)[0])
 
 
 @pytest.mark.cuda
