@@ -8,16 +8,18 @@ Phases (any failure raises and exits non-zero):
 1. build        -- compile every kernel in medical_image_generation_tpu_torch/csrc
                    with nvcc (one process per source, in parallel), print each
                    instantiation's registers and spills, and check in the SASS
-                   (cuobjdump) that every bf16 flash forward and dK/dV kernel
-                   issues HGMMA (wgmma).
+                   (cuobjdump) that every bf16 flash forward, dQ and dK/dV
+                   kernel issues HGMMA (wgmma).
 2. kernels      -- each forward kernel against its plain PyTorch version on
                    CUDA tensors at the flagship path's shapes, bf16 and fp32:
                    max error against a stated tolerance, and median kernel /
                    plain / library times (CUDA events) beside the card's bound
-                   (flash: TFLOP/s and the ratio to SDPA at both sites).
+                   (flash: TFLOP/s and the ratio to SDPA at both sites);
+                   GroupNorm stats must take its 16-byte loads at every
+                   flagship shape and give the same bits twice.
 3. kernels_bwd  -- the same for the backward kernels (flash dQ and dK/dV,
-                   GroupNorm(+SiLU) backward stats and apply); dK/dV must give
-                   the same bits twice.
+                   GroupNorm(+SiLU) backward stats and apply); dQ (with
+                   delta) and dK/dV must give the same bits twice.
 4. parity       -- the tiny 3D config (seeded random weights, fp32, TF32 off)
                    through one U-Net forward and one decode, and through one
                    whole train step from the same weights and random draws,
@@ -32,8 +34,10 @@ Phases (any failure raises and exits non-zero):
                    frozen KL-VAE encode -> U-Net forward + backward (bf16
                    compute, fp32 masters) -> clip + AdamW(bf16 mu); 2 warm-up
                    and 10 timed steps with the launch counts the code predicts,
-                   a profile of one step, then save_checkpoint and sample one
-                   volume from it through LDMSampler.from_config.
+                   a profile of one step (each port kernel's device ms beside
+                   the bound summed over the step's launches), then
+                   save_checkpoint and sample one volume from it through
+                   LDMSampler.from_config.
 
 The last two lines of standard output are the kernels' JSON record (launches
 counted on the train path) and the device record; the card's name and power
@@ -96,7 +100,7 @@ GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship paths, batch 
 FLASH_SHAPES = [(2, 4096, 1, 512), (2, 512, 1, 768), (2, 1000, 3, 96)]  # (B, S, H, D)
 FLAGSHIP_FLASH = FLASH_SHAPES[:2]  # the U-Net's two attention sites
 FLASH_TILE = 32  # keys a tile of the forward kernel, queries a tile of the dK/dV kernel
-DQ_TILE = 64     # keys a tile of the dQ kernel
+DQ_TILE = 16     # keys a tile of the dQ kernel at the flagship sites (its smallest tile)
 
 
 def log(*a):
@@ -158,10 +162,11 @@ def phase_build():
 
 
 def check_hgmma(build):
-    """Every instantiation of the bf16 flash forward and dK/dV kernels must
-    issue HGMMA (wgmma) in its SASS."""
+    """Every instantiation of the bf16 flash forward, dQ and dK/dV kernels
+    must issue HGMMA (wgmma) in its SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for lib, kernel in (("flash_attn_fwd", "flash_fwd_bf16"), ("flash_attn_bwd", "flash_bwd_dkdv_bf16")):
+    for lib, kernel in (("flash_attn_fwd", "flash_fwd_bf16"), ("flash_attn_bwd", "flash_bwd_dq_bf16"),
+                        ("flash_attn_bwd", "flash_bwd_dkdv_bf16")):
         sass = subprocess.run([tool, "--dump-sass", build.lib_path(lib)], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         counts, cur = {}, None
@@ -283,8 +288,12 @@ def phase_kernels():
     for (M, C, G) in GN_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             x = (torch.randn((B, M, C), generator=gen, device="cuda") * 1.3 + 0.7).to(dt)
+            vec0 = gn.channel_stats.vector_launches
             st = gn.channel_stats(x)
+            vec_path = gn.channel_stats.vector_launches == vec0 + 1
             st_ref = gn.channel_stats_plain(x)
+            # no float atomics, fixed summation order
+            st_same = torch.equal(st, gn.channel_stats(x))
             torch.cuda.synchronize()
             serr = _err(st, st_ref)
             srel = serr / st_ref.abs().max().item()
@@ -301,7 +310,7 @@ def phase_kernels():
             rtol, atol = AFFINE_TOL[dt]
             a_ok = bool(((y.float() - y_ref.float()).abs()
                          <= atol + rtol * y_ref.float().abs()).all())
-            ok = srel <= STATS_REL_TOL and a_ok and ferr <= FOLD_REL_TOL
+            ok = srel <= STATS_REL_TOL and a_ok and ferr <= FOLD_REL_TOL and st_same and vec_path
             isz = x.element_size()
             s_ms = time_ms(lambda: gn.channel_stats(x))
             s_plain = time_ms(lambda: gn.channel_stats_plain(x), 1, 5)
@@ -316,8 +325,10 @@ def phase_kernels():
             a_bound = (B * M * C * 2 * isz + 2 * B * C * 4) / PEAK_BYTES * 1e3
             f_bound = (4 * B * C * 4 + 2 * C * 4) / PEAK_BYTES * 1e3
             log(f"[kernels] groupnorm {str(dt)[6:]} B={B} M={M} C={C}: "
-                f"stats rel_err={srel:.3e} (tol {STATS_REL_TOL:g}) ms={s_ms:.4f} "
-                f"plain_ms={s_plain:.4f} var_mean_ms={s_lib:.4f} bound_ms={s_bound:.4f} | fold rel_err={ferr:.3e} "
+                f"stats rel_err={srel:.3e} (tol {STATS_REL_TOL:g}) 16-byte loads={vec_path} "
+                f"bit-identical on a rerun={st_same} ms={s_ms:.4f} plain_ms={s_plain:.4f} "
+                f"var_mean_ms={s_lib:.4f} bound_ms={s_bound:.4f} ({s_bound / s_ms:.2f} of the "
+                f"bound's rate) | fold rel_err={ferr:.3e} "
                 f"(tol {FOLD_REL_TOL:g}) ms={f_ms:.4f} plain_ms={f_plain:.4f} "
                 f"bound_ms={f_bound:.5f} | affine+silu "
                 f"max_abs_err={aerr:.3e} (tol {atol:g} + {rtol:g}*|y|) ms={a_ms:.4f} plain_ms={a_plain:.4f} "
@@ -325,11 +336,13 @@ def phase_kernels():
                 f"{'OK' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"GroupNorm kernels disagree at {(B, M, C)} {dt}: "
-                                     f"stats {srel}, fold {ferr}, affine {aerr}")
-            if (M, C) == (32768, 256) and dt == torch.bfloat16:
-                rec["gn_channel_stats"] = dict(
+                                     f"stats {srel} (same bits on a rerun {st_same}, 16-byte "
+                                     f"loads {vec_path}), fold {ferr}, affine {aerr}")
+            if dt == torch.bfloat16:  # every GroupNorm shape, (2, 32768, 256) first
+                add_record(rec, "gn_channel_stats", dict(
                     shape=[B, M, C], dtype="bf16", max_abs_err=serr, ms=s_ms, plain_ms=s_plain,
-                    bound_ms=s_bound, bound_by="bytes", library_ms=s_lib)
+                    bound_ms=s_bound, bound_by="bytes", library_ms=s_lib))
+            if (M, C) == (32768, 256) and dt == torch.bfloat16:
                 rec["gn_fold_affine"] = dict(
                     shape=[B, C], dtype="fp32", max_abs_err=max(_err(A, rA), _err(bb, rbb)),
                     ms=f_ms, plain_ms=f_plain, bound_ms=f_bound, bound_by="bytes",
@@ -370,9 +383,11 @@ def phase_kernels_bwd():
             _, c_dk, c_dv = fa.flash_attention_bwd_plain(q[:, FLASH_TILE:], k, v,
                                                          o[:, FLASH_TILE:], lse_c,
                                                          do[:, FLASH_TILE:], scale)
-            # dk/dv: no atomics, the cluster sums in a fixed order
+            # no atomics, fixed summation orders: dq, delta, dk, dv the same bits twice
+            dq2, delta2 = fa.flash_bwd_dq(q, k, v, o, lse, do, scale)
             dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
-            same_bits = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+            same_bits = all(torch.equal(a_, b_) for a_, b_ in
+                            ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
             torch.cuda.synchronize()
             tol = FLASH_BWD_TOL[dt]
             res = {n: within(g, r, *tol) for n, g, r in
@@ -389,7 +404,7 @@ def phase_kernels_bwd():
                                for n, (_, e, _) in res.items())
                     + f" max|delta-plain|={d_err:.3e} (tol {tol[1]:g}*max + {tol[0]:g}*|g|;"
                     f" largest error / allowed {use:.3f}) one-tile-skip caught={cut_seen}"
-                    f" dk/dv bit-identical on a rerun={same_bits}")
+                    f" dq/delta/dk/dv bit-identical on a rerun={same_bits}")
             if dt == torch.bfloat16:
                 isz = q.element_size()
                 ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, scale))
@@ -437,7 +452,7 @@ def phase_kernels_bwd():
                 raise AssertionError(f"flash backward tolerance at {(B, S, H, D)} {dt} cannot "
                                      "see a skipped tile")
             if not same_bits:
-                raise AssertionError(f"flash dK/dV at {(B, S, H, D)} {dt} differs between runs")
+                raise AssertionError(f"flash backward at {(B, S, H, D)} {dt} differs between runs")
 
     # ---- GroupNorm(+SiLU) backward: stats pass, apply pass
     B = 2
@@ -541,9 +556,12 @@ def _counters():
 def _reset_counts():
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
 
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+
     for fn in _counters().values():
         fn.launches = 0
-    fa.flash_attention.input_copies = fa.flash_bwd_dkdv.input_copies = 0
+    fa.flash_attention.input_copies = fa.flash_bwd_dq.input_copies = 0
+    fa.flash_bwd_dkdv.input_copies = gn.channel_stats.vector_launches = 0
 
 
 def _read_counts():
@@ -554,7 +572,16 @@ def _input_copies():
     """Inputs the flash wrappers had to copy before TMA could load them."""
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
 
-    return fa.flash_attention.input_copies + fa.flash_bwd_dkdv.input_copies
+    return (fa.flash_attention.input_copies + fa.flash_bwd_dq.input_copies
+            + fa.flash_bwd_dkdv.input_copies)
+
+
+def _scalar_stats():
+    """Channel-stats launches since the last reset that did not take the
+    16-byte loads."""
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+
+    return gn.channel_stats.launches - gn.channel_stats.vector_launches
 
 
 def phase_parity():
@@ -672,6 +699,7 @@ def phase_slice(steps=10):
     secs = time.perf_counter() - t0
     counts = _read_counts()
     copies = _input_copies()
+    scalar = _scalar_stats()
 
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     expect = {k: 0 for k in counts}
@@ -681,15 +709,16 @@ def phase_slice(steps=10):
                    "gn_affine_act": gn_per_fwd * steps + gn_per_decode})
     log(f"[slice] launches per U-Net forward: flash {flash_per_fwd}, GroupNorm {gn_per_fwd}; "
         f"per decode: GroupNorm {gn_per_decode}; {steps} DDIM steps + decode: counted "
-        f"{counts}, expected {expect}; flash inputs copied for TMA: {copies}")
+        f"{counts}, expected {expect}; flash inputs copied for TMA: {copies}; channel-stats "
+        f"launches without 16-byte loads: {scalar}")
     finite = bool(torch.isfinite(torch.from_numpy(images)).all())
     shape_ok = images.shape == (B, *image, 1)
     spread = float(images.std())
     log(f"[slice] images shape={images.shape} finite={finite} min={images.min():.4f} "
         f"max={images.max():.4f} std={spread:.4f}")
-    if counts != expect or flash_per_fwd != 11 or copies:
+    if counts != expect or flash_per_fwd != 11 or copies or scalar:
         raise AssertionError(f"launch counts {counts} != expected {expect}, or {copies} "
-                             "flash inputs copied")
+                             f"flash inputs copied, or {scalar} scalar channel-stats launches")
     if not (finite and shape_ok and spread > 0):
         raise AssertionError("sampled volumes are not finite / of the expected shape")
 
@@ -703,7 +732,7 @@ def phase_slice(steps=10):
         f"{steps}-step DDIM + decode of {B} volumes: {secs * 1e3:.1f} ms "
         f"= {vols_min:.2f} volumes/min; peak memory {peak_gb:.2f} GiB")
     with torch.no_grad():
-        busy = profile_breakdown("U-Net forward", lambda: unet(x, t))
+        busy, _ = profile_breakdown("U-Net forward", lambda: unet(x, t))
         profile_breakdown("decode", lambda: sampler.decode(x))
     log(f"[slice] device busy per U-Net forward={busy:.3f} ms (profiler)")
 
@@ -769,6 +798,7 @@ def phase_train(warmup=2, steps=10):
     counts = _read_counts()
     copies = gn.gn_bwd_apply.grad_copies
     flash_copies = _input_copies()
+    scalar = _scalar_stats()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     expect = {k: v * steps for k, v in per_step.items()}
@@ -777,16 +807,18 @@ def phase_train(warmup=2, steps=10):
     log(f"[train] launches per step predicted {per_step} (U-Net: {attn_u} attention, {gn_u} "
         f"GroupNorm; encoder: {attn_e} attention, {gn_e} GroupNorm); {steps} steps counted "
         f"{counts}, expected {expect}; GroupNorm gradients copied to channels-last: "
-        f"{copies / steps:g} a step; flash inputs copied for TMA: {flash_copies}")
+        f"{copies / steps:g} a step; flash inputs copied for TMA: {flash_copies}; "
+        f"channel-stats launches without 16-byte loads: {scalar}")
     ms_step = secs * 1e3 / steps
     log(f"[train] {steps} steps in {secs * 1e3:.1f} ms: {ms_step:.3f} ms per step = "
         f"{1e3 / ms_step:.3f} steps/s; peak memory {peak_gb:.2f} GiB; params changed={changed}; "
         f"mu dtype {trainer.opt.mu[0].dtype}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
-    if counts != expect or attn_u != 11 or gn_u != 46 or gn_e != 13 or flash_copies:
+    if (counts != expect or attn_u != 11 or gn_u != 46 or gn_e != 13 or flash_copies
+            or scalar):
         raise AssertionError(f"launch counts {counts} != expected {expect}, or {flash_copies} "
-                             "flash inputs copied")
+                             f"flash inputs copied, or {scalar} scalar channel-stats launches")
     if not changed or trainer.opt.mu[0].dtype != torch.bfloat16:
         raise AssertionError("params unchanged by the steps, or mu not stored in bf16")
 
@@ -810,8 +842,12 @@ def phase_train(warmup=2, steps=10):
     log(f"[train] ms of U-Net forward+backward alone={fb_ms:.3f}; ms of clip+AdamW "
         f"alone={opt_ms:.3f}; ms of augment alone={aug_ms:.3f}; ms of the frozen encode "
         f"alone={enc_ms:.3f}")
-    busy = profile_breakdown("train step", lambda: trainer.train_step(batch))
+    bounds = step_bounds(trainer, batch)
+    busy, shares = profile_breakdown("train step", lambda: trainer.train_step(batch))
     log(f"[train] device busy per train step={busy:.3f} ms (profiler)")
+    for name, b_ms in bounds.items():
+        log(f"[train] per step: {name} device ms={shares[name]:.4f} bound ms (summed over the "
+            f"step's {per_step[name]} launches)={b_ms:.4f} ratio={shares[name] / b_ms:.2f}")
 
     # the trained model goes straight into the sampler
     ckpt_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "chip_smoke")
@@ -833,14 +869,62 @@ def phase_train(warmup=2, steps=10):
         f"{images.shape} finite={ok} std={float(images.std()):.4f}")
     if not ok:
         raise AssertionError("sampling from the saved checkpoint failed")
-    return counts
+    return counts, {name: dict(step_ms=shares[name], step_bound_ms=b_ms)
+                    for name, b_ms in bounds.items()}
 
 
-PORT_KERNELS = {  # profile name patterns of each port kernel
-    "flash_fwd": ("flash_fwd",), "flash_bwd_dq": ("flash_bwd_dq",),
-    "flash_bwd_dkdv": ("flash_bwd_dkdv",), "gn_stats": ("stats_partial", "stats_reduce"),
-    "gn_fold": ("::fold_kernel",), "gn_affine": ("affine_",),
-    "gn_bwd_stats": ("bwd_partial", "bwd_reduce", "bwd_fold"), "gn_bwd_apply": ("::apply_",),
+def step_bounds(trainer, batch):
+    """{kernel: least ms the card could take for the kernel's launches in one
+    train step}: the bound of each launch, from the shapes that reach the
+    GroupNorm and attention modules in one step, summed."""
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+
+    seen = []  # (module kind, differentiated, input shape, itemsize)
+
+    def hook_for(kind, grad):
+        def hook(mod, args):
+            x = args[0]
+            seen.append((kind, grad, mod, tuple(x.shape), x.element_size()))
+        return hook
+
+    handles = [m.register_forward_pre_hook(hook_for(cls.__name__, grad))
+               for net, grad in ((trainer.unet, True), (trainer.vae.encoder, False))
+               for m in net.modules() for cls in (GroupNorm, AttentionBlock)
+               if isinstance(m, cls)]
+    try:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    ms = {k: 0.0 for k in _counters()}
+    for kind, grad, mod, shape, isz in seen:
+        B, C, M = shape[0], shape[1], math.prod(shape[2:])
+        if kind == "GroupNorm":
+            ms["gn_channel_stats"] += (B * M * C * isz + B * 2 * C * 4) / PEAK_BYTES * 1e3
+            ms["gn_fold_affine"] += (4 * B * C * 4 + 2 * C * 4) / PEAK_BYTES * 1e3
+            ms["gn_affine_act"] += (B * M * C * 2 * isz + 2 * B * C * 4) / PEAK_BYTES * 1e3
+            if grad:
+                ms["gn_bwd_stats"] += (2 * B * M * C * isz + 9 * B * C * 4) / PEAK_BYTES * 1e3
+                ms["gn_bwd_apply"] += (3 * B * M * C * isz + 4 * B * C * 4) / PEAK_BYTES * 1e3
+        else:
+            S, H, D = M, mod.num_heads, mod.head_dim
+            fl, n, bhs = B * H * S * S * D, B * S * H * D, B * H * S
+            ms["flash_attn_fwd"] += bound(4 * fl, 4 * n * isz + 4 * bhs, PEAK_BF16_FLOPS)[0]
+            if grad:
+                ms["flash_attn_bwd_dq"] += bound(6 * fl, 6 * n * isz + 8 * bhs,
+                                                 PEAK_BF16_FLOPS)[0]
+                ms["flash_attn_bwd_dkdv"] += bound(8 * fl, 6 * n * isz + 8 * bhs,
+                                                   PEAK_BF16_FLOPS)[0]
+    return ms
+
+
+PORT_KERNELS = {  # profile name patterns of each port kernel, by its counter's name
+    "flash_attn_fwd": ("flash_fwd",), "flash_attn_bwd_dq": ("flash_bwd_dq",),
+    "flash_attn_bwd_dkdv": ("flash_bwd_dkdv",),
+    "gn_channel_stats": ("stats_partial", "stats_reduce"), "gn_fold_affine": ("::fold_kernel",),
+    "gn_affine_act": ("affine_",), "gn_bwd_stats": ("bwd_partial", "bwd_reduce", "bwd_fold"),
+    "gn_bwd_apply": ("::apply_",),
 }
 
 
@@ -848,7 +932,7 @@ def profile_breakdown(label, fn):
     """One call under torch.profiler: device time by kernel, the port
     kernels' share, and the device's busy share of the call's wall time
     (single stream, so kernels do not overlap); plus the host's enqueue time.
-    Returns the device busy ms."""
+    Returns (device busy ms, {port kernel: device ms})."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -875,7 +959,7 @@ def profile_breakdown(label, fn):
         f"{host_ms:.3f} ms; port kernels ms {({k: round(v, 3) for k, v in shares.items()})}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {us / 1e3:8.3f} ms  x{n:<4d} {name[:110]}")
-    return busy
+    return busy, shares
 
 
 def main() -> int:
@@ -891,7 +975,7 @@ def main() -> int:
     phase_parity()
     phase_parity_train()
     phase_slice()
-    counts = phase_train()
+    counts, per_step = phase_train()
     log(f"[env] total {time.perf_counter() - t0:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -913,7 +997,7 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in meta.items():
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name], **rec[name]})
+                        "launches": counts[name], **rec[name], **per_step[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

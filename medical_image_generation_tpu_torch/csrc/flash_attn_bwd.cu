@@ -11,8 +11,8 @@
 // HBM, which is safe only because the TPU grid runs in order (:199-202). CUDA
 // blocks run in any order, so this is the deterministic two-pass form, with
 // no atomics:
-//   * dq kernel: a block owns 32 query rows and walks the K/V tiles. Its
-//     prologue computes delta for its rows and writes it to (B*H, S) f32.
+//   * dq kernel: a block owns 64 query rows and walks the K/V tiles. It
+//     also computes delta for its rows and writes it to (B*H, S) f32.
 //   * dk/dv kernel (launched after it on the same stream): a cluster owns 64
 //     keys and walks the Q/dO tiles, reading lse and delta.
 // Both recompute q k^T and dO v^T, so the pair does 7 S^2 D matmuls where
@@ -24,12 +24,36 @@
 // (q, k, v, o, dO read once, dq, dk, dv written once) bound only the small
 // (S = 512, D = 768) sites.
 //
-// dq kernel (bf16): tensor-core mma.sync m16n8k16 with f32 accumulation,
-// operands from shared memory by ldmatrix; the 8 warps split the D axis of
-// the 32-row accumulator; score tiles over the full D are staged in shared
-// memory in f32, turned into bf16 ds, multiplied back; the next V tile is
-// prefetched with cp.async. Tiles: 32 queries x 64 keys while they fit the
-// 227 KB of shared memory (D <= 512), else x 32.
+// dq kernel (bf16): the dQ accumulator of 64 rows is 64 x D f32 (32,768
+// registers at D = 512), so the head dim is split as in the forward: each
+// CTA has two consumer warpgroups, and warpgroup w of CTA rank r owns the
+// 64-column chunks [(2r + w)*CPC, (2r + w + 1)*CPC) of dQ (CPC <= 4; n = 1
+// up to D = 512, a 2-CTA cluster with CPC = 3 above):
+//   * the two score matrices are split between the warpgroups, not their
+//     columns: warpgroup 0 forms S = Q K^T, warpgroup 1 dP = dO V^T, each
+//     over the CTA's head-dim columns (wgmma m64nKTk16, both operands K-major
+//     in shared memory). In a cluster the n partials of each are summed in
+//     rank order through DSMEM, so both CTAs hold the same bits. No partial
+//     is exchanged inside a CTA.
+//   * warpgroup 0 turns S into P = exp2(scale log2e s - lse log2e) (0 past
+//     S) and hands it to warpgroup 1 through shared memory; warpgroup 1 forms
+//     dS = scale P (dP - delta), packs it into bf16 wgmma A fragments and
+//     hands those back (mbarrier handoffs, double-buffered). Both then take
+//     dQ += dS K on their own chunks (wgmma m64nNk16, N = 64*CPC, A from
+//     registers), with K read MN-major from the tile S read K-major.
+//   * delta = rowsum(dO * o) comes from 16-byte loads of o and dO at the
+//     start, each row summed by one quad in a fixed order.
+//   * one producer warp (one thread) loads Q and dO once and the K/V tiles
+//     through TMA into a 2-stage ring (zero fill outside S and D). No
+//     setmaxnreg: the 288 threads get ptxas's 224 registers each, which
+//     holds the 128 accumulator floats with no spill (setmaxnreg needs whole
+//     producer warpgroups, whose 168-register cap spills).
+//   * keys a tile: 32 where two K/V stages fit beside the resident Q and dO
+//     (128 KB at D = 512), else 16 (D = 512, and the cluster sites).
+//   * fixed summation orders and no atomics: dq and delta are the same bits
+//     on every run. Keys past S get p = ds = 0; rows past S are not stored.
+// Shared memory at D = 512: Q and dO 128 KB, two 16-key K/V stages 64 KB,
+// P and dS slots 12 KB.
 //
 // dk/dv kernel (bf16): the dK and dV accumulators of 64 keys are 2 x 64 x D
 // f32 (65,536 registers at D = 512, the whole register file), so the head
@@ -66,8 +90,9 @@
 // f32 (used to check the port against the CPU in fp32): the same two-pass
 // tiling with scalar f32 FMAs and shared-memory accumulators.
 //
-// Not yet: the dq kernel on wgmma/TMA, fusing the two passes, a persistent
-// grid, TMA multicast of the Q/dO tiles to the CTAs of a cluster.
+// Not yet: fusing the two passes, a persistent grid, TMA multicast of the
+// Q/dO tiles to the CTAs of a cluster, overlapping one tile's P/dS handoff
+// with the next tile's scores.
 
 #include "flash_common.cuh"
 
@@ -75,200 +100,240 @@ namespace {
 
 // ----------------------------------------------------------------- bf16 path
 
-constexpr int BQA = 32;  // dq kernel: query rows per block
+constexpr int DQ_STAGES = 2;      // K/V ring depth of the dq kernel
+constexpr int DQ_THREADS = 288;   // two consumer warpgroups + one producer warp
 
-struct LayoutDq {
-    int Dp, ldt, lds, ldp;
-    size_t off_do, off_k, off_v, off_s, off_dp, off_ds, off_stat, total;
-    __host__ __device__ LayoutDq(int D, int BK) {
-        Dp = (D + 63) & ~63;
-        ldt = Dp + 8;  // +16 bytes a row: conflict-free ldmatrix
-        lds = BK + 4;
-        ldp = BK + 8;
-        off_do = align128(sizeof(bf16) * BQA * ldt);
-        off_k = off_do + align128(sizeof(bf16) * BQA * ldt);
-        off_v = off_k + align128(sizeof(bf16) * BK * ldt);
-        off_s = off_v + align128(sizeof(bf16) * BK * ldt);
-        off_dp = off_s + align128(sizeof(float) * BQA * lds);
-        off_ds = off_dp + align128(sizeof(float) * BQA * lds);
-        off_stat = off_ds + align128(sizeof(bf16) * BQA * ldp);
-        total = off_stat + align128(sizeof(float) * 2 * BQA);
-    }
+// Shared memory of the dq kernel for cpc chunks a warpgroup and kt keys a
+// tile: Q and dO resident (2*cpc boxes each), DQ_STAGES K/V stages, and per
+// buffer (two, alternating by tile) the f32 P tile, in a cluster also the
+// partial S and dP tiles, and the bf16 dS fragments.
+struct DqLayout {
+    unsigned nf, slot_bytes, buf_bytes, q, kv, slots, bars, total;
+    __host__ __device__ constexpr DqLayout(int cpc, int kt, bool cluster)
+        : nf(cluster ? 3 : 1), slot_bytes(kt * 256), buf_bytes(nf * slot_bytes + kt * 128),
+          q(0),                                           // Q at +0, dO at +2*cpc boxes
+          kv(4 * cpc * BOX_BYTES),                        // stage s: K at +0, V at +2*cpc boxes
+          slots(kv + DQ_STAGES * 4 * cpc * kt * 128),     // [buffer][P, S part, dP part, dS]
+          bars(slots + 2 * buf_bytes),
+          total(bars + 13 * 8 + 1024) {}                  // + alignment slack
 };
 
-int pick_dq_bk(int D) { return LayoutDq(D, 64).total <= MAX_SMEM ? 64 : 32; }
-
-// Scores of one m16 x n8 tile over the full (padded) head dim:
-// acc += A[a_row0 .. +16, :] * B[b_row0 .. +8, :]^T, both row-major in smem.
-__device__ __forceinline__ void score_tile(float (&acc)[4], const bf16* A, int a_row0,
-                                           const bf16* Bm, int b_row0, int ldt, int Dp) {
-    const int lane = threadIdx.x % 32;
-    for (int kk = 0; kk < Dp / 16; ++kk) {
-        unsigned a[4], b[2];
-        ldsm_x4(a, A + (a_row0 + (lane % 16)) * ldt + kk * 16 + (lane / 16) * 8);
-        ldsm_x2(b, Bm + (b_row0 + (lane % 8)) * ldt + kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(acc, a, b);
-    }
+// Keys a tile: 32 where two stages of 32 keys fit beside the resident Q and
+// dO, else 16 (D = 512, and the cluster sites, whose partial slots take room).
+constexpr int dq_keys(int cpc, bool cluster) {
+    return DqLayout(cpc, 32, cluster).total <= MAX_SMEM ? 32 : 16;
 }
 
-__device__ __forceinline__ void store_score(float* sS, int lds, int r0, int c0,
-                                            const float (&v)[4]) {
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    *reinterpret_cast<float2*>(sS + (r0 + g) * lds + c0 + 2 * t) = make_float2(v[0], v[1]);
-    *reinterpret_cast<float2*>(sS + (r0 + g + 8) * lds + c0 + 2 * t) = make_float2(v[2], v[3]);
-}
+// dq for 64 query rows of one (batch, head) and head-dim chunks
+// [rank*2*CPC, (rank+1)*2*CPC); also writes delta for those rows. One CTA of
+// an n-CTA cluster (CLUSTER: n > 1). Warpgroup 0 forms S = Q K^T and P,
+// warpgroup 1 forms dP = dO V^T and dS (from warpgroup 0's P); both then
+// take dQ += dS K on their own CPC chunks. Warp 8 issues the TMA loads.
+// o, dO, dq: contiguous (B, S, H, D), 16-byte aligned, D a multiple of 8.
+template <int CPC, int KT, bool CLUSTER>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                  const bf16* __restrict__ o, const bf16* __restrict__ dO,
+                  const float* __restrict__ lse, float* __restrict__ delta,
+                  bf16* __restrict__ dq, int H, int S, int D, int n, float scale,
+                  float scale_log2) {
+    constexpr int NACC = CPC * 32;       // dq accumulator floats a thread (64 x 64*CPC)
+    constexpr int NS = KT / 2;           // score floats a thread (64 x KT)
+    constexpr int KK = KT / 16;          // k16 steps of dQ += dS K a tile
+    constexpr unsigned KBOX = KT * 128;  // one 64-column box of KT keys
+    constexpr DqLayout L(CPC, KT, CLUSTER);
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = align1024(smem_raw);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);  // [stage]
+    uint64_t* empty = full + DQ_STAGES;                               // [stage]
+    uint64_t* qbar = empty + DQ_STAGES;
+    uint64_t* ready = qbar + 1;        // [buffer][warpgroup]: the cluster's partials
+    uint64_t* p_ready = ready + 4;     // [buffer]: warpgroup 0's P is in its slot
+    uint64_t* ds_ready = p_ready + 2;  // [buffer]: warpgroup 1's dS is in its slot
 
-// Store an m16 x (8*NT) accumulator slab (rows r0.., columns col0..) to a
-// contiguous (B, S, H, D) bf16 tensor; rows >= nrows and columns >= D are skipped.
-template <int NT>
-__device__ __forceinline__ void store_acc(bf16* out, long long row0_off, long long row_stride,
-                                          int r0, int nrows, int col0, int D,
-                                          const float (&acc)[NT][4]) {
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-        const int r = r0 + g + 8 * half;
-        if (r >= nrows) continue;
-        bf16* row = out + row0_off + r * row_stride;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-            const int c = col0 + nt * 8 + 2 * t;
-            if (c < D) row[c] = __float2bfloat16(acc[nt][2 * half]);
-            if (c + 1 < D) row[c + 1] = __float2bfloat16(acc[nt][2 * half + 1]);
-        }
-    }
-}
-
-// dq for 32 query rows of one (batch, head); also writes delta for them.
-// o, dO, dq: contiguous (B, S, H, D); q, k, v: element (b, s, h, d) at
-// b*sb + s*ss + h*D + d.
-template <int NT, int BK>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ o,
-                  const bf16* __restrict__ dO, const float* __restrict__ lse,
-                  float* __restrict__ delta, bf16* __restrict__ dq, int H, int S, int D,
-                  long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-                  long long v_ss, float scale, bool vec) {
-    constexpr int NPW = BK / 32;  // n8 score tiles per warp: 2 m16 x BK/8 tiles over 8 warps
-    extern __shared__ __align__(128) unsigned char smem[];
-    const LayoutDq L(D, BK);
-    const int Dp = L.Dp, ldt = L.ldt, lds = L.lds, ldp = L.ldp;
-    bf16* sQ = reinterpret_cast<bf16*>(smem);
-    bf16* sdO = reinterpret_cast<bf16*>(smem + L.off_do);
-    bf16* sK = reinterpret_cast<bf16*>(smem + L.off_k);
-    bf16* sV = reinterpret_cast<bf16*>(smem + L.off_v);
-    float* sS = reinterpret_cast<float*>(smem + L.off_s);
-    float* sdP = reinterpret_cast<float*>(smem + L.off_dp);
-    bf16* sdS = reinterpret_cast<bf16*>(smem + L.off_ds);
-    float* sLse = reinterpret_cast<float*>(smem + L.off_stat);
-    float* sDelta = sLse + BQA;
-
+    const unsigned rank = CLUSTER ? cluster_ctarank() : 0;
     const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-    const int q0 = blockIdx.x * BQA, nq = min(BQA, S - q0);
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const long long o_ss = (long long)H * D;
-    const long long o_base = ((long long)b * S * H + h) * D;
-    const bf16* qb = q + b * q_sb + (long long)h * D;
-    const bf16* kb = k + b * k_sb + (long long)h * D;
-    const bf16* vb = v + b * v_sb + (long long)h * D;
-    const int ntiles = (S + BK - 1) / BK;
+    const int q0 = (blockIdx.x / n) * BOX;
+    const int col0 = rank * 2 * CPC * BOX;  // this CTA's first head-dim column
+    const int ntiles = (S + KT - 1) / KT;
 
-    load_tile_bf16(sQ, ldt, qb + q0 * q_ss, q_ss, nq, BQA, D, Dp, vec);
-    load_tile_bf16(sdO, ldt, dO + o_base + q0 * o_ss, o_ss, nq, BQA, D, Dp, vec);
-    load_tile_bf16(sK, ldt, kb, k_ss, min(BK, S), BK, D, Dp, vec);
-    load_tile_bf16(sV, ldt, vb, v_ss, min(BK, S), BK, D, Dp, vec);
-    cp_async_commit();
-    cp_async_wait<0>();
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < DQ_STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 256);
+        }
+        mbar_init(qbar, 1);
+        for (int s = 0; s < 2; ++s) {
+            mbar_init(&ready[2 * s], n);
+            mbar_init(&ready[2 * s + 1], n);
+            mbar_init(&p_ready[s], 128);
+            mbar_init(&ds_ready[s], 128);
+        }
+        mbar_init_fence();
+    }
     __syncthreads();
+    if (CLUSTER) cluster_sync();  // every CTA's barriers exist before any remote arrive
 
-    // delta = rowsum(dO * o) for this block's rows, one warp per row
-    for (int r = warp; r < BQA; r += NWARPS) {
+    if (threadIdx.x >= 256) {  // ---- producer warp: one thread feeds Q, dO and the K/V ring
+        if (threadIdx.x == 256) {
+            mbar_expect_tx(qbar, 4 * CPC * BOX_BYTES);
+#pragma unroll 1
+            for (int c = 0; c < 2 * CPC; ++c) {
+                tma_load_box(smem + L.q + c * BOX_BYTES, &mq, col0 + c * BOX, h, q0, b, qbar);
+                tma_load_box(smem + L.q + (2 * CPC + c) * BOX_BYTES, &mdo, col0 + c * BOX, h, q0,
+                             b, qbar);
+            }
+#pragma unroll 1
+            for (int j = 0; j < ntiles; ++j) {
+                const int s = j % DQ_STAGES;
+                if (j >= DQ_STAGES) mbar_wait(&empty[s], ((j / DQ_STAGES) - 1) & 1);
+                unsigned char* sK = smem + L.kv + s * 4 * CPC * KBOX;
+                mbar_expect_tx(&full[s], 4 * CPC * KBOX);
+#pragma unroll 1
+                for (int c = 0; c < 2 * CPC; ++c) {
+                    tma_load_box(sK + c * KBOX, &mk, col0 + c * BOX, h, j * KT, b, &full[s]);
+                    tma_load_box(sK + (2 * CPC + c) * KBOX, &mv, col0 + c * BOX, h, j * KT, b,
+                                 &full[s]);
+                }
+            }
+        }
+        if (CLUSTER) cluster_sync();  // matches the consumers' final cluster barrier
+        return;
+    }
+
+    // ---- consumer warpgroups: wg 0 -> S, P; wg 1 -> dP, dS; both -> dQ
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int w = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+    // this thread's two query rows q0 + 16w + g + 8r: lse in log2 units (wg 0)
+    // or delta = rowsum(dO * o) (wg 1), each row's quad over interleaved
+    // 8-column groups of the whole head dim, summed in a fixed order
+    float rowv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = q0 + 16 * w + g + 8 * r;
+        if (wg == 0) {
+            rowv[r] = row < S ? lse[(long long)bh * S + row] * LOG2E : INFINITY;
+            continue;
+        }
         float acc = 0.f;
-        if (r < nq) {
-            const bf16* orow = o + o_base + (q0 + r) * o_ss;
-            for (int c = lane; c < D; c += 32)
-                acc += __bfloat162float(orow[c]) * __bfloat162float(sdO[r * ldt + c]);
+        if (row < S) {
+            const long long off = (((long long)b * S + row) * H + h) * D;
+            for (int c = 8 * tq; c < D; c += 32) {
+                const uint4 ov = *reinterpret_cast<const uint4*>(o + off + c);
+                const uint4 dv = *reinterpret_cast<const uint4*>(dO + off + c);
+                const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+                const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+                    acc = fmaf(of.x, df.x, acc);
+                    acc = fmaf(of.y, df.y, acc);
+                }
+            }
         }
-        acc = warp_sum(acc);
-        if (lane == 0) {
-            sDelta[r] = acc;
-            sLse[r] = r < nq ? lse[(long long)bh * S + q0 + r] : 0.f;
-            if (r < nq) delta[(long long)bh * S + q0 + r] = acc;
-        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        rowv[r] = acc;
+        if (rank == 0 && tq == 0 && row < S) delta[(long long)bh * S + row] = acc;
     }
 
-    float acc[2][NT][4];
+    float acc[NACC];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    const unsigned char* sA = smem + L.q + wg * 2 * CPC * BOX_BYTES;  // wg 0: Q, wg 1: dO
+    mbar_wait(qbar, 0);
 
-    const int col0 = warp * 8 * NT;
     for (int j = 0; j < ntiles; ++j) {
-        const int k0 = j * BK, nk = min(BK, S - k0);
-        const bool more = j + 1 < ntiles;
-        cp_async_wait<0>();  // this K and V tile landed
-        __syncthreads();
+        const int s = j % DQ_STAGES, buf = j & 1, k0 = j * KT;
+        const unsigned char* sK = smem + L.kv + s * 4 * CPC * KBOX;
+        const unsigned char* sB = sK + wg * 2 * CPC * KBOX;  // wg 0: K, wg 1: V
+        unsigned char* bslot = smem + L.slots + buf * L.buf_bytes;
+        float4* pslot = reinterpret_cast<float4*>(bslot);
+        uint4* dsslot = reinterpret_cast<uint4*>(bslot + L.nf * L.slot_bytes);
+        mbar_wait(&full[s], (j / DQ_STAGES) & 1);
 
-        {  // S = Q K^T and dP = dO V^T: warp (mi, n tiles nb..nb+NPW-1)
-            const int mi = warp & 1, nb = (warp >> 1) * NPW;
+        // S (wg 0) or dP (wg 1) over this CTA's head-dim columns
+        float sc[NS];
+        wgmma_fence();
 #pragma unroll
-            for (int i = 0; i < NPW; ++i) {
-                float sc[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-                score_tile(sc, sQ, mi * 16, sK, (nb + i) * 8, ldt, Dp);
-                score_tile(dp, sdO, mi * 16, sV, (nb + i) * 8, ldt, Dp);
-                store_score(sS, lds, mi * 16, (nb + i) * 8, sc);
-                store_score(sdP, lds, mi * 16, (nb + i) * 8, dp);
-            }
-        }
-        __syncthreads();  // V tile consumed: start the next one
-        if (more) {
-            load_tile_bf16(sV, ldt, vb + (k0 + BK) * v_ss, v_ss, min(BK, S - k0 - BK), BK, D,
-                           Dp, vec);
-            cp_async_commit();
+        for (int c = 0; c < 2 * CPC; ++c)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                wgmma_scores(sc, kmajor_desc(sA + c * BOX_BYTES + kk * 32),
+                             kmajor_desc(sB + c * KBOX + kk * 32), c + kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(sc);
+
+        if (CLUSTER) {  // sum the cluster's n partials of this matrix, in rank order
+            float4* mine = reinterpret_cast<float4*>(bslot + (1 + wg) * L.slot_bytes);
+            slot_store(mine, sc, t);
+            slot_publish(&ready[2 * buf + wg], wg, t, n);
+            slot_wait(&ready[2 * buf + wg], (j >> 1) & 1, wg, t);
+            for (int r = 0; r < n; ++r) slot_add(sc, mine, t, r, true, r == 0);
         }
 
-        // ds = scale * p * (dP - delta), p = exp(scale * s - lse), in bf16
-        for (int idx = threadIdx.x; idx < BQA * BK; idx += NTHREADS) {
-            const int r = idx / BK, c = idx - r * BK;
-            float ds = 0.f;
-            if (r < nq && c < nk) {
-                const float p = expf(sS[r * lds + c] * scale - sLse[r]);
-                ds = scale * p * (sdP[r * lds + c] - sDelta[r]);
+        unsigned a[KK][4];
+        if (wg == 0) {  // p = exp(scale s - lse), 0 past S; hand it over, take dS back
+#pragma unroll
+            for (int i = 0; i < NS; ++i) {
+                const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+                sc[i] = key < S ? exp2f(fmaf(sc[i], scale_log2, -rowv[(i >> 1) & 1])) : 0.f;
             }
-            sdS[r * ldp + c] = __float2bfloat16(ds);
+            slot_store(pslot, sc, t);
+            mbar_arrive(&p_ready[buf]);
+            mbar_wait(&ds_ready[buf], (j >> 1) & 1);
+#pragma unroll
+            for (int kk = 0; kk < KK; ++kk) {
+                const uint4 v = dsslot[kk * 128 + t];
+                a[kk][0] = v.x; a[kk][1] = v.y; a[kk][2] = v.z; a[kk][3] = v.w;
+            }
+        } else {  // ds = scale p (dP - delta) as bf16 A fragments, handed to wg 0
+            mbar_wait(&p_ready[buf], (j >> 1) & 1);
+#pragma unroll
+            for (int i = 0; i < NS / 4; ++i) {
+                const float4 p = pslot[i * 128 + t];
+                sc[4 * i] = scale * p.x * (sc[4 * i] - rowv[0]);
+                sc[4 * i + 1] = scale * p.y * (sc[4 * i + 1] - rowv[0]);
+                sc[4 * i + 2] = scale * p.z * (sc[4 * i + 2] - rowv[1]);
+                sc[4 * i + 3] = scale * p.w * (sc[4 * i + 3] - rowv[1]);
+            }
+#pragma unroll
+            for (int kk = 0; kk < KK; ++kk) {
+                acc_to_a(a[kk], sc, kk);
+                dsslot[kk * 128 + t] = make_uint4(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
+            }
+            mbar_arrive(&ds_ready[buf]);
         }
-        __syncthreads();
 
-        // dQ += dS K on this warp's columns
+        // dQ += dS K on this warpgroup's chunks (K read MN-major: no transpose)
+        fence_operand(acc);
+        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            unsigned a0[4], a1[4];
-            ldsm_x4(a0, sdS + (lane % 16) * ldp + kk * 16 + (lane / 16) * 8);
-            ldsm_x4(a1, sdS + (16 + lane % 16) * ldp + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                unsigned bfr[2];
-                ldsm_x2_trans(bfr, sK + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * ldt +
-                                       col0 + nt * 8);
-                mma_bf16(acc[0][nt], a0, bfr);
-                mma_bf16(acc[1][nt], a1, bfr);
-            }
-        }
-        __syncthreads();  // K tile consumed: start the next one
-        if (more) {
-            load_tile_bf16(sK, ldt, kb + (k0 + BK) * k_ss, k_ss, min(BK, S - k0 - BK), BK, D,
-                           Dp, vec);
-            cp_async_commit();
-        }
+        for (int kk = 0; kk < KK; ++kk)
+            wgmma_m64k16_rs(acc, a[kk], mnmajor_desc(sK + wg * CPC * KBOX + kk * 16 * 128, KBOX));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(acc);
+        mbar_arrive(&empty[s]);
     }
 
-    const long long dq_off = o_base + q0 * o_ss;
-    store_acc<NT>(dq, dq_off, o_ss, 0, nq, col0, D, acc[0]);
-    store_acc<NT>(dq, dq_off, o_ss, 16, nq, col0, D, acc[1]);
+    const int wcol0 = col0 + wg * CPC * BOX;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = q0 + 16 * w + g + 8 * r;
+        if (row >= S) continue;
+        bf16* orow = dq + (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+        for (int i = 0; i < NACC / 4; ++i) {
+            const int c = wcol0 + 8 * i + 2 * tq;
+            if (c < D)
+                *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                    __floats2bfloat162_rn(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+        }
+    }
+    if (CLUSTER) cluster_sync();  // no CTA leaves while a peer may read its slots
 }
 
 constexpr int DKV_STAGES = 3;     // Q/dO ring depth
@@ -516,18 +581,35 @@ struct Args {
     cudaStream_t st;
 };
 
-template <int NT, int BK>
-int launch_dq_bf16(const Args& a) {
-    const size_t smem = LayoutDq(a.D, BK).total;
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16<NT, BK>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((a.S + BQA - 1) / BQA, a.B * a.H);
-    flash_bwd_dq_bf16<NT, BK><<<grid, NTHREADS, smem, a.st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
-        static_cast<const bf16*>(a.dO), a.lse, a.delta, static_cast<bf16*>(a.dq), a.H, a.S,
-        a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.scale, a.vec);
+template <int CPC, bool CLUSTER>
+int launch_dq_bf16(const Args& a, int n) {
+    constexpr int KT = dq_keys(CPC, CLUSTER);
+    const long long o_ss = (long long)a.H * a.D, o_sb = o_ss * a.S;  // dO: contiguous BSHD
+    CUtensorMap mq, mk, mv, mdo;
+    int err = make_map_bshd(&mq, a.q, a.B, a.H, a.S, a.D, a.q_sb, a.q_ss, BOX);
+    if (!err) err = make_map_bshd(&mk, a.k, a.B, a.H, a.S, a.D, a.k_sb, a.k_ss, KT);
+    if (!err) err = make_map_bshd(&mv, a.v, a.B, a.H, a.S, a.D, a.v_sb, a.v_ss, KT);
+    if (!err) err = make_map_bshd(&mdo, a.dO, a.B, a.H, a.S, a.D, o_sb, o_ss, BOX);
+    if (err) return err;
+    constexpr unsigned smem = DqLayout(CPC, KT, CLUSTER).total;
+    if (const int e = allow_smem<flash_bwd_dq_bf16<CPC, KT, CLUSTER>>(smem)) return e;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n * ((a.S + BOX - 1) / BOX), a.B * a.H);
+    cfg.blockDim = dim3(DQ_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = a.st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, flash_bwd_dq_bf16<CPC, KT, CLUSTER>, mq, mk, mv, mdo,
+        static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dO), a.lse, a.delta,
+        static_cast<bf16*>(a.dq), a.H, a.S, a.D, n, a.scale, a.scale * LOG2E);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
@@ -790,12 +872,12 @@ int launch_f32(const Args& a, bool dq_pass) {
     return (int)cudaGetLastError();
 }
 
-constexpr int MAX_NT = 12;  // bf16 covers D <= 64 * MAX_NT
-
 size_t smem_bytes(int D, int dtype) {
     if (dtype == 1) {
-        if ((D + 63) / 64 > MAX_NT) return ~size_t(0);
-        const size_t a = LayoutDq(D, pick_dq_bk(D)).total;
+        if (D > MAX_D) return ~size_t(0);
+        const Split sq(D);
+        const bool cl = sq.n > 1;
+        const size_t a = DqLayout(sq.cpc, dq_keys(sq.cpc, cl), cl).total;
         const size_t b = DkvLayout(DkvSplit(D).cpc).total;
         return a > b ? a : b;
     }
@@ -803,39 +885,31 @@ size_t smem_bytes(int D, int dtype) {
     return L.dq_total > L.dkv_total ? L.dq_total : L.dkv_total;
 }
 
-// The dq kernel's tile sizes follow from NT alone (the padded head dim is
-// 64 * NT): its 64-key tiles fit the 227 KB up to NT = 8 (D <= 512).
-template <int NT>
-int launch_dq_nt(const Args& a) {
-    constexpr int BK = NT <= 8 ? 64 : 32;
-    if (pick_dq_bk(a.D) != BK) return (int)cudaErrorInvalidValue;
-    return launch_dq_bf16<NT, BK>(a);
-}
-
 int run(const Args& a, int dtype, bool dq_pass) {
     if (a.D < 1 || smem_bytes(a.D, dtype) > MAX_SMEM) return (int)cudaErrorInvalidValue;
     if (dtype == 0) return launch_f32(a, dq_pass);
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-    if (!dq_pass) {
-        if (!a.vec) return (int)cudaErrorInvalidValue;  // TMA needs aligned, 8-element strides
-        const DkvSplit sp(a.D);
+    // bf16: TMA needs aligned bases and 8-element strides (the caller copies other inputs)
+    if (dtype != 1 || !a.vec) return (int)cudaErrorInvalidValue;
+    if (dq_pass) {
+        const Split sp(a.D);
+        if (sp.n > 1)  // n > 1 only from D = 513, where cpc is 3
+            return sp.cpc == 3 ? launch_dq_bf16<3, true>(a, sp.n) : (int)cudaErrorInvalidValue;
         switch (sp.cpc) {
-            case 1: return launch_dkdv_bf16<1>(a, sp.n);
-            case 2: return launch_dkdv_bf16<2>(a, sp.n);
-            case 3: return launch_dkdv_bf16<3>(a, sp.n);
-            case 4: return launch_dkdv_bf16<4>(a, sp.n);
+            case 1: return launch_dq_bf16<1, false>(a, 1);
+            case 2: return launch_dq_bf16<2, false>(a, 1);
+            case 3: return launch_dq_bf16<3, false>(a, 1);
+            case 4: return launch_dq_bf16<4, false>(a, 1);
             default: return (int)cudaErrorInvalidValue;
         }
     }
-#define MEDIMGEN_NT(N) \
-    case N: return launch_dq_nt<N>(a);
-    switch ((a.D + 63) / 64) {
-        MEDIMGEN_NT(1) MEDIMGEN_NT(2) MEDIMGEN_NT(3) MEDIMGEN_NT(4) MEDIMGEN_NT(5)
-        MEDIMGEN_NT(6) MEDIMGEN_NT(7) MEDIMGEN_NT(8) MEDIMGEN_NT(9) MEDIMGEN_NT(10)
-        MEDIMGEN_NT(11) MEDIMGEN_NT(12)
+    const DkvSplit sp(a.D);
+    switch (sp.cpc) {
+        case 1: return launch_dkdv_bf16<1>(a, sp.n);
+        case 2: return launch_dkdv_bf16<2>(a, sp.n);
+        case 3: return launch_dkdv_bf16<3>(a, sp.n);
+        case 4: return launch_dkdv_bf16<4>(a, sp.n);
         default: return (int)cudaErrorInvalidValue;
     }
-#undef MEDIMGEN_NT
 }
 
 }  // namespace

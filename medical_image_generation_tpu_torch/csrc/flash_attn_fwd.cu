@@ -96,17 +96,6 @@ __device__ void online_softmax(const float* sS, int lds, float* sP, int ldp, flo
 
 constexpr int FWD_STAGES = 2;     // K/V ring depth
 
-// Head-dim split of one row block: NC 64-column chunks over n CTAs x 2
-// warpgroups, cpc chunks each (n = 1 up to D = 512, 2 up to D = 1024).
-struct Split {
-    int n, cpc;
-    explicit Split(int D) {
-        const int nc = (D + BOX - 1) / BOX;
-        n = nc <= 8 ? 1 : 2;
-        cpc = (nc + 2 * n - 1) / (2 * n);
-    }
-};
-
 struct FwdLayout {
     unsigned q, kv, slots, bars, total;
     __host__ __device__ explicit FwdLayout(int cpc) {
@@ -429,8 +418,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
         k_ss, v_sb, v_ss, scale);
     return (int)cudaGetLastError();
 }
-
-constexpr int MAX_D = 768;  // bf16: up to 2 CTAs x 2 warpgroups x 3 chunks of 64 columns
 
 size_t smem_bytes(int D, int dtype) {
     if (dtype == 1) return D > MAX_D ? ~size_t(0) : FwdLayout(Split(D).cpc).total;

@@ -1,14 +1,12 @@
 // Helpers shared by the flash-attention kernels (flash_attn_fwd.cu,
 // flash_attn_bwd.cu).
 //
-// Sm80-style (the dQ kernel and the f32 paths): warp reductions, cp.async,
-// ldmatrix, bf16 mma.sync m16n8k16 with f32 accumulation, tile loads into
-// shared memory.
+// The f32 paths: warp reductions and f32 tile loads into shared memory.
 //
-// Hopper (the bf16 forward and dK/dV kernels):
+// Hopper (the bf16 forward, dQ and dK/dV kernels):
 //   * TMA: `make_map_bshd` (host) describes a bf16 (B, S, H, D) view as a 4-D
-//     tensor map cut into boxes of 64 columns of D (128 bytes a row) by 64 or
-//     32 rows of S, 128-byte swizzled, zero-filled outside S and D;
+//     tensor map cut into boxes of 64 columns of D (128 bytes a row) by 64,
+//     32 or 16 rows of S, 128-byte swizzled, zero-filled outside S and D;
 //     `tma_load_box` copies one box into shared memory and reports its bytes
 //     to an mbarrier. cuTensorMapEncodeTiled is looked up at run time
 //     (cudaGetDriverEntryPoint), so the library links nothing but cudart.
@@ -23,14 +21,16 @@
 //     (`sw128_desc`), fence / commit / wait, `fence_operand` (keeps the
 //     compiler from moving register reads or writes across an asynchronous
 //     wgmma), and m64nNk16 bf16 products with f32 accumulators: S = A B^T
-//     with both operands K-major in shared memory (N = 32), and D += A B
+//     with both operands K-major in shared memory (N = 16 or 32), and D += A B
 //     with A in registers and B MN-major in shared memory (N = 64, 128, 192,
-//     256); `acc_to_a` turns an m64n32 accumulator into A fragments.
+//     256); `acc_to_a` turns an m64n16 or m64n32 accumulator into A fragments.
 //   * partial score tiles: `slot_store` / `slot_add` / `slot_publish` /
-//     `slot_wait` exchange 64 x 32 f32 partials between warpgroups and CTAs.
-//   * `producer_regs` / `consumer_regs` (setmaxnreg) and `allow_smem`.
-// Box layout: a bf16 box is 64 columns (128 bytes) by 64 or 32 rows (8 or 4
-// KB), row r at r * 128 bytes, its 16-byte groups XOR-swizzled by r % 8
+//     `slot_wait` exchange 64 x 16 or 64 x 32 f32 tiles between warpgroups
+//     and CTAs.
+//   * `producer_regs` / `consumer_regs` (setmaxnreg), `allow_smem`, and the
+//     head-dim `Split` of the forward and dQ kernels.
+// Box layout: a bf16 box is 64 columns (128 bytes) by 64, 32 or 16 rows (8,
+// 4 or 2 KB), row r at r * 128 bytes, its 16-byte groups XOR-swizzled by r % 8
 // (TMA's SWIZZLE_128B). As a K-major operand (rows = M or N, K along the
 // row) a k16 step is +32 bytes and 8-row groups are 1024 bytes apart (SBO);
 // as an MN-major operand (rows = K, N along the row) a k16 step is +2048
@@ -67,62 +67,6 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1])
-                 : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1])
-                 : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// rows x Dp bf16 tile into shared memory (row stride ld); rows >= rows_valid
-// and columns >= D are zero-filled. vec: 16-byte cp.async (asynchronous,
-// the caller commits and waits); else synchronous element loads.
-__device__ void load_tile_bf16(bf16* dst, int ld, const bf16* src, long long row_stride,
-                               int rows_valid, int rows, int D, int Dp, bool vec) {
-    const int cpr = Dp / 8;
-    for (int idx = threadIdx.x; idx < rows * cpr; idx += NTHREADS) {
-        const int r = idx / cpr, c = (idx - r * cpr) * 8;
-        bf16* d = dst + r * ld + c;
-        const bool ok = r < rows_valid && c < D;
-        if (vec) {
-            cp_async16(d, ok ? src + r * row_stride + c : src, ok ? 16 : 0);
-        } else {
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-                d[e] = (r < rows_valid && c + e < D) ? src[r * row_stride + c + e]
-                                                     : __float2bfloat16(0.f);
-        }
-    }
-}
-
 __device__ void load_tile_f32(float* dst, int ld, const float* src, long long row_stride,
                               int rows_valid, int rows, int D, int Dp) {
     for (int idx = threadIdx.x; idx < rows * Dp; idx += NTHREADS) {
@@ -138,6 +82,20 @@ constexpr int TILE = 32;   // rows of a streamed tile (keys in the forward, quer
 constexpr unsigned BOX_BYTES = BOX * 128;    // 64-row box, 8 KB
 constexpr unsigned TBOX_BYTES = TILE * 128;  // 32-row box, 4 KB
 constexpr unsigned SLOT_F4 = BOX * TILE / 4;  // one f32 64 x 32 score tile, in float4
+constexpr int MAX_D = 768;  // bf16 head dims taken: 2 CTAs x 2 warpgroups x 3 chunks of 64
+
+// Head-dim split of one 64-row block of the forward and dQ kernels: NC
+// 64-column chunks over n CTAs x 2 warpgroups, cpc chunks each (n = 1 up to
+// D = 512, 2 above).
+struct Split {
+    int n, cpc;
+    explicit Split(int D) {
+        const int nc = (D + BOX - 1) / BOX;
+        n = nc <= 8 ? 1 : 2;
+        cpc = (nc + 2 * n - 1) / (2 * n);
+    }
+};
+
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -357,22 +315,24 @@ template <int M, int N> __device__ __forceinline__ void fence_operand(unsigned (
         for (int k = 0; k < N; ++k) asm volatile("" : "+r"(r[i][k])::"memory");
 }
 
-// Partial 64 x 32 f32 score tiles are exchanged through shared memory (the
-// other warpgroup of the CTA) and DSMEM (the other CTAs of the cluster). A
-// thread keeps its 16 accumulator floats as 4 float4 at slot[i * 128 + t]
+// Score tiles (64 x 16 or 64 x 32 f32) are exchanged through shared memory
+// (the other warpgroup of the CTA) and DSMEM (the other CTAs of the cluster).
+// A thread keeps its N accumulator floats as N/4 float4 at slot[i * 128 + t]
 // (consecutive threads on consecutive 16 bytes); every warpgroup and CTA uses
-// the same layout, so thread t reads the partials of its own elements.
-__device__ __forceinline__ void slot_store(float4* slot, const float (&v)[16], int t) {
+// the same layout, so thread t reads the values of its own elements.
+template <int N>
+__device__ __forceinline__ void slot_store(float4* slot, const float (&v)[N], int t) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < N / 4; ++i)
         slot[i * 128 + t] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
 }
 // v = (first ? 0 : v) + the partial at `slot` in CTA `rank` (through DSMEM
 // when remote, else this CTA's own shared memory).
-__device__ __forceinline__ void slot_add(float (&v)[16], const float4* slot, int t, unsigned rank,
+template <int N>
+__device__ __forceinline__ void slot_add(float (&v)[N], const float4* slot, int t, unsigned rank,
                                          bool remote, bool first) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < N / 4; ++i) {
         const float4 b = remote ? ld_dsmem_f4(&slot[i * 128 + t], rank) : slot[i * 128 + t];
         if (first) {
             v[4 * i] = b.x; v[4 * i + 1] = b.y; v[4 * i + 2] = b.z; v[4 * i + 3] = b.w;
@@ -400,9 +360,10 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const unsigned*>(&v);
 }
-// The wgmma A fragment of columns 16kk..16kk+15 of an m64n32 f32 accumulator
-// (the accumulator's n8 tiles 2kk and 2kk+1 hold exactly those columns).
-__device__ __forceinline__ void acc_to_a(unsigned (&a)[4], const float (&s)[16], int kk) {
+// The wgmma A fragment of columns 16kk..16kk+15 of an m64n16 or m64n32 f32
+// accumulator (its n8 tiles 2kk and 2kk+1 hold exactly those columns).
+template <int N>
+__device__ __forceinline__ void acc_to_a(unsigned (&a)[4], const float (&s)[N], int kk) {
     a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
     a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -422,6 +383,26 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, u
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 16 f32) = (scale_d ? d : 0) + A B^T, as wgmma_m64n32k16_ss with B
+// (16 x 16) of 16 rows.
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t a, uint64_t b,
+                                                   int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+// Both score shapes behind one name: N = 16 or 32 keys.
+__device__ __forceinline__ void wgmma_scores(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    wgmma_m64n16k16_ss(d, a, b, scale_d);
+}
+__device__ __forceinline__ void wgmma_scores(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    wgmma_m64n32k16_ss(d, a, b, scale_d);
 }
 
 // d (64 x 64 f32) += A B: A (64 x 16 bf16) in registers, in the mma.sync

@@ -24,9 +24,14 @@
 //   at the store; act is SiLU or none. One read and one write.
 //   Bound: bytes, B*M*C*(in + out itemsize) at 3.35 TB/s.
 //
-// Simple first: the stats kernel loads one element per thread per row (a
-// warp reads 32 adjacent channels); affine_act uses 16-byte vector accesses
-// when C and the pointers allow it.
+// The stats pass streams the activation at HBM rate: each thread loads 16
+// bytes of a row (8 bf16 or 4 f32 channels) where C and the base pointer
+// allow it, else one element, and keeps STATS_UNROLL independent row loads
+// in flight. A warp reads 512 contiguous bytes: 32 lanes along a row, or at
+// small C (32 bf16 channels: 4 lanes a row) several whole rows. The caller
+// sizes the grid from the SM count (`_stats_slabs` in ops/groupnorm.py), so
+// that every shape of the flagship paths fills the card, C = 32 included.
+// affine_act uses 16-byte vector accesses when C and the pointers allow it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -44,38 +49,80 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 constexpr int STATS_THREADS = 256;
+constexpr int STATS_UNROLL = 4;  // independent row loads in flight a thread
 
-// grid (ceil(C / blockDim.x), nblk, B); block (CT, 256 / CT).
-// partials: (B, nblk, 2, C) fp32.
-template <typename T>
+// V channels of one row from 16 bytes (V = 16 / sizeof(T)) or one element (V = 1).
+template <typename T, int V>
+__device__ __forceinline__ void load_row(const T* p, float (&f)[V]) {
+    if constexpr (V == 1) {
+        f[0] = to_f(*p);
+    } else {
+        const uint4 raw = *reinterpret_cast<const uint4*>(p);
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int i = 0; i < V; ++i) f[i] = to_f(e[i]);
+    }
+}
+
+// Partial [sum x, sum x^2] of V adjacent channels over a slab of rows.
+// grid (ceil(C / (V * CTV)), nblk, B); block (CTV, RY): thread (tx, ty) owns
+// channels [(blockIdx.x * CTV + tx) * V, +V) and rows m0 + ty, m0 + ty + RY, ...
+// of its block's slab, STATS_UNROLL loads in flight; the block then sums its
+// RY row lanes in order. partials: (B, nblk, 2, C) fp32.
+template <typename T, int V>
 __global__ void __launch_bounds__(STATS_THREADS)
 stats_partial_kernel(const T* __restrict__ x, float* __restrict__ part, long long M, int C,
                      long long rows_per_block) {
-    __shared__ float sh1[STATS_THREADS], sh2[STATS_THREADS];
-    const int tx = threadIdx.x, ty = threadIdx.y, CT = blockDim.x, RY = blockDim.y;
-    const int c = blockIdx.x * CT + tx;
+    __shared__ float sh[STATS_THREADS * 2 * V];
+    const int tx = threadIdx.x, ty = threadIdx.y, CTV = blockDim.x, RY = blockDim.y;
+    const int cv = blockIdx.x * CTV + tx;  // vector column
     const long long m0 = (long long)blockIdx.y * rows_per_block;
     const long long m1 = min(m0 + rows_per_block, M);
-    const T* xb = x + (long long)blockIdx.z * M * C;
-    float s1 = 0.f, s2 = 0.f;
-    if (c < C) {
-        for (long long m = m0 + ty; m < m1; m += RY) {
-            const float val = to_f(xb[m * C + c]);
-            s1 += val;
-            s2 += val * val;
+    float s1[V], s2[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) s1[e] = s2[e] = 0.f;
+    if (cv * V < C) {
+        const T* xc = x + (long long)blockIdx.z * M * C + cv * V;
+        long long m = m0 + ty;
+        for (; m + (STATS_UNROLL - 1) * RY < m1; m += STATS_UNROLL * RY) {
+            float f[STATS_UNROLL][V];
+#pragma unroll
+            for (int u = 0; u < STATS_UNROLL; ++u) load_row<T, V>(xc + (m + u * RY) * C, f[u]);
+#pragma unroll
+            for (int u = 0; u < STATS_UNROLL; ++u)
+#pragma unroll
+                for (int e = 0; e < V; ++e) {
+                    s1[e] += f[u][e];
+                    s2[e] = fmaf(f[u][e], f[u][e], s2[e]);
+                }
+        }
+        for (; m < m1; m += RY) {
+            float f[V];
+            load_row<T, V>(xc + m * C, f);
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+                s1[e] += f[e];
+                s2[e] = fmaf(f[e], f[e], s2[e]);
+            }
         }
     }
-    sh1[ty * CT + tx] = s1;
-    sh2[ty * CT + tx] = s2;
+    // sh[ty][tx][k]: k < V the sums of x, k >= V the sums of x^2
+    float* mine = sh + (ty * CTV + tx) * 2 * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+        mine[e] = s1[e];
+        mine[V + e] = s2[e];
+    }
     __syncthreads();
-    if (ty == 0 && c < C) {
-        for (int j = 1; j < RY; ++j) {
-            s1 += sh1[j * CT + tx];
-            s2 += sh2[j * CT + tx];
-        }
-        float* p = part + ((long long)blockIdx.z * gridDim.y + blockIdx.y) * 2 * C;
-        p[c] = s1;
-        p[C + c] = s2;
+    const int per_lane = CTV * 2 * V, tid = ty * CTV + tx;
+    for (int i = tid; i < per_lane; i += CTV * RY) {
+        float acc = 0.f;
+        for (int r = 0; r < RY; ++r) acc += sh[r * per_lane + i];
+        const int lx = i / (2 * V), k = i - lx * 2 * V;
+        const int c = (blockIdx.x * CTV + lx) * V + (k < V ? k : k - V);
+        if (c < C)
+            part[((long long)blockIdx.z * gridDim.y + blockIdx.y) * 2 * C + (k < V ? 0 : C) + c] =
+                acc;
     }
 }
 
@@ -182,14 +229,15 @@ __global__ void fold_kernel(const float* __restrict__ stats, const float* __rest
     }
 }
 
-template <typename T>
+template <typename T, int V>
 int stats(const void* x, float* part, float* out, int B, long long M, int C,
           long long rows_per_block, int nblk, cudaStream_t st) {
-    const int CT = C >= 64 ? 64 : 32;
-    const dim3 block(CT, STATS_THREADS / CT);
-    const dim3 grid((C + CT - 1) / CT, nblk, B);
-    stats_partial_kernel<T><<<grid, block, 0, st>>>(static_cast<const T*>(x), part, M, C,
-                                                    rows_per_block);
+    const int cols = C / V;  // vector columns
+    const int CTV = cols < 32 ? cols : 32;
+    const dim3 block(CTV, STATS_THREADS / CTV);
+    const dim3 grid((cols + CTV - 1) / CTV, nblk, B);
+    stats_partial_kernel<T, V><<<grid, block, 0, st>>>(static_cast<const T*>(x), part, M, C,
+                                                       rows_per_block);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     stats_reduce_kernel<<<dim3((C + 31) / 32, B), dim3(32, 8), 0, st>>>(part, out, C, nblk);
@@ -218,15 +266,24 @@ int affine(const void* x, const float* A, const float* b, void* y, int B, long l
 extern "C" {
 
 // x: contiguous (B, M, C), dtype 0 = f32, 1 = bf16. partials: fp32 scratch of
-// B*nblk*2*C floats with nblk = ceil(M / rows_per_block). out: fp32 (B, 2, C)
-// holding [sum x, sum x^2]. Returns the cudaError_t code.
+// B*nblk*2*C floats; block i of a batch reduces rows [i*rows_per_block,
+// min((i+1)*rows_per_block, M)), so nblk = ceil(M / rows_per_block). out: fp32
+// (B, 2, C) holding [sum x, sum x^2]. vec != 0: 16-byte loads, which need a
+// 16-byte aligned x and C a multiple of 16 bytes' worth of elements.
+// Returns the cudaError_t code.
 int medimgen_gn_channel_stats(const void* x, float* partials, float* out, int B, long long M,
-                              int C, int dtype, long long rows_per_block, int nblk,
+                              int C, int dtype, long long rows_per_block, int nblk, int vec,
                               void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 1) return stats<bf16>(x, partials, out, B, M, C, rows_per_block, nblk, st);
-    if (dtype == 0) return stats<float>(x, partials, out, B, M, C, rows_per_block, nblk, st);
-    return (int)cudaErrorInvalidValue;
+    const int isz = dtype == 1 ? 2 : 4;
+    if (nblk < 1 || rows_per_block < 1 || (dtype != 0 && dtype != 1) ||
+        (vec && (C % (16 / isz) != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)))
+        return (int)cudaErrorInvalidValue;
+    if (dtype == 1)
+        return vec ? stats<bf16, 8>(x, partials, out, B, M, C, rows_per_block, nblk, st)
+                   : stats<bf16, 1>(x, partials, out, B, M, C, rows_per_block, nblk, st);
+    return vec ? stats<float, 4>(x, partials, out, B, M, C, rows_per_block, nblk, st)
+               : stats<float, 1>(x, partials, out, B, M, C, rows_per_block, nblk, st);
 }
 
 // stats: fp32 (B, 2, C) channel sums over n_spatial rows; w, bias: fp32 (C);

@@ -17,10 +17,11 @@ q, k, v, o and lse, and the backward is ``flash_attention_bwd``.
 CPU tensors go to the plain versions; CUDA tensors launch the kernels or
 raise. Launch counters: ``flash_attention.launches`` (forward),
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkdv.launches`` (the two backward
-passes). The bf16 forward and dK/dV kernels load through TMA, which needs
-16-byte aligned bases and D and strides in multiples of 8 elements; inputs
-that are not are copied first (``tma_inputs``), and the copies are counted
-in ``flash_attention.input_copies`` and ``flash_bwd_dkdv.input_copies``.
+passes). The bf16 kernels load through TMA, which needs 16-byte aligned
+bases and D and strides in multiples of 8 elements; inputs that are not are
+copied first (``tma_inputs``), and the copies are counted in
+``flash_attention.input_copies``, ``flash_bwd_dq.input_copies`` and
+``flash_bwd_dkdv.input_copies``.
 """
 
 from __future__ import annotations
@@ -207,20 +208,27 @@ def _bwd_args(q, k, v, o, lse, do):
 
 def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
     """dQ pass (o, do, lse contiguous): returns (dq, delta), delta =
-    rowsum(dO * o) as fp32 (B*H, S). The plain version on the CPU."""
+    rowsum(dO * o) as fp32 (B*H, S). The plain version on the CPU. In bf16
+    the kernel also reads o and dO with 16-byte loads, so all five inputs go
+    through ``tma_inputs``."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, o, lse, do, scale)
     B, S, H, D = q.shape
     lib, dt, vec, stream = _bwd_args(q, k, v, o, lse, do)
-    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    Dk = D
+    if q.dtype == torch.bfloat16:
+        (q, k, v, o, do), Dk, n_copies = tma_inputs(D, q, k, v, o, do)
+        flash_bwd_dq.input_copies += n_copies
+        vec = True
+    dq = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
     delta = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     err = lib.medimgen_flash_attn_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B, H, S, D, dt, *_strides(q, k, v), float(scale),
+        delta.data_ptr(), dq.data_ptr(), B, H, S, Dk, dt, *_strides(q, k, v), float(scale),
         int(vec), stream)
     _build.check(err, "flash_attn_bwd dq launch")
     flash_bwd_dq.launches += 1
-    return dq, delta
+    return (dq if Dk == D else dq[..., :D].contiguous()), delta
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
@@ -288,4 +296,5 @@ flash_attention.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_attention.input_copies = 0
+flash_bwd_dq.input_copies = 0
 flash_bwd_dkdv.input_copies = 0

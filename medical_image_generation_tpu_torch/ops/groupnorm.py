@@ -32,7 +32,8 @@ output (tolerance stated in the tests). The backward works in fp32 from the
 forward's saved channel sums and folded affine, as ``_gn_vjp_bwd`` does.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise. ``channel_stats.launches`` / ``fold_affine.launches`` /
+raise. ``channel_stats.vector_launches`` counts the stats launches that
+took 16-byte loads. ``channel_stats.launches`` / ``fold_affine.launches`` /
 ``affine_act.launches`` / ``gn_bwd_stats.launches`` /
 ``gn_bwd_apply.launches`` count launches.
 """
@@ -47,16 +48,19 @@ import torch
 from medical_image_generation_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# rows of M each stats block reduces: at least 128, and at most ~1024 blocks
-# along M so the fixed-order second pass stays short
+# rows of M each backward-stats block reduces: at least 128, and at most
+# ~1024 blocks along M so the fixed-order second pass stays short
 _MIN_ROWS, _MAX_BLOCKS = 128, 1024
+# channel stats: blocks a launch aims for per SM (256 threads each), and the
+# independent row loads in flight a thread (STATS_UNROLL in groupnorm.cu)
+_STATS_BLOCKS_PER_SM, _STATS_UNROLL = 4, 4
 
 
 @functools.cache
 def _lib():
     lib = _build.load("groupnorm")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.medimgen_gn_channel_stats.argtypes = [vp, vp, vp, i32, i64, i32, i32, i64, i32, vp]
+    lib.medimgen_gn_channel_stats.argtypes = [vp, vp, vp, i32, i64, i32, i32, i64, i32, i32, vp]
     lib.medimgen_gn_channel_stats.restype = i32
     lib.medimgen_gn_affine_act.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, i32, i32, vp]
     lib.medimgen_gn_affine_act.restype = i32
@@ -78,9 +82,42 @@ def _lib_bwd():
 
 
 def _slabs(M: int):
-    """(rows per reduction block, number of blocks) along M."""
+    """(rows per reduction block, number of blocks) along M of the backward
+    stats pass."""
     rows = max(_MIN_ROWS, -(-M // _MAX_BLOCKS))
     return rows, -(-M // rows)
+
+
+def _stats_vec(x2) -> bool:
+    """Whether the channel-stats kernel can load 16 bytes at a time: C a
+    multiple of 16 bytes' worth of elements and a 16-byte aligned base."""
+    return x2.shape[2] % (16 // x2.element_size()) == 0 and x2.data_ptr() % 16 == 0
+
+
+@functools.cache
+def _stats_slabs(B: int, M: int, C: int, vec_width: int, sms: int):
+    """(rows per block, blocks along M) of the channel-stats kernel.
+
+    A block is 256 threads: ``ctv`` lanes along the row's ``C / vec_width``
+    vector columns (at most 32) by ``256 // ctv`` row lanes. The grid is
+    (column tiles, blocks along M, B); it aims for ``_STATS_BLOCKS_PER_SM``
+    blocks per SM over the whole launch, with every thread walking at least
+    ``_STATS_UNROLL`` rows. Block i reduces rows [i * rows, min((i + 1) *
+    rows, M)), so the blocks cover every row once, in order."""
+    cols = C // vec_width
+    ctv = min(cols, 32)
+    ry = 256 // ctv
+    tiles = -(-cols // ctv)
+    want = max(1, -(-_STATS_BLOCKS_PER_SM * sms // (tiles * B)))
+    nblk = max(1, min(want, M // (ry * _STATS_UNROLL)))
+    rows = -(-M // nblk)
+    rows = max(ry, -(-rows // ry) * ry)  # whole row-lane sweeps
+    return rows, max(1, -(-M // rows))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_x(x2):
@@ -106,18 +143,22 @@ def channel_stats(x2):
     if x2.device.type == "cpu":
         return channel_stats_plain(x2)
     B, M, C = x2.shape
-    rows, nblk = _slabs(M)
+    vec = _stats_vec(x2)
+    rows, nblk = _stats_slabs(B, M, C, 16 // x2.element_size() if vec else 1,
+                              _sm_count(x2.device.index or 0))
     part = torch.empty((B, nblk, 2, C), dtype=torch.float32, device=x2.device)
     out = torch.empty((B, 2, C), dtype=torch.float32, device=x2.device)
     err = _lib().medimgen_gn_channel_stats(
         x2.data_ptr(), part.data_ptr(), out.data_ptr(), B, M, C, _DTYPES[x2.dtype], rows, nblk,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        int(vec), torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "gn channel_stats launch")
     channel_stats.launches += 1
+    channel_stats.vector_launches += int(vec)
     return out
 
 
 channel_stats.launches = 0
+channel_stats.vector_launches = 0  # launches that took the 16-byte loads
 
 
 def affine_act_plain(x2, A, b, silu: bool):

@@ -99,14 +99,19 @@ def _views(kind, B, S, H, D, device, dtype):
     return tuple(flat[1 + i * n:1 + (i + 1) * n].view(B, S, H, D) for i in range(3))
 
 
+@pytest.mark.parametrize("n_inputs", [3, 5])  # forward: q, k, v; dQ pass: q, k, v, o, dO
 @pytest.mark.parametrize("kind,D", [("qkv", 64), ("misaligned", 64), ("qkv", 20),
                                     ("misaligned", 8)])
-def test_tma_inputs_copies_only_what_tma_cannot_describe(kind, D):
+def test_tma_inputs_copies_only_what_tma_cannot_describe(kind, D, n_inputs):
     q, k, v = _views(kind, 2, 16, 1, D, "cpu", torch.bfloat16)
-    (cq, ck, cv), Dp, copies = tfa.tma_inputs(D, q, k, v)
+    # o and dO of the dQ pass are contiguous: copied only with the others
+    extra = tuple(torch.from_numpy(nd((2, 16, 1, D), 50 + i)).to(torch.bfloat16)
+                  for i in range(n_inputs - 3))
+    ins = (q, k, v, *extra)
+    outs, Dp, copies = tfa.tma_inputs(D, *ins)
     copied = kind == "misaligned" or D % 8 != 0
-    assert copies == (3 if copied else 0) and Dp == -(-D // 8) * 8
-    for c, t in zip((cq, ck, cv), (q, k, v)):
+    assert copies == (n_inputs if copied else 0) and Dp == -(-D // 8) * 8
+    for c, t in zip(outs, ins):
         assert (c is t) != copied and c.data_ptr() % 16 == 0
         assert torch.equal(c[..., :D], t) and not c[..., D:].any()
 
@@ -120,11 +125,12 @@ def test_flash_strided_views_on_gpu(cuda, kind):
     q, k, v = _views(kind, B, S, H, D, cuda, torch.bfloat16)
     do = torch.from_numpy(nd((B, S, H, D), 42)).to(cuda, torch.bfloat16)
     scale = D ** -0.5
-    before = (tfa.flash_attention.input_copies, tfa.flash_bwd_dkdv.input_copies)
+    counters = (tfa.flash_attention, tfa.flash_bwd_dq, tfa.flash_bwd_dkdv)
+    before = tuple(c.input_copies for c in counters)
     o, lse = tfa.flash_attention(q, k, v, scale)
     got = tfa.flash_attention_bwd(q, k, v, o, lse, do, scale)
-    after = (tfa.flash_attention.input_copies, tfa.flash_bwd_dkdv.input_copies)
-    expect = (3, 4) if kind == "misaligned" else (0, 0)
+    after = tuple(c.input_copies for c in counters)
+    expect = (3, 5, 4) if kind == "misaligned" else (0, 0, 0)
     assert tuple(a - b for a, b in zip(after, before)) == expect
     ro, rlse = tfa.flash_attention_plain(q, k, v, scale)
     rtol, atol = FLASH_TOL[torch.bfloat16]
@@ -135,16 +141,20 @@ def test_flash_strided_views_on_gpu(cuda, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pass_", ["dq", "dkdv"])
 @pytest.mark.parametrize("B,S,H,D", [(2, 512, 1, 768), (1, 1000, 1, 512)])
-def test_flash_dkdv_is_bit_identical_across_runs_on_gpu(cuda, B, S, H, D):
-    """The cluster sums its partial scores in a fixed order, with no atomics."""
+def test_flash_backward_pass_is_bit_identical_across_runs_on_gpu(cuda, B, S, H, D, pass_):
+    """Each pass sums in a fixed order (the cluster's partial scores in rank
+    order), with no atomics: dq and delta, or dk and dv, the same bits twice."""
     q, k, v, do = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, torch.bfloat16)
                    for s in range(4))
     scale = D ** -0.5
     o, lse = tfa.flash_attention(q, k, v, scale)
     _, delta = tfa.flash_bwd_dq(q, k, v, o, lse, do, scale)
-    first = tfa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
-    second = tfa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)
+    if pass_ == "dq":
+        first, second = (tfa.flash_bwd_dq(q, k, v, o, lse, do, scale) for _ in range(2))
+    else:
+        first, second = (tfa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale) for _ in range(2))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     assert torch.equal(o, tfa.flash_attention(q, k, v, scale)[0])
 
@@ -201,10 +211,13 @@ def test_group_norm_function_backward_launches_kernels_on_gpu(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,M,C", [(2, 4096, 512), (1, 777, 24), (2, 33, 1536)])
+@pytest.mark.parametrize("B,M,C", [(2, 4096, 512), (1, 777, 24), (2, 33, 1536),
+                                   (2, 2097152, 32)])
 def test_groupnorm_kernels_match_plain_on_gpu(cuda, B, M, C, dtype):
     x = torch.from_numpy(nd((B, M, C), 11, 1.3, 0.7)).to(cuda, dtype)
+    vec = tgn.channel_stats.vector_launches
     st = tgn.channel_stats(x)
+    assert tgn.channel_stats.vector_launches == vec + 1  # C allows 16-byte loads
     ref = tgn.channel_stats_plain(x)
     assert (st - ref).abs().max() <= 1e-4 * ref.abs().max()
     G = 8 if C % 8 == 0 else 4
@@ -219,3 +232,46 @@ def test_groupnorm_kernels_match_plain_on_gpu(cuda, B, M, C, dtype):
         # fp32: rounding only; bf16: one ulp (exp/sigmoid rounding can flip it)
         rtol, atol = (1e-6, 1e-6) if dtype == torch.float32 else (2**-7, 2**-9)
         torch.testing.assert_close(y.float(), ry.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,M,C,offset", [(2, 32768, 256, 0), (2, 4099, 40, 0),
+                                          (1, 1000, 64, 1), (2, 300, 37, 0)])
+def test_channel_stats_is_bit_identical_across_runs_on_gpu(cuda, B, M, C, offset, dtype):
+    """No float atomics and a fixed summation order, on the 16-byte path and
+    on the scalar one (C not a multiple of the vector, or a misaligned
+    base); both agree with the plain version."""
+    flat = torch.from_numpy(nd((B * M * C + offset,), 14, 1.3, 0.7)).to(cuda, dtype)
+    x = flat[offset:].view(B, M, C)
+    vec = tgn.channel_stats.vector_launches
+    first, second = tgn.channel_stats(x), tgn.channel_stats(x)
+    assert tgn.channel_stats.vector_launches - vec == (2 if tgn._stats_vec(x) else 0)
+    assert torch.equal(first, second)
+    ref = tgn.channel_stats_plain(x)
+    assert (first - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+GN_SHAPES = [  # (M, C) of every GroupNorm on the flagship paths (batch 2)
+    (32768, 256), (32768, 768), (4096, 512), (4096, 1280), (512, 768), (512, 1536),
+    (32768, 128), (262144, 64), (2097152, 32)]
+
+
+@pytest.mark.parametrize("M,C", GN_SHAPES + [(777, 24), (33, 1536), (1, 8), (4099, 40),
+                                             (12345, 32)])
+@pytest.mark.parametrize("itemsize,vec", [(2, True), (4, True), (2, False)])
+def test_stats_slabs_cover_every_row_once_in_order(M, C, itemsize, vec):
+    """Block i of the channel-stats grid reduces rows [i*rows, (i+1)*rows):
+    the blocks tile [0, M) without gap or overlap, none empty, each a whole
+    number of row-lane sweeps, and the grid fills the card where M allows."""
+    B, sms = 2, 132
+    width = 16 // itemsize if vec else 1
+    rows, nblk = tgn._stats_slabs(B, M, C, width, sms)
+    assert rows >= 1 and nblk >= 1
+    assert (nblk - 1) * rows < M <= nblk * rows
+    ctv = min(C // width, 32)
+    ry = 256 // ctv
+    assert rows % ry == 0
+    tiles = -(-(C // width) // ctv)
+    if M >= 4 * ry * 2 * sms:  # rows enough for ~2 waves of blocks: they are there
+        assert tiles * nblk * B >= 2 * sms

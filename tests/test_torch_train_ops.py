@@ -34,9 +34,11 @@ def _t(a):
 
 # ------------------------------------------------------------ flash backward
 
-@pytest.mark.parametrize("B,S,H,D", [(1, 256, 2, 32), (2, 384, 1, 96), (1, 384, 3, 16)])
+@pytest.mark.parametrize("B,S,H,D", [(1, 256, 2, 32), (2, 384, 1, 96), (1, 384, 3, 16),
+                                     (1, 100, 1, 512)])
 def test_flash_bwd_plain_matches_pallas_backward(B, S, H, D):
-    """Several 128-key blocks of the Pallas backward (interpret mode), H > 1."""
+    """Several 128-key blocks of the Pallas backward (interpret mode), H > 1,
+    and the flagship head dim with S not a multiple of any key tile."""
     q, k, v, do = (nd((B, S, H, D), s) for s in range(4))
     scale = D ** -0.5
     q3, k3, v3, do3 = (jpa._to_3d(jnp.asarray(a)) for a in (q, k, v, do))
