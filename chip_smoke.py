@@ -19,7 +19,9 @@ Phases (any failure raises and exits non-zero):
                    flagship shape and give the same bits twice.
 3. kernels_bwd  -- the same for the backward kernels (flash dQ and dK/dV,
                    GroupNorm(+SiLU) backward stats and apply); dQ (with
-                   delta) and dK/dV must give the same bits twice.
+                   delta), dK/dV and both GroupNorm backward passes must give
+                   the same bits twice, and the GroupNorm backward must take
+                   its 16-byte loads at every flagship shape.
 4. parity       -- the tiny 3D config (seeded random weights, fp32, TF32 off)
                    through one U-Net forward and one decode, and through one
                    whole train step from the same weights and random draws,
@@ -465,20 +467,30 @@ def phase_kernels_bwd():
             st = gn.channel_stats_plain(x)
             A, bb = gn.fold_affine_plain(st, w, b, G, M, 1e-6)
             for silu in (False, True):
+                vec0 = (gn.gn_bwd_stats.vector_launches, gn.gn_bwd_apply.vector_launches)
                 coef, ds, db = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
                 dx = gn.gn_bwd_apply(x, g, A, bb, coef, silu)
+                vec_path = (gn.gn_bwd_stats.vector_launches,
+                            gn.gn_bwd_apply.vector_launches) == (vec0[0] + 1, vec0[1] + 1)
                 r_coef, r_ds, r_db = gn.gn_bwd_stats_plain(x, g, A, bb, st, w, G, 1e-6, silu)
                 r_dx = gn.gn_bwd_apply_plain(x, g, A, bb, r_coef, silu)
+                # no float atomics, fixed summation order: coef, dscale, dbias, dx the
+                # same bits twice
+                again = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
+                same_bits = all(torch.equal(a_, b_) for a_, b_ in zip(
+                    (coef, ds, db, dx), (*again, gn.gn_bwd_apply(x, g, A, bb, again[0], silu))))
                 torch.cuda.synchronize()
                 x_ok, x_err, x_use = within(dx, r_dx, *GN_BWD_TOL[dt])
                 p_rel = max(_err(t_, r_) / r_.abs().max().item()
                             for t_, r_ in ((coef, r_coef), (ds, r_ds), (db, r_db)))
-                ok = x_ok and p_rel <= GN_PARAM_GRAD_TOL
+                ok = x_ok and p_rel <= GN_PARAM_GRAD_TOL and vec_path and same_bits
                 line = (f"[kernels_bwd] gn_bwd {str(dt)[6:]} silu={silu} B={B} M={M} C={C}: "
                         f"max|dx-plain|={x_err:.3e} (max|dx|={r_dx.float().abs().max().item():.3e},"
                         f" tol {GN_BWD_TOL[dt][1]:g}*max + {GN_BWD_TOL[dt][0]:g}*|dx|; largest "
                         f"error / allowed {x_use:.3f}) "
-                        f"coef/dscale/dbias rel_err={p_rel:.3e} (tol {GN_PARAM_GRAD_TOL:g})")
+                        f"coef/dscale/dbias rel_err={p_rel:.3e} (tol {GN_PARAM_GRAD_TOL:g}) "
+                        f"16-byte loads={vec_path} coef/dscale/dbias/dx bit-identical on a "
+                        f"rerun={same_bits}")
                 if silu:
                     isz = x.element_size()
                     s_ms = time_ms(lambda: gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, True))
@@ -493,17 +505,19 @@ def phase_kernels_bwd():
                     gl = g.permute(0, 2, 1)
                     lib_ms = time_ms(lambda: torch.autograd.grad(y, (xg, wl, bl), gl,
                                                                  retain_graph=True))
+                    s_lib = native_gn_bwd_params_ms(x, g, wl.detach(), bl.detach(), G)
                     s_bound = (2 * B * M * C * isz + 9 * B * C * 4) / PEAK_BYTES * 1e3
                     a_bound = (3 * B * M * C * isz + 4 * B * C * 4) / PEAK_BYTES * 1e3
                     line += (f" | stats ms={s_ms:.4f} plain_ms={s_plain:.4f} bound_ms="
-                             f"{s_bound:.4f} (bytes) | apply ms={a_ms:.4f} plain_ms={a_plain:.4f} "
-                             f"bound_ms={a_bound:.4f} (bytes) | F.group_norm+F.silu backward "
-                             f"ms={lib_ms:.4f}")
+                             f"{s_bound:.4f} (bytes) native_group_norm_backward dscale+dbias "
+                             f"(no SiLU) ms={s_lib:.4f} | apply ms={a_ms:.4f} plain_ms="
+                             f"{a_plain:.4f} bound_ms={a_bound:.4f} (bytes) | F.group_norm+F.silu "
+                             f"backward ms={lib_ms:.4f}")
                     if (M, C) == (32768, 256) and dt == torch.bfloat16:
                         rec["gn_bwd_stats"] = dict(
                             shape=[B, M, C], dtype="bf16", max_abs_err=_err(coef, r_coef),
                             ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by="bytes",
-                            library_ms=None)
+                            library_ms=s_lib)
                         rec["gn_bwd_apply"] = dict(
                             shape=[B, M, C], dtype="bf16", max_abs_err=x_err, ms=a_ms,
                             plain_ms=a_plain, bound_ms=a_bound, bound_by="bytes",
@@ -511,8 +525,20 @@ def phase_kernels_bwd():
                 log(line + (" OK" if ok else " FAIL"))
                 if not ok:
                     raise AssertionError(f"GroupNorm backward disagrees at {(B, M, C)} {dt} "
-                                         f"silu={silu}: dx {x_err}, params {p_rel}")
+                                         f"silu={silu}: dx {x_err}, params {p_rel}, 16-byte "
+                                         f"loads {vec_path}, same bits on a rerun {same_bits}")
     return rec
+
+
+def native_gn_bwd_params_ms(x, g, w, bias, G):
+    """Median ms of ``aten.native_group_norm_backward`` for dscale and dbias
+    only (no SiLU) on channels-first copies of the (B, M, C) x and g: the one
+    PyTorch call that does the backward stats' reduction over x and dy."""
+    B, M, C = x.shape
+    xc, gc = x.permute(0, 2, 1).contiguous(), g.permute(0, 2, 1).contiguous()
+    _, mean, rstd = torch.ops.aten.native_group_norm(xc, w, bias, B, C, M, G, 1e-6)
+    return time_ms(lambda: torch.ops.aten.native_group_norm_backward(
+        gc, xc, mean, rstd, w, B, C, M, G, [False, True, True]))
 
 
 def _build_models(dtype, device, tiny, seed):
@@ -561,7 +587,9 @@ def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
     fa.flash_attention.input_copies = fa.flash_bwd_dq.input_copies = 0
-    fa.flash_bwd_dkdv.input_copies = gn.channel_stats.vector_launches = 0
+    fa.flash_bwd_dkdv.input_copies = 0
+    for fn in (gn.channel_stats, gn.gn_bwd_stats, gn.gn_bwd_apply):
+        fn.vector_launches = 0
 
 
 def _read_counts():
@@ -582,6 +610,15 @@ def _scalar_stats():
     from medical_image_generation_tpu_torch.ops import groupnorm as gn
 
     return gn.channel_stats.launches - gn.channel_stats.vector_launches
+
+
+def _scalar_bwd():
+    """{GroupNorm backward wrapper: launches since the last reset that did not
+    take the 16-byte loads}."""
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+
+    return {name: fn.launches - fn.vector_launches
+            for name, fn in (("gn_bwd_stats", gn.gn_bwd_stats), ("gn_bwd_apply", gn.gn_bwd_apply))}
 
 
 def phase_parity():
@@ -799,6 +836,9 @@ def phase_train(warmup=2, steps=10):
     copies = gn.gn_bwd_apply.grad_copies
     flash_copies = _input_copies()
     scalar = _scalar_stats()
+    scalar_bwd = _scalar_bwd()
+    vec_bwd = {"gn_bwd_stats": gn.gn_bwd_stats.vector_launches,
+               "gn_bwd_apply": gn.gn_bwd_apply.vector_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     expect = {k: v * steps for k, v in per_step.items()}
@@ -808,7 +848,8 @@ def phase_train(warmup=2, steps=10):
         f"GroupNorm; encoder: {attn_e} attention, {gn_e} GroupNorm); {steps} steps counted "
         f"{counts}, expected {expect}; GroupNorm gradients copied to channels-last: "
         f"{copies / steps:g} a step; flash inputs copied for TMA: {flash_copies}; "
-        f"channel-stats launches without 16-byte loads: {scalar}")
+        f"channel-stats launches without 16-byte loads: {scalar}; GroupNorm backward "
+        f"launches with 16-byte loads {vec_bwd}, without {scalar_bwd}")
     ms_step = secs * 1e3 / steps
     log(f"[train] {steps} steps in {secs * 1e3:.1f} ms: {ms_step:.3f} ms per step = "
         f"{1e3 / ms_step:.3f} steps/s; peak memory {peak_gb:.2f} GiB; params changed={changed}; "
@@ -816,9 +857,11 @@ def phase_train(warmup=2, steps=10):
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if (counts != expect or attn_u != 11 or gn_u != 46 or gn_e != 13 or flash_copies
-            or scalar):
+            or scalar or copies or any(scalar_bwd.values())):
         raise AssertionError(f"launch counts {counts} != expected {expect}, or {flash_copies} "
-                             f"flash inputs copied, or {scalar} scalar channel-stats launches")
+                             f"flash inputs copied, or {scalar} scalar channel-stats launches, "
+                             f"or {copies} GroupNorm gradients copied, or scalar GroupNorm "
+                             f"backward launches {scalar_bwd}")
     if not changed or trainer.opt.mu[0].dtype != torch.bfloat16:
         raise AssertionError("params unchanged by the steps, or mu not stored in bf16")
 
@@ -845,6 +888,10 @@ def phase_train(warmup=2, steps=10):
     bounds = step_bounds(trainer, batch)
     busy, shares = profile_breakdown("train step", lambda: trainer.train_step(batch))
     log(f"[train] device busy per train step={busy:.3f} ms (profiler)")
+    unseen = [name for name, n in per_step.items() if n and not shares[name] > 0]
+    if unseen:
+        raise AssertionError(f"port kernels launched in the step but read 0 ms in its profile "
+                             f"(PORT_KERNELS patterns out of date?): {unseen}")
     for name, b_ms in bounds.items():
         log(f"[train] per step: {name} device ms={shares[name]:.4f} bound ms (summed over the "
             f"step's {per_step[name]} launches)={b_ms:.4f} ratio={shares[name] / b_ms:.2f}")
@@ -923,8 +970,9 @@ PORT_KERNELS = {  # profile name patterns of each port kernel, by its counter's 
     "flash_attn_fwd": ("flash_fwd",), "flash_attn_bwd_dq": ("flash_bwd_dq",),
     "flash_attn_bwd_dkdv": ("flash_bwd_dkdv",),
     "gn_channel_stats": ("stats_partial", "stats_reduce"), "gn_fold_affine": ("::fold_kernel",),
-    "gn_affine_act": ("affine_",), "gn_bwd_stats": ("bwd_partial", "bwd_reduce", "bwd_fold"),
-    "gn_bwd_apply": ("::apply_",),
+    "gn_affine_act": ("::affine_",),
+    "gn_bwd_stats": ("gn_bwd_partial_kernel", "gn_bwd_reduce_fold_kernel"),
+    "gn_bwd_apply": ("gn_bwd_apply_kernel",),
 }
 
 
@@ -952,11 +1000,22 @@ def profile_breakdown(label, fn):
         by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     busy = sum(v[0] for v in by_name.values()) / 1e3
     span = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)) / 1e3
-    shares = {k: sum(v[0] for n, v in by_name.items() if any(p in n for p in pats)) / 1e3
-              for k, pats in PORT_KERNELS.items()}
+    owners = {n: [k for k, pats in PORT_KERNELS.items() if any(p in n for p in pats)]
+              for n in by_name}
+    shared = {n: ks for n, ks in owners.items() if len(ks) > 1}
+    if shared:
+        raise AssertionError(f"[profile] {label}: kernels matched by two port kernels' "
+                             f"patterns: {shared}")
+    shares = {k: sum(v[0] for n, v in by_name.items() if owners[n] == [k]) / 1e3
+              for k in PORT_KERNELS}
+    by_pattern = {p: (sum(v[1] for n, v in by_name.items() if p in n),
+                      sum(v[0] for n, v in by_name.items() if p in n) / 1e3)
+                  for pats in PORT_KERNELS.values() for p in pats}
     log(f"[profile] {label}: {len(kern)} kernels, device busy {busy:.3f} ms over a "
         f"{span:.3f} ms span (idle share {1 - busy / span:.3f}); host enqueue "
         f"{host_ms:.3f} ms; port kernels ms {({k: round(v, 3) for k, v in shares.items()})}")
+    log(f"[profile] {label}: port kernels by name, launches and summed ms "
+        f"{({p: (n, round(ms, 4)) for p, (n, ms) in by_pattern.items() if n})}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {us / 1e3:8.3f} ms  x{n:<4d} {name[:110]}")
     return busy, shares

@@ -32,10 +32,11 @@ output (tolerance stated in the tests). The backward works in fp32 from the
 forward's saved channel sums and folded affine, as ``_gn_vjp_bwd`` does.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise. ``channel_stats.vector_launches`` counts the stats launches that
-took 16-byte loads. ``channel_stats.launches`` / ``fold_affine.launches`` /
+raise. ``channel_stats.launches`` / ``fold_affine.launches`` /
 ``affine_act.launches`` / ``gn_bwd_stats.launches`` /
-``gn_bwd_apply.launches`` count launches.
+``gn_bwd_apply.launches`` count launches; ``channel_stats``, ``gn_bwd_stats``
+and ``gn_bwd_apply`` also count in ``vector_launches`` the launches that took
+16-byte loads.
 """
 
 from __future__ import annotations
@@ -48,12 +49,12 @@ import torch
 from medical_image_generation_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# rows of M each backward-stats block reduces: at least 128, and at most
-# ~1024 blocks along M so the fixed-order second pass stays short
-_MIN_ROWS, _MAX_BLOCKS = 128, 1024
-# channel stats: blocks a launch aims for per SM (256 threads each), and the
-# independent row loads in flight a thread (STATS_UNROLL in groupnorm.cu)
+# blocks a launch aims for per SM (256 threads each), and the fewest rows a
+# thread walks (the row loads it keeps in flight): channel stats (STATS_UNROLL
+# in groupnorm.cu), and the two backward passes (UNROLL and STAGES in
+# groupnorm_bwd.cu)
 _STATS_BLOCKS_PER_SM, _STATS_UNROLL = 4, 4
+_BWD_BLOCKS_PER_SM, _BWD_UNROLL = {"stats": 2, "apply": 4}, 4
 
 
 @functools.cache
@@ -74,45 +75,51 @@ def _lib_bwd():
     lib = _build.load("groupnorm_bwd")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.medimgen_gn_bwd_stats.argtypes = (
-        [vp] * 11 + [i32, i64, i32, i32, ctypes.c_float, i32, i32, i64, i32, vp])
+        [vp] * 10 + [i32, i64, i32, i32, ctypes.c_float, i32, i32, i64, i32, i32, vp])
     lib.medimgen_gn_bwd_stats.restype = i32
-    lib.medimgen_gn_bwd_apply.argtypes = [vp] * 6 + [i32, i64, i32, i32, i32, i32, vp]
+    lib.medimgen_gn_bwd_apply.argtypes = [vp] * 6 + [i32, i64, i32, i32, i32, i64, i32, i32, vp]
     lib.medimgen_gn_bwd_apply.restype = i32
     return lib
 
 
-def _slabs(M: int):
-    """(rows per reduction block, number of blocks) along M of the backward
-    stats pass."""
-    rows = max(_MIN_ROWS, -(-M // _MAX_BLOCKS))
-    return rows, -(-M // rows)
-
-
-def _stats_vec(x2) -> bool:
-    """Whether the channel-stats kernel can load 16 bytes at a time: C a
-    multiple of 16 bytes' worth of elements and a 16-byte aligned base."""
-    return x2.shape[2] % (16 // x2.element_size()) == 0 and x2.data_ptr() % 16 == 0
+def _vec(t, C: int) -> bool:
+    """Whether a kernel can move t 16 bytes at a time: C a multiple of 16
+    bytes' worth of elements and a 16-byte aligned base."""
+    return C % (16 // t.element_size()) == 0 and t.data_ptr() % 16 == 0
 
 
 @functools.cache
-def _stats_slabs(B: int, M: int, C: int, vec_width: int, sms: int):
-    """(rows per block, blocks along M) of the channel-stats kernel.
+def _row_slabs(B: int, M: int, C: int, vec_width: int, sms: int, blocks_per_sm: int,
+               unroll: int):
+    """(rows per block, blocks along M) of a kernel that streams (B, M, C)
+    rows: the channel stats and the two backward passes.
 
     A block is 256 threads: ``ctv`` lanes along the row's ``C / vec_width``
     vector columns (at most 32) by ``256 // ctv`` row lanes. The grid is
-    (column tiles, blocks along M, B); it aims for ``_STATS_BLOCKS_PER_SM``
-    blocks per SM over the whole launch, with every thread walking at least
-    ``_STATS_UNROLL`` rows. Block i reduces rows [i * rows, min((i + 1) *
-    rows, M)), so the blocks cover every row once, in order."""
+    (column tiles, blocks along M, B); it aims for ``blocks_per_sm`` blocks
+    per SM over the whole launch, with every thread walking at least
+    ``unroll`` rows. Block i covers rows [i * rows, min((i + 1) * rows, M)),
+    so the blocks cover every row once, in order."""
     cols = C // vec_width
     ctv = min(cols, 32)
     ry = 256 // ctv
     tiles = -(-cols // ctv)
-    want = max(1, -(-_STATS_BLOCKS_PER_SM * sms // (tiles * B)))
-    nblk = max(1, min(want, M // (ry * _STATS_UNROLL)))
+    want = max(1, -(-blocks_per_sm * sms // (tiles * B)))
+    nblk = max(1, min(want, M // (ry * unroll)))
     rows = -(-M // nblk)
     rows = max(ry, -(-rows // ry) * ry)  # whole row-lane sweeps
     return rows, max(1, -(-M // rows))
+
+
+def _stats_slabs(B: int, M: int, C: int, vec_width: int, sms: int):
+    """(rows per block, blocks along M) of the channel-stats kernel."""
+    return _row_slabs(B, M, C, vec_width, sms, _STATS_BLOCKS_PER_SM, _STATS_UNROLL)
+
+
+def _bwd_slabs(pass_: str, B: int, M: int, C: int, vec_width: int, sms: int):
+    """(rows per block, blocks along M) of the backward ``"stats"`` or
+    ``"apply"`` pass; the stats pass writes one partial per block."""
+    return _row_slabs(B, M, C, vec_width, sms, _BWD_BLOCKS_PER_SM[pass_], _BWD_UNROLL)
 
 
 @functools.cache
@@ -143,7 +150,7 @@ def channel_stats(x2):
     if x2.device.type == "cpu":
         return channel_stats_plain(x2)
     B, M, C = x2.shape
-    vec = _stats_vec(x2)
+    vec = _vec(x2, C)
     rows, nblk = _stats_slabs(B, M, C, 16 // x2.element_size() if vec else 1,
                               _sm_count(x2.device.index or 0))
     part = torch.empty((B, nblk, 2, C), dtype=torch.float32, device=x2.device)
@@ -298,25 +305,28 @@ def gn_bwd_stats(x2, g2, A, b, stats, weight, num_groups: int, eps: float, silu:
     if x2.device.type == "cpu":
         return gn_bwd_stats_plain(x2, g2, A, b, stats, weight, num_groups, eps, silu)
     B, M, C = x2.shape
-    rows, nblk = _slabs(M)
+    vec = _vec(x2, C) and _vec(g2, C)
+    rows, nblk = _bwd_slabs("stats", B, M, C, 16 // x2.element_size() if vec else 1,
+                            _sm_count(x2.device.index or 0))
     w = weight.float().contiguous()
     part = torch.empty((B, nblk, 2, C), dtype=torch.float32, device=x2.device)
-    t = torch.empty((B, 2, C), dtype=torch.float32, device=x2.device)
-    coef = torch.empty_like(t)
+    coef = torch.empty((B, 2, C), dtype=torch.float32, device=x2.device)
     dscale = torch.empty((C,), dtype=torch.float32, device=x2.device)
     dbias = torch.empty_like(dscale)
     A, b, stats = A.contiguous(), b.contiguous(), stats.contiguous()
     err = _lib_bwd().medimgen_gn_bwd_stats(
         x2.data_ptr(), g2.data_ptr(), A.data_ptr(), b.data_ptr(), stats.data_ptr(),
-        w.data_ptr(), part.data_ptr(), t.data_ptr(), coef.data_ptr(), dscale.data_ptr(),
-        dbias.data_ptr(), B, M, C, num_groups, float(eps), _DTYPES[x2.dtype], int(silu), rows,
-        nblk, torch.cuda.current_stream(x2.device).cuda_stream)
+        w.data_ptr(), part.data_ptr(), coef.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+        B, M, C, num_groups, float(eps), _DTYPES[x2.dtype], int(silu), rows, nblk, int(vec),
+        torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "gn bwd_stats launch")
     gn_bwd_stats.launches += 1
+    gn_bwd_stats.vector_launches += int(vec)
     return coef, dscale, dbias
 
 
 gn_bwd_stats.launches = 0
+gn_bwd_stats.vector_launches = 0  # launches that took the 16-byte loads
 
 
 def gn_bwd_apply_plain(x2, g2, A, b, coef, silu: bool):
@@ -335,18 +345,21 @@ def gn_bwd_apply(x2, g2, A, b, coef, silu: bool):
     B, M, C = x2.shape
     A, b, coef = A.contiguous(), b.contiguous(), coef.contiguous()
     dx = torch.empty_like(x2)
-    vec = (C % (16 // x2.element_size()) == 0
-           and all(t.data_ptr() % 16 == 0 for t in (x2, g2, dx)))
+    vec = all(_vec(t, C) for t in (x2, g2, dx))
+    rows, nblk = _bwd_slabs("apply", B, M, C, 16 // x2.element_size() if vec else 1,
+                            _sm_count(x2.device.index or 0))
     err = _lib_bwd().medimgen_gn_bwd_apply(
         x2.data_ptr(), g2.data_ptr(), A.data_ptr(), b.data_ptr(), coef.data_ptr(),
-        dx.data_ptr(), B, M, C, _DTYPES[x2.dtype], int(silu), int(vec),
+        dx.data_ptr(), B, M, C, _DTYPES[x2.dtype], int(silu), rows, nblk, int(vec),
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "gn bwd_apply launch")
     gn_bwd_apply.launches += 1
+    gn_bwd_apply.vector_launches += int(vec)
     return dx
 
 
 gn_bwd_apply.launches = 0
+gn_bwd_apply.vector_launches = 0  # launches that took the 16-byte loads
 gn_bwd_apply.grad_copies = 0  # incoming gradients that had to be made channels-last
 
 

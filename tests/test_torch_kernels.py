@@ -211,6 +211,37 @@ def test_group_norm_function_backward_launches_kernels_on_gpu(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,M,C,G,offset", [(2, 32768, 256, 32, 0), (2, 4099, 40, 8, 0),
+                                            (1, 1000, 64, 16, 1), (2, 300, 37, 1, 0)])
+def test_groupnorm_backward_is_bit_identical_across_runs_on_gpu(cuda, B, M, C, G, offset, dtype):
+    """Both backward passes sum in a fixed order with no float atomics, on
+    the 16-byte path and on the scalar one (C not a multiple of the vector,
+    or a misaligned base): coef, dscale, dbias and dx the same bits twice,
+    and within tolerance of the plain versions."""
+    n = B * M * C
+    flat = torch.from_numpy(nd((2 * n + offset,), 25, 1.3, 0.7)).to(cuda, dtype)
+    x, g = flat[offset:offset + n].view(B, M, C), flat[offset + n:].view(B, M, C)
+    w = torch.from_numpy(nd((C,), 26, 0.1, 1.0)).to(cuda)
+    bias = torch.from_numpy(nd((C,), 27, 0.1)).to(cuda)
+    stats = tgn.channel_stats_plain(x)
+    A, b = tgn.fold_affine_plain(stats, w, bias, G, M, 1e-6)
+    vec = (tgn.gn_bwd_stats.vector_launches, tgn.gn_bwd_apply.vector_launches)
+    runs = []
+    for _ in range(2):
+        coef, dscale, dbias = tgn.gn_bwd_stats(x, g, A, b, stats, w, G, 1e-6, True)
+        runs.append((coef, dscale, dbias, tgn.gn_bwd_apply(x, g, A, b, coef, True)))
+    wide = C % (16 // x.element_size()) == 0 and offset == 0
+    assert (tgn.gn_bwd_stats.vector_launches - vec[0],
+            tgn.gn_bwd_apply.vector_launches - vec[1]) == ((2, 2) if wide else (0, 0))
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(*runs))
+    rdx, rds, rdb = tgn.group_norm_bwd_plain(x, g, stats, w, bias, G, 1e-6, True)
+    _close(runs[0][3], rdx, *GN_BWD_TOL[dtype])
+    for got, ref in ((runs[0][1], rds), (runs[0][2], rdb)):
+        assert (got - ref).abs().max() <= GN_PARAM_GRAD_TOL * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,M,C", [(2, 4096, 512), (1, 777, 24), (2, 33, 1536),
                                    (2, 2097152, 32)])
 def test_groupnorm_kernels_match_plain_on_gpu(cuda, B, M, C, dtype):
@@ -246,7 +277,7 @@ def test_channel_stats_is_bit_identical_across_runs_on_gpu(cuda, B, M, C, offset
     x = flat[offset:].view(B, M, C)
     vec = tgn.channel_stats.vector_launches
     first, second = tgn.channel_stats(x), tgn.channel_stats(x)
-    assert tgn.channel_stats.vector_launches - vec == (2 if tgn._stats_vec(x) else 0)
+    assert tgn.channel_stats.vector_launches - vec == (2 if tgn._vec(x, C) else 0)
     assert torch.equal(first, second)
     ref = tgn.channel_stats_plain(x)
     assert (first - ref).abs().max() <= 1e-4 * ref.abs().max()
@@ -257,21 +288,42 @@ GN_SHAPES = [  # (M, C) of every GroupNorm on the flagship paths (batch 2)
     (32768, 128), (262144, 64), (2097152, 32)]
 
 
-@pytest.mark.parametrize("M,C", GN_SHAPES + [(777, 24), (33, 1536), (1, 8), (4099, 40),
-                                             (12345, 32)])
-@pytest.mark.parametrize("itemsize,vec", [(2, True), (4, True), (2, False)])
-def test_stats_slabs_cover_every_row_once_in_order(M, C, itemsize, vec):
-    """Block i of the channel-stats grid reduces rows [i*rows, (i+1)*rows):
-    the blocks tile [0, M) without gap or overlap, none empty, each a whole
-    number of row-lane sweeps, and the grid fills the card where M allows."""
-    B, sms = 2, 132
-    width = 16 // itemsize if vec else 1
-    rows, nblk = tgn._stats_slabs(B, M, C, width, sms)
+SLAB_SHAPES = GN_SHAPES + [(777, 24), (33, 1536), (1, 8), (4099, 40), (12345, 32), (300, 37)]
+
+
+def _assert_slabs_tile_rows(rows, nblk, M, C, width, B, sms, per_sm):
+    """Block i covers rows [i*rows, (i+1)*rows): the blocks tile [0, M)
+    without gap or overlap, none empty, each a whole number of row-lane
+    sweeps, and the grid fills the card where M allows (at least half the
+    ``per_sm`` blocks an SM it aims for)."""
     assert rows >= 1 and nblk >= 1
     assert (nblk - 1) * rows < M <= nblk * rows
     ctv = min(C // width, 32)
     ry = 256 // ctv
     assert rows % ry == 0
     tiles = -(-(C // width) // ctv)
-    if M >= 4 * ry * 2 * sms:  # rows enough for ~2 waves of blocks: they are there
-        assert tiles * nblk * B >= 2 * sms
+    if M >= 4 * ry * per_sm * sms // 2:  # rows enough for the blocks: they are there
+        assert tiles * nblk * B >= per_sm * sms // 2
+
+
+@pytest.mark.parametrize("M,C", SLAB_SHAPES)
+@pytest.mark.parametrize("itemsize,vec", [(2, True), (4, True), (2, False)])
+def test_stats_slabs_cover_every_row_once_in_order(M, C, itemsize, vec):
+    """The channel-stats grid tiles the rows (``_assert_slabs_tile_rows``)."""
+    B, sms = 2, 132
+    width = 16 // itemsize if vec else 1
+    _assert_slabs_tile_rows(*tgn._stats_slabs(B, M, C, width, sms), M, C, width, B, sms,
+                            tgn._STATS_BLOCKS_PER_SM)
+
+
+@pytest.mark.parametrize("pass_", ["stats", "apply"])
+@pytest.mark.parametrize("M,C", SLAB_SHAPES)
+@pytest.mark.parametrize("itemsize,vec", [(2, True), (4, True), (2, False)])
+def test_bwd_slabs_cover_every_row_once_in_order(pass_, M, C, itemsize, vec):
+    """The grid of each GroupNorm backward pass tiles the rows too: the stats
+    pass writes one partial per block and sums them in block order, the
+    apply writes every row of dx once."""
+    B, sms = 2, 132
+    width = 16 // itemsize if vec else 1
+    _assert_slabs_tile_rows(*tgn._bwd_slabs(pass_, B, M, C, width, sms), M, C, width, B, sms,
+                            tgn._BWD_BLOCKS_PER_SM[pass_])
