@@ -14,8 +14,7 @@ Hand-written Hopper kernels (``csrc/``), each with a plain PyTorch twin in
 the same module and a launch counter on its wrapper:
 
 * ``ops.flash_attention.flash_attention``   <- ``csrc/flash_attn_fwd.cu``
-* ``ops.groupnorm.channel_stats``            <- ``csrc/groupnorm.cu``
-* ``ops.groupnorm.fold_affine``              <- ``csrc/groupnorm.cu``
+* ``ops.groupnorm.stats_fold``               <- ``csrc/groupnorm.cu``
 * ``ops.groupnorm.affine_act``               <- ``csrc/groupnorm.cu``
 
 A wrapper given a CUDA tensor launches its kernel or raises; the plain

@@ -8,20 +8,22 @@ kernels on one GPU.
 Builds ``flash_attn_fwd.cu``, ``flash_attn_bwd.cu``, ``groupnorm.cu`` and
 ``groupnorm_bwd.cu`` from the parent's ``csrc`` directory and from this
 checkout's, calls both through the C entry points (``medimgen_flash_attn_fwd``,
-``medimgen_flash_attn_bwd_dq``, ``medimgen_flash_attn_bwd_dkdv``,
-``medimgen_gn_channel_stats``, ``medimgen_gn_bwd_stats``,
+``medimgen_flash_attn_bwd_dq``, ``medimgen_flash_attn_bwd_dkdv``, the
+GroupNorm forward statistics and fold, ``medimgen_gn_bwd_stats``,
 ``medimgen_gn_bwd_apply``) on the same inputs, and times them with CUDA
 events around batches of calls back to back, in turns: parent, change,
-change, parent. Flash runs in bf16 at the U-Net's two attention sites,
-channel stats in bf16 at the largest and the widest-row flagship GroupNorm
-shapes, the GroupNorm(+SiLU) backward in bf16 at the U-Net's two largest.
-Each build gets the grid its own wrapper gives it. The parent is commit
-e562fb4, whose GroupNorm backward entry points take the arguments bound in
-``build`` and the grid of ``_parent_bwd_slabs``. PyTorch's SDPA forward and
-backward, ``torch.var_mean``, ``F.group_norm``+``F.silu`` backward and
-``aten.native_group_norm_backward`` (dscale and dbias only, no SiLU) are
-timed beside them as yardsticks. Prints one line per shape and a JSON record
-as the last line; needs a GPU and nvcc.
+change, parent. Flash runs in bf16 at the U-Net's two attention sites, the
+GroupNorm statistics and fold in bf16 at the largest, a 512-token and the
+widest-row flagship GroupNorm shapes, the GroupNorm(+SiLU) backward in bf16
+at the U-Net's two largest. Both builds get the grids of this checkout's
+wrappers. The parent is commit ca07105, whose GroupNorm forward takes two C
+calls for what ``medimgen_gn_stats_fold`` does in one:
+``medimgen_gn_channel_stats`` (partials, then the channel sums) and
+``medimgen_gn_fold`` (A and b from the sums), bound in ``build``. PyTorch's
+SDPA forward and backward, ``torch.var_mean``, ``F.group_norm``+``F.silu``
+backward and ``aten.native_group_norm_backward`` (dscale and dbias only, no
+SiLU) are timed beside them as yardsticks. Prints one line per shape and a
+JSON record as the last line; needs a GPU and nvcc.
 """
 
 from __future__ import annotations
@@ -41,17 +43,10 @@ from medical_image_generation_tpu_torch.ops import _build
 from medical_image_generation_tpu_torch.ops import groupnorm as gn
 
 SITES = [(2, 4096, 1, 512), (2, 512, 1, 768)]  # (B, S, H, D) of the U-Net's attention
-GN_SITES = [(2, 32768, 256), (2, 2097152, 32)]  # (B, M, C) of two flagship GroupNorms
+GN_SITES = [(2, 32768, 256, 32), (2, 512, 768, 32), (2, 2097152, 32, 16)]  # (B, M, C, groups)
 GN_BWD_SITES = [(2, 32768, 256, 32), (2, 32768, 768, 32)]  # (B, M, C, groups) in the U-Net
 SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "groupnorm", "groupnorm_bwd")
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
-
-
-def _parent_bwd_slabs(M: int):
-    """The parent's (rows per block, blocks along M) of its GroupNorm
-    backward stats pass: at least 128 rows, at most ~1024 blocks."""
-    rows = max(128, -(-M // 1024))
-    return rows, -(-M // rows)
 
 
 def build(csrc: str, tag: str) -> dict:
@@ -76,18 +71,18 @@ def build(csrc: str, tag: str) -> dict:
     for fn in ("medimgen_flash_attn_bwd_dq", "medimgen_flash_attn_bwd_dkdv"):
         getattr(libs["flash_attn_bwd"], fn).argtypes = (
             [vp] * 8 + [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, vp])
-    libs["groupnorm"].medimgen_gn_channel_stats.argtypes = (
-        [vp, vp, vp, i32, i64, i32, i32, i64, i32, i32, vp])
-    bwd, f32 = libs["groupnorm_bwd"], ctypes.c_float
-    if tag == "parent":  # a t scratch, no vec argument; the apply's own flat grid
-        bwd.medimgen_gn_bwd_stats.argtypes = (
-            [vp] * 11 + [i32, i64, i32, i32, f32, i32, i32, i64, i32, vp])
-        bwd.medimgen_gn_bwd_apply.argtypes = [vp] * 6 + [i32, i64, i32, i32, i32, i32, vp]
+    f32, fwd = ctypes.c_float, libs["groupnorm"]
+    if tag == "parent":  # channel sums, then the fold: two C calls
+        fwd.medimgen_gn_channel_stats.argtypes = (
+            [vp, vp, vp, i32, i64, i32, i32, i64, i32, i32, vp])
+        fwd.medimgen_gn_fold.argtypes = [vp] * 5 + [i32, i32, i32, i64, f32, vp]
     else:
-        bwd.medimgen_gn_bwd_stats.argtypes = (
-            [vp] * 10 + [i32, i64, i32, i32, f32, i32, i32, i64, i32, i32, vp])
-        bwd.medimgen_gn_bwd_apply.argtypes = (
-            [vp] * 6 + [i32, i64, i32, i32, i32, i64, i32, i32, vp])
+        fwd.medimgen_gn_stats_fold.argtypes = (
+            [vp] * 7 + [i32, i64, i32, i32, f32, i32, i64, i32, i32, vp])
+    bwd = libs["groupnorm_bwd"]
+    bwd.medimgen_gn_bwd_stats.argtypes = (
+        [vp] * 10 + [i32, i64, i32, i32, f32, i32, i32, i64, i32, i32, vp])
+    bwd.medimgen_gn_bwd_apply.argtypes = [vp] * 6 + [i32, i64, i32, i32, i32, i64, i32, i32, vp]
     return libs
 
 
@@ -166,29 +161,44 @@ def site(libs: dict, B: int, S: int, H: int, D: int) -> dict:
     return res
 
 
-def gn_site(libs: dict, B: int, M: int, C: int) -> dict:
+def gn_site(libs: dict, B: int, M: int, C: int, G: int) -> dict:
+    """GroupNorm forward statistics and fold, bf16: the parent's two C calls
+    against the change's one, each build into its own outputs."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = (torch.randn((B, M, C), generator=gen, device="cuda") * 1.3 + 0.7).bfloat16()
+    w = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(C, generator=gen, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # the parent's channel-stats grid is this checkout's (unchanged since e562fb4)
-    geometry = {who: gn._stats_slabs(B, M, C, 8, sms) for who in ("parent", "change")}
-    parts = {who: torch.empty((B, nblk, 2, C), device="cuda")
-             for who, (_, nblk) in geometry.items()}
-    outs = {who: torch.empty((B, 2, C), device="cuda") for who in geometry}
+    rows, nblk = gn._stats_slabs(B, M, C, 8, sms)  # the partial pass is the same in both
+    part = torch.empty((B, nblk, 2, C), device="cuda")
+    out = {who: dict(stats=torch.empty((B, 2, C), device="cuda"),
+                     A=torch.empty((B, C), device="cuda"), b=torch.empty((B, C), device="cuda"))
+           for who in ("parent", "change")}
 
-    def stats(who):
-        rows, nblk = geometry[who]
-        err = libs[who]["groupnorm"].medimgen_gn_channel_stats(
-            x.data_ptr(), parts[who].data_ptr(), outs[who].data_ptr(), B, M, C, 1, rows, nblk, 1,
-            stream)
-        _build.check(err, f"{who} channel stats")
+    def stats_fold(who):
+        o, lib = out[who], libs[who]["groupnorm"]
+        if who == "parent":
+            err = lib.medimgen_gn_channel_stats(
+                x.data_ptr(), part.data_ptr(), o["stats"].data_ptr(), B, M, C, 1, rows, nblk, 1,
+                stream)
+            _build.check(err, "parent channel stats")
+            err = lib.medimgen_gn_fold(
+                o["stats"].data_ptr(), w.data_ptr(), bias.data_ptr(), o["A"].data_ptr(),
+                o["b"].data_ptr(), B, C, G, M, 1e-6, stream)
+        else:
+            err = lib.medimgen_gn_stats_fold(
+                x.data_ptr(), w.data_ptr(), bias.data_ptr(), part.data_ptr(),
+                o["stats"].data_ptr(), o["A"].data_ptr(), o["b"].data_ptr(), B, M, C, G, 1e-6,
+                1, rows, nblk, 1, stream)
+        _build.check(err, f"{who} GroupNorm stats + fold")
 
-    res = {"shape": [B, M, C], "stats": in_turns(stats)}
+    res = {"shape": [B, M, C], "groups": G, "stats_fold": in_turns(stats_fold)}
     torch.cuda.synchronize()
-    res["max_abs_diff_change_vs_parent"] = (outs["change"] - outs["parent"]).abs().max().item()
+    res["max_abs_diff_change_vs_parent"] = {
+        k: (out["change"][k] - out["parent"][k]).abs().max().item() for k in ("stats", "A", "b")}
     res["var_mean_ms"] = time_ms(lambda: torch.var_mean(x, dim=1, correction=0))
-    res["bound_ms"] = (B * M * C * 2 + B * 2 * C * 4) / PEAK_BYTES * 1e3
+    res["bound_ms"] = (B * M * C * 2 + 2 * C * 4 + 4 * B * C * 4) / PEAK_BYTES * 1e3
     return res
 
 
@@ -200,43 +210,30 @@ def gn_bwd_site(libs: dict, B: int, M: int, C: int, G: int) -> dict:
     g = torch.randn((B, M, C), generator=gen, device="cuda").bfloat16()
     w = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
     bias = 0.1 * torch.randn(C, generator=gen, device="cuda")
-    st = gn.channel_stats_plain(x)
-    A, bb = gn.fold_affine_plain(st, w, bias, G, M, 1e-6)
+    st, A, bb = gn.stats_fold_plain(x, w, bias, G, 1e-6)
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    stats_grid = {"parent": _parent_bwd_slabs(M),
-                  "change": gn._bwd_slabs("stats", B, M, C, 8, sms)}
+    rows, nblk = gn._bwd_slabs("stats", B, M, C, 8, sms)
     apply_grid = gn._bwd_slabs("apply", B, M, C, 8, sms)
-    out = {who: dict(part=torch.empty((B, stats_grid[who][1], 2, C), device="cuda"),
+    out = {who: dict(part=torch.empty((B, nblk, 2, C), device="cuda"),
                      coef=torch.empty((B, 2, C), device="cuda"),
                      dscale=torch.empty(C, device="cuda"), dbias=torch.empty(C, device="cuda"),
-                     dx=torch.empty_like(x)) for who in stats_grid}
-    t_scratch = torch.empty((B, 2, C), device="cuda")
+                     dx=torch.empty_like(x)) for who in ("parent", "change")}
     ptrs = (x.data_ptr(), g.data_ptr(), A.data_ptr(), bb.data_ptr())
 
     def stats(who):
-        o, (rows, nblk) = out[who], stats_grid[who]
-        lib = libs[who]["groupnorm_bwd"]
-        if who == "parent":
-            err = lib.medimgen_gn_bwd_stats(
-                *ptrs, st.data_ptr(), w.data_ptr(), o["part"].data_ptr(), t_scratch.data_ptr(),
-                o["coef"].data_ptr(), o["dscale"].data_ptr(), o["dbias"].data_ptr(), B, M, C, G,
-                1e-6, 1, 1, rows, nblk, stream)
-        else:
-            err = lib.medimgen_gn_bwd_stats(
-                *ptrs, st.data_ptr(), w.data_ptr(), o["part"].data_ptr(), o["coef"].data_ptr(),
-                o["dscale"].data_ptr(), o["dbias"].data_ptr(), B, M, C, G, 1e-6, 1, 1, rows,
-                nblk, 1, stream)
+        o = out[who]
+        err = libs[who]["groupnorm_bwd"].medimgen_gn_bwd_stats(
+            *ptrs, st.data_ptr(), w.data_ptr(), o["part"].data_ptr(), o["coef"].data_ptr(),
+            o["dscale"].data_ptr(), o["dbias"].data_ptr(), B, M, C, G, 1e-6, 1, 1, rows, nblk, 1,
+            stream)
         _build.check(err, f"{who} GroupNorm backward stats")
 
     def apply(who):
         o = out[who]
-        lib = libs[who]["groupnorm_bwd"]
-        args = (*ptrs, o["coef"].data_ptr(), o["dx"].data_ptr(), B, M, C, 1, 1)
-        if who == "parent":
-            err = lib.medimgen_gn_bwd_apply(*args, 1, stream)
-        else:
-            err = lib.medimgen_gn_bwd_apply(*args, *apply_grid, 1, stream)
+        err = libs[who]["groupnorm_bwd"].medimgen_gn_bwd_apply(
+            *ptrs, o["coef"].data_ptr(), o["dx"].data_ptr(), B, M, C, 1, 1, *apply_grid, 1,
+            stream)
         _build.check(err, f"{who} GroupNorm backward apply")
 
     for who in out:
@@ -290,10 +287,12 @@ def main(argv=None) -> int:
     for shape in GN_SITES:
         r = gn_site(libs, *shape)
         out["gn_sites"].append(r)
-        print(f"[kernel_ab] {card} B,M,C={tuple(shape)}: channel stats parent "
-              f"{r['stats']['parent']:.4f} ms, change {r['stats']['change']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms (var_mean {r['var_mean_ms']:.4f}); max |change - parent| "
-              f"{r['max_abs_diff_change_vs_parent']:.3e}", flush=True)
+        print(f"[kernel_ab] {card} B,M,C={tuple(shape[:3])} G={shape[3]}: GroupNorm stats + "
+              f"fold parent (channel stats + fold) {r['stats_fold']['parent']:.4f} ms, change "
+              f"(stats_fold) {r['stats_fold']['change']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"(var_mean {r['var_mean_ms']:.4f}); max |change - parent| " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in r["max_abs_diff_change_vs_parent"].items()),
+              flush=True)
     for shape in GN_BWD_SITES:
         r = gn_bwd_site(libs, *shape)
         out["gn_bwd_sites"].append(r)

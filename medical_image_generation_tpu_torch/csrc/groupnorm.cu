@@ -5,20 +5,25 @@
 //     `_stats_any_kernel` / `lane_stats_any` (:127-184). The two TPU kernels
 //     compute the same function and differ only in TPU memory placement, so
 //     one kernel here serves both.
-//   * affine + activation: `_affine_kernel` / `affine_act` (:187-223).
-//   * the group fold between them, `_fold_affine` (:226-241). In JAX it is
+//   * the group fold after them, `_fold_affine` (:226-241). In JAX it is
 //     plain array code that XLA fuses; in eager PyTorch it would be ~11 small
 //     launches per GroupNorm, and the host's launch rate is what bounds the
-//     U-Net forward, so it is one small kernel here.
+//     U-Net forward, so it runs in the stats pass's second launch here.
+//   * affine + activation: `_affine_kernel` / `affine_act` (:187-223).
 //
 // Both operate on a (B, M, C) activation, which is how a channels-last NCDHW
 // tensor lies in memory (M = Z*Y*X), for any M and any C.
 //
-// channel stats: per (batch, channel) fp32 [sum x, sum x^2] over M. The
-//   activation is read once; each block reduces a slab of rows for a tile of
-//   channels and writes one fp32 partial, and a second small kernel sums the
-//   partials in a fixed order. No float atomics, so repeated runs give
-//   bit-identical statistics (and samples).
+// stats + fold (medimgen_gn_stats_fold), two launches: per (batch, channel)
+//   fp32 [sum x, sum x^2] over M, then the group statistics folded into
+//   A = w * rsqrt(var + eps), b = bias - mean * A per (batch, channel). The
+//   activation is read once: each block of the first launch reduces a slab
+//   of rows for a tile of channels and writes one fp32 partial; the second
+//   launch, a block per (group, batch), sums its channels' partials in slab
+//   order, writes the channel sums (the backward reads them) and folds them.
+//   No float atomics, so repeated runs give bit-identical statistics (and
+//   samples). The fold is a few KB a GroupNorm: sharing the reduce's launch
+//   saves a launch and a wrapper call on a host-bound path.
 //   Bound: bytes, B*M*C*itemsize at 3.35 TB/s.
 // affine_act: y = act(x * A[b, c] + b[b, c]) with fp32 math and one rounding
 //   at the store; act is SiLU or none. One read and one write.
@@ -50,6 +55,8 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __flo
 
 constexpr int STATS_THREADS = 256;
 constexpr int STATS_UNROLL = 4;  // independent row loads in flight a thread
+constexpr int FOLD_THREADS = 512;
+constexpr int MAX_GROUP_CHANNELS = 4096;  // the fold's shared memory: 8 * Cg bytes
 
 // V channels of one row from 16 bytes (V = 16 / sizeof(T)) or one element (V = 1).
 template <typename T, int V>
@@ -126,30 +133,73 @@ stats_partial_kernel(const T* __restrict__ x, float* __restrict__ part, long lon
     }
 }
 
-// grid (ceil(C / 32), B); block (32, 8). out: (B, 2, C) fp32.
-__global__ void __launch_bounds__(STATS_THREADS)
-stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int C, int nblk) {
-    __shared__ float sh1[STATS_THREADS], sh2[STATS_THREADS];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int c = blockIdx.x * 32 + tx, z = blockIdx.y;
-    float s1 = 0.f, s2 = 0.f;
-    if (c < C) {
-        for (int i = ty; i < nblk; i += 8) {
-            const float* p = part + ((long long)z * nblk + i) * 2 * C;
-            s1 += p[c];
-            s2 += p[C + c];
+// Sums each channel's partials in slab order and folds its group. grid (G,
+// B), FOLD_THREADS threads: block (gi, z) owns the Cg = C / G channels of
+// group gi in batch z. Its 2 * Cg columns ([sum x | sum x^2] of each
+// channel) are summed by FOLD_THREADS / columns lanes over the slabs (one
+// lane when the columns fill the block), then in lane order; warp 0 then
+// sums the group in a fixed shuffle tree and writes A and b. The launch is a
+// few KB of work and runs at latency, so warp 0 loads the scale and shift of
+// its first 32 channels before the column sums, not after them. stats: (B,
+// 2, C) out; w, bias: (C); A, bb: (B, C) out. Dynamic shared memory: 2 * Cg
+// floats.
+__global__ void __launch_bounds__(FOLD_THREADS)
+stats_reduce_fold_kernel(const float* __restrict__ part, const float* __restrict__ w,
+                         const float* __restrict__ bias, float* __restrict__ stats,
+                         float* __restrict__ A, float* __restrict__ bb, int C, int G, int nblk,
+                         float cnt, float eps) {
+    extern __shared__ float t[];  // [sum x (Cg) | sum x^2 (Cg)] of the group's channels
+    __shared__ float red[FOLD_THREADS];
+    const int Cg = C / G, c0 = blockIdx.x * Cg, z = blockIdx.y, tid = threadIdx.x;
+    const int ncol = 2 * Cg;
+    const int lanes = ncol >= FOLD_THREADS ? 1 : FOLD_THREADS / ncol;
+    const float* pz = part + (long long)z * nblk * 2 * C;
+    const bool pre = tid < 32 && tid < Cg;
+    const float w0 = pre ? w[c0 + tid] : 0.f, b0 = pre ? bias[c0 + tid] : 0.f;
+    // sum over the slabs i = l0, l0 + step, ... of column col, in order
+    auto column = [&](int col, int l0, int step) {
+        const float* p = pz + (col < Cg ? c0 + col : C + c0 + col - Cg);
+        float s = 0.f;
+#pragma unroll 8
+        for (int i = l0; i < nblk; i += step) s += p[(long long)i * 2 * C];
+        return s;
+    };
+    if (lanes == 1) {
+        for (int col = tid; col < ncol; col += FOLD_THREADS) t[col] = column(col, 0, 1);
+    } else {
+        const int col = tid % ncol, l = tid / ncol;
+        if (l < lanes) red[tid] = column(col, l, lanes);
+        __syncthreads();
+        if (tid < ncol) {
+            float s = 0.f;
+            for (int r = 0; r < lanes; ++r) s += red[r * ncol + tid];
+            t[tid] = s;
         }
     }
-    sh1[ty * 32 + tx] = s1;
-    sh2[ty * 32 + tx] = s2;
     __syncthreads();
-    if (ty == 0 && c < C) {
-        for (int j = 1; j < 8; ++j) {
-            s1 += sh1[j * 32 + tx];
-            s2 += sh2[j * 32 + tx];
+    float* sz = stats + (long long)z * 2 * C + c0;
+    for (int j = tid; j < Cg; j += FOLD_THREADS) {
+        sz[j] = t[j];
+        sz[C + j] = t[Cg + j];
+    }
+    if (tid < 32) {
+        float a = 0.f, q = 0.f;
+        for (int j = tid; j < Cg; j += 32) {
+            a += t[j];
+            q += t[Cg + j];
         }
-        out[(long long)z * 2 * C + c] = s1;
-        out[(long long)z * 2 * C + C + c] = s2;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            a += __shfl_xor_sync(0xffffffffu, a, o);
+            q += __shfl_xor_sync(0xffffffffu, q, o);
+        }
+        const float m = a / cnt;
+        const float r = rsqrtf(fmaxf(q / cnt - m * m, 0.f) + eps);
+        for (int j = tid; j < Cg; j += 32) {  // j = tid first: the prefetched pair
+            const float s = r * (j < 32 ? w0 : w[c0 + j]);
+            A[(long long)z * C + c0 + j] = s;
+            bb[(long long)z * C + c0 + j] = (j < 32 ? b0 : bias[c0 + j]) - m * s;
+        }
     }
 }
 
@@ -198,40 +248,10 @@ __global__ void affine_vec_kernel(const T* __restrict__ x, const float* __restri
     }
 }
 
-// grid (B); block 256; dynamic shared memory (2*C + 2*G) floats.
-// stats: (B, 2, C) sums; A, bb: (B, C) fp32.
-__global__ void fold_kernel(const float* __restrict__ stats, const float* __restrict__ w,
-                            const float* __restrict__ bias, float* __restrict__ A,
-                            float* __restrict__ bb, int C, int G, float cnt, float eps) {
-    extern __shared__ float sh[];
-    float* s1 = sh;
-    float* s2 = sh + C;
-    float* mean = sh + 2 * C;
-    float* rinv = mean + G;
-    const int z = blockIdx.x, Cg = C / G;
-    const float* st = stats + (long long)z * 2 * C;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) { s1[c] = st[c]; s2[c] = st[C + c]; }
-    __syncthreads();
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-        float a = 0.f, q = 0.f;
-        for (int j = 0; j < Cg; ++j) { a += s1[g * Cg + j]; q += s2[g * Cg + j]; }
-        const float m = a / cnt;
-        const float var = fmaxf(q / cnt - m * m, 0.f);
-        mean[g] = m;
-        rinv[g] = rsqrtf(var + eps);
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-        const int g = c / Cg;
-        const float a = rinv[g] * w[c];
-        A[(long long)z * C + c] = a;
-        bb[(long long)z * C + c] = bias[c] - mean[g] * a;
-    }
-}
-
 template <typename T, int V>
-int stats(const void* x, float* part, float* out, int B, long long M, int C,
-          long long rows_per_block, int nblk, cudaStream_t st) {
+int stats_fold(const void* x, const float* w, const float* bias, float* part, float* stats,
+               float* A, float* b, int B, long long M, int C, int G, float eps,
+               long long rows_per_block, int nblk, cudaStream_t st) {
     const int cols = C / V;  // vector columns
     const int CTV = cols < 32 ? cols : 32;
     const dim3 block(CTV, STATS_THREADS / CTV);
@@ -240,7 +260,10 @@ int stats(const void* x, float* part, float* out, int B, long long M, int C,
                                                        rows_per_block);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    stats_reduce_kernel<<<dim3((C + 31) / 32, B), dim3(32, 8), 0, st>>>(part, out, C, nblk);
+    const int Cg = C / G;
+    const float cnt = (float)((double)M * Cg);
+    stats_reduce_fold_kernel<<<dim3(G, B), FOLD_THREADS, 2 * Cg * sizeof(float), st>>>(
+        part, w, bias, stats, A, b, C, G, nblk, cnt, eps);
     return (int)cudaGetLastError();
 }
 
@@ -265,37 +288,34 @@ int affine(const void* x, const float* A, const float* b, void* y, int B, long l
 
 extern "C" {
 
-// x: contiguous (B, M, C), dtype 0 = f32, 1 = bf16. partials: fp32 scratch of
+// x: contiguous (B, M, C), dtype 0 = f32, 1 = bf16; w, bias: fp32 (C)
+// GroupNorm scale and shift, C a multiple of G. partials: fp32 scratch of
 // B*nblk*2*C floats; block i of a batch reduces rows [i*rows_per_block,
-// min((i+1)*rows_per_block, M)), so nblk = ceil(M / rows_per_block). out: fp32
-// (B, 2, C) holding [sum x, sum x^2]. vec != 0: 16-byte loads, which need a
-// 16-byte aligned x and C a multiple of 16 bytes' worth of elements.
-// Returns the cudaError_t code.
-int medimgen_gn_channel_stats(const void* x, float* partials, float* out, int B, long long M,
-                              int C, int dtype, long long rows_per_block, int nblk, int vec,
-                              void* stream) {
+// min((i+1)*rows_per_block, M)), so nblk = ceil(M / rows_per_block).
+// Outputs, fp32: stats (B, 2, C) holding [sum x, sum x^2] per channel; A, b
+// (B, C), the folded affine. vec != 0: 16-byte loads, which need a 16-byte
+// aligned x and C a multiple of 16 bytes' worth of elements. Returns the
+// cudaError_t code.
+int medimgen_gn_stats_fold(const void* x, const float* w, const float* bias, float* partials,
+                           float* stats, float* A, float* b, int B, long long M, int C, int G,
+                           float eps, int dtype, long long rows_per_block, int nblk, int vec,
+                           void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int isz = dtype == 1 ? 2 : 4;
-    if (nblk < 1 || rows_per_block < 1 || (dtype != 0 && dtype != 1) ||
+    if (B < 1 || M < 1 || G < 1 || C % G != 0 || C / G > MAX_GROUP_CHANNELS || nblk < 1 ||
+        rows_per_block < 1 || (long long)(nblk - 1) * rows_per_block >= M ||
+        (long long)nblk * rows_per_block < M || (dtype != 0 && dtype != 1) ||
         (vec && (C % (16 / isz) != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)))
         return (int)cudaErrorInvalidValue;
     if (dtype == 1)
-        return vec ? stats<bf16, 8>(x, partials, out, B, M, C, rows_per_block, nblk, st)
-                   : stats<bf16, 1>(x, partials, out, B, M, C, rows_per_block, nblk, st);
-    return vec ? stats<float, 4>(x, partials, out, B, M, C, rows_per_block, nblk, st)
-               : stats<float, 1>(x, partials, out, B, M, C, rows_per_block, nblk, st);
-}
-
-// stats: fp32 (B, 2, C) channel sums over n_spatial rows; w, bias: fp32 (C);
-// A, b: fp32 (B, C) outputs. C must be a multiple of G.
-int medimgen_gn_fold(const float* stats, const float* w, const float* bias, float* A, float* b,
-                     int B, int C, int G, long long n_spatial, float eps, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const size_t smem = sizeof(float) * (2 * (size_t)C + 2 * (size_t)G);
-    if (G < 1 || C % G != 0 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    const float cnt = (float)((double)n_spatial * (C / G));
-    fold_kernel<<<B, 256, smem, st>>>(stats, w, bias, A, b, C, G, cnt, eps);
-    return (int)cudaGetLastError();
+        return vec ? stats_fold<bf16, 8>(x, w, bias, partials, stats, A, b, B, M, C, G, eps,
+                                         rows_per_block, nblk, st)
+                   : stats_fold<bf16, 1>(x, w, bias, partials, stats, A, b, B, M, C, G, eps,
+                                         rows_per_block, nblk, st);
+    return vec ? stats_fold<float, 4>(x, w, bias, partials, stats, A, b, B, M, C, G, eps,
+                                      rows_per_block, nblk, st)
+               : stats_fold<float, 1>(x, w, bias, partials, stats, A, b, B, M, C, G, eps,
+                                      rows_per_block, nblk, st);
 }
 
 // x, y: contiguous (B, M, C) of the same dtype; A, b: fp32 (B, C).

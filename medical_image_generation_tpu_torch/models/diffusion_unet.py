@@ -112,6 +112,14 @@ class DiffusionUNet(nn.Module):
     @staticmethod
     def from_config(params: dict, dtype=torch.bfloat16, param_dtype=None,
                     device=None) -> "DiffusionUNet":
+        """Raises on ``with_conditioning``: the JAX U-Net then puts a
+        ``SpatialTransformer`` at every attention site, which is not ported.
+        ``cross_attention_dim`` and ``transformer_num_layers`` are read only
+        by that transformer."""
+        if params.get("with_conditioning", False):
+            raise NotImplementedError(
+                "with_conditioning (SpatialTransformer cross-attention, with "
+                "cross_attention_dim and transformer_num_layers) is not ported yet")
         return DiffusionUNet(
             spatial_dims=params["spatial_dims"],
             in_channels=params["in_channels"],

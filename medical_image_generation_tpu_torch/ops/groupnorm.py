@@ -1,17 +1,17 @@
 """GroupNorm on channels-last activations, forward and backward: channel
-statistics, the group fold, the affine(+SiLU) apply and the two backward
+statistics with the group fold, the affine(+SiLU) apply and the two backward
 passes, each a hand-written kernel with its plain version beside it, joined
 by one ``torch.autograd.Function`` (``group_norm``).
 
 Port of the TPU kernels in ``medical_image_generation_tpu/ops/
 pallas_groupnorm.py``:
 
-* ``channel_stats``  <- ``lane_stats`` (:102) and ``lane_stats_any`` (:161)
+* ``stats_fold``     <- ``lane_stats`` (:102) and ``lane_stats_any`` (:161),
+  then ``_fold_affine`` (:226) with pack = 1. The fold is plain JAX glue at
+  (B, C) size, which XLA fuses; eager PyTorch would launch ~11 small ops for
+  it per GroupNorm, and the host's launch rate bounds the U-Net forward, so
+  on the GPU it runs in the channel-stats pass's second launch.
 * ``affine_act``     <- ``affine_act`` (:195)
-* ``fold_affine``    <- ``_fold_affine`` (:226) with pack = 1: plain JAX
-  glue at (B, C) size, which XLA fuses; eager PyTorch would launch ~11 small
-  ops for it per GroupNorm, and the host's launch rate bounds the U-Net
-  forward, so on the GPU it is one small kernel too.
 * ``gn_bwd_stats`` + ``gn_bwd_apply`` <- the closed-form gradient of
   ``_gn_vjp_bwd`` (:372-471, plain JAX; the U-Net's ``blocks.GroupNorm`` is
   differentiated by XLA): in eager PyTorch ~12 launches per GroupNorm, so
@@ -32,11 +32,10 @@ output (tolerance stated in the tests). The backward works in fp32 from the
 forward's saved channel sums and folded affine, as ``_gn_vjp_bwd`` does.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise. ``channel_stats.launches`` / ``fold_affine.launches`` /
-``affine_act.launches`` / ``gn_bwd_stats.launches`` /
-``gn_bwd_apply.launches`` count launches; ``channel_stats``, ``gn_bwd_stats``
-and ``gn_bwd_apply`` also count in ``vector_launches`` the launches that took
-16-byte loads.
+raise. ``stats_fold.launches`` / ``affine_act.launches`` /
+``gn_bwd_stats.launches`` / ``gn_bwd_apply.launches`` count launches;
+``stats_fold``, ``gn_bwd_stats`` and ``gn_bwd_apply`` also count in
+``vector_launches`` the launches that took 16-byte loads.
 """
 
 from __future__ import annotations
@@ -61,12 +60,11 @@ _BWD_BLOCKS_PER_SM, _BWD_UNROLL = {"stats": 2, "apply": 4}, 4
 def _lib():
     lib = _build.load("groupnorm")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.medimgen_gn_channel_stats.argtypes = [vp, vp, vp, i32, i64, i32, i32, i64, i32, i32, vp]
-    lib.medimgen_gn_channel_stats.restype = i32
+    lib.medimgen_gn_stats_fold.argtypes = (
+        [vp] * 7 + [i32, i64, i32, i32, ctypes.c_float, i32, i64, i32, i32, vp])
+    lib.medimgen_gn_stats_fold.restype = i32
     lib.medimgen_gn_affine_act.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, i32, i32, vp]
     lib.medimgen_gn_affine_act.restype = i32
-    lib.medimgen_gn_fold.argtypes = [vp] * 5 + [i32, i32, i32, i64, ctypes.c_float, vp]
-    lib.medimgen_gn_fold.restype = i32
     return lib
 
 
@@ -112,7 +110,7 @@ def _row_slabs(B: int, M: int, C: int, vec_width: int, sms: int, blocks_per_sm: 
 
 
 def _stats_slabs(B: int, M: int, C: int, vec_width: int, sms: int):
-    """(rows per block, blocks along M) of the channel-stats kernel."""
+    """(rows per block, blocks along M) of the channel-stats partial pass."""
     return _row_slabs(B, M, C, vec_width, sms, _STATS_BLOCKS_PER_SM, _STATS_UNROLL)
 
 
@@ -141,31 +139,6 @@ def channel_stats_plain(x2):
     """(B, M, C) -> fp32 (B, 2, C): per-channel [sum x, sum x^2]."""
     xf = x2.float()
     return torch.stack([xf.sum(dim=1), xf.square().sum(dim=1)], dim=1)
-
-
-def channel_stats(x2):
-    """(B, M, C) -> fp32 (B, 2, C): per-channel [sum x, sum x^2], one read
-    of the activation, deterministic."""
-    _check_x(x2)
-    if x2.device.type == "cpu":
-        return channel_stats_plain(x2)
-    B, M, C = x2.shape
-    vec = _vec(x2, C)
-    rows, nblk = _stats_slabs(B, M, C, 16 // x2.element_size() if vec else 1,
-                              _sm_count(x2.device.index or 0))
-    part = torch.empty((B, nblk, 2, C), dtype=torch.float32, device=x2.device)
-    out = torch.empty((B, 2, C), dtype=torch.float32, device=x2.device)
-    err = _lib().medimgen_gn_channel_stats(
-        x2.data_ptr(), part.data_ptr(), out.data_ptr(), B, M, C, _DTYPES[x2.dtype], rows, nblk,
-        int(vec), torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, "gn channel_stats launch")
-    channel_stats.launches += 1
-    channel_stats.vector_launches += int(vec)
-    return out
-
-
-channel_stats.launches = 0
-channel_stats.vector_launches = 0  # launches that took the 16-byte loads
 
 
 def affine_act_plain(x2, A, b, silu: bool):
@@ -216,33 +189,47 @@ def fold_affine_plain(stats, weight, bias, num_groups: int, n_spatial: int, eps:
     return A.reshape(B, C), bb.reshape(B, C)
 
 
-def fold_affine(stats, weight, bias, num_groups: int, n_spatial: int, eps: float):
-    """(A, b), each fp32 (B, C), from the (B, 2, C) channel sums of
-    ``channel_stats``; same signature as ``fold_affine_plain``."""
-    B, two, C = stats.shape
-    if two != 2 or stats.dtype != torch.float32 or C % num_groups:
-        raise ValueError(f"expected fp32 (B, 2, C) sums with C divisible by {num_groups}")
-    if stats.device.type == "cpu":
-        return fold_affine_plain(stats, weight, bias, num_groups, n_spatial, eps)
-    if stats.device.type != "cuda":
-        raise ValueError(f"fold_affine runs on CUDA or CPU tensors, not {stats.device}")
-    stats = stats.contiguous()
-    w = weight.float().contiguous()
-    b = bias.float().contiguous()
-    for t in (w, b):
-        if t.shape != (C,) or t.device != stats.device:
-            raise ValueError(f"weight/bias must be ({C},) on {stats.device}")
-    A = torch.empty((B, C), dtype=torch.float32, device=stats.device)
-    bb = torch.empty_like(A)
-    err = _lib().medimgen_gn_fold(
-        stats.data_ptr(), w.data_ptr(), b.data_ptr(), A.data_ptr(), bb.data_ptr(),
-        B, C, num_groups, n_spatial, eps, torch.cuda.current_stream(stats.device).cuda_stream)
-    _build.check(err, "gn fold launch")
-    fold_affine.launches += 1
-    return A, bb
+def stats_fold_plain(x2, weight, bias, num_groups: int, eps: float):
+    """(stats, A, b) of ``stats_fold``: ``channel_stats_plain``, then
+    ``fold_affine_plain``."""
+    stats = channel_stats_plain(x2)
+    A, b = fold_affine_plain(stats, weight, bias, num_groups, x2.shape[1], eps)
+    return stats, A, b
 
 
-fold_affine.launches = 0
+def stats_fold(x2, weight, bias, num_groups: int, eps: float):
+    """(stats, A, b) of a (B, M, C) activation, as ``stats_fold_plain``:
+    the fp32 (B, 2, C) channel sums [sum x, sum x^2] (one read of x,
+    deterministic) and the folded affine, each fp32 (B, C). On the GPU the
+    three are contiguous views of one buffer."""
+    _check_x(x2)
+    B, M, C = x2.shape
+    if C % num_groups:
+        raise ValueError(f"channels {C} not divisible by {num_groups} groups")
+    for t in (weight, bias):
+        if t.shape != (C,) or t.device != x2.device:
+            raise ValueError(f"weight/bias must be ({C},) on {x2.device}")
+    if x2.device.type == "cpu":
+        return stats_fold_plain(x2, weight, bias, num_groups, eps)
+    vec = _vec(x2, C)
+    rows, nblk = _stats_slabs(B, M, C, 16 // x2.element_size() if vec else 1,
+                              _sm_count(x2.device.index or 0))
+    w, bf = weight.float().contiguous(), bias.float().contiguous()
+    part = torch.empty((B, nblk, 2, C), dtype=torch.float32, device=x2.device)
+    out = torch.empty((4, B, C), dtype=torch.float32, device=x2.device)
+    stats, A, b = out[:2].view(B, 2, C), out[2], out[3]
+    err = _lib().medimgen_gn_stats_fold(
+        x2.data_ptr(), w.data_ptr(), bf.data_ptr(), part.data_ptr(), stats.data_ptr(),
+        A.data_ptr(), b.data_ptr(), B, M, C, num_groups, float(eps), _DTYPES[x2.dtype], rows,
+        nblk, int(vec), torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(err, "gn stats_fold launch")
+    stats_fold.launches += 1
+    stats_fold.vector_launches += int(vec)
+    return stats, A, b
+
+
+stats_fold.launches = 0
+stats_fold.vector_launches = 0  # launches that took the 16-byte loads
 
 
 def _check_coef(x2, *coefs):
@@ -391,14 +378,13 @@ def _from_rows(y2, shape_p):
 
 
 class GroupNormFn(torch.autograd.Function):
-    """GroupNorm(+SiLU): stats -> fold -> affine forward, the two backward
+    """GroupNorm(+SiLU): stats and fold -> affine forward, the two backward
     kernels (or their plain versions) for the gradient."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, num_groups, eps, silu):
         xp, x2 = _to_rows(x)
-        stats = channel_stats(x2)
-        A, b = fold_affine(stats, weight, bias, num_groups, x2.shape[1], eps)
+        stats, A, b = stats_fold(x2, weight, bias, num_groups, eps)
         y2 = affine_act(x2, A, b, silu)
         ctx.save_for_backward(x, stats, A, b, weight)
         ctx.cfg = (num_groups, eps, silu)

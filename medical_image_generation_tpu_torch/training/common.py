@@ -95,8 +95,12 @@ class AdamW:
         self.count = 0  # updates applied so far
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> None:
-        grads = [g.float() for g in grads]
+    def step(self, grads: List[Optional[torch.Tensor]]) -> None:
+        """A None gradient (a param the loss did not reach, such as the
+        class embedding of a step without labels) counts as zeros, as
+        ``jax.grad`` gives optax: the param is still decayed."""
+        grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                 for g, p in zip(grads, self.params)]
         if self.clip:
             clip_by_global_norm(grads, self.clip)
         lr = self.lr_schedule(self.count)

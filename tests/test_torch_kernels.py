@@ -240,24 +240,29 @@ def test_groupnorm_backward_is_bit_identical_across_runs_on_gpu(cuda, B, M, C, G
         assert (got - ref).abs().max() <= GN_PARAM_GRAD_TOL * ref.abs().max()
 
 
+STATS_REL_TOL = 1e-4  # channel sums: max abs error / max |sum|, fp32 summation order
+FOLD_REL_TOL = 1e-5   # A, b: max abs error / max |ref|, fp32 (rsqrtf, sum order)
+
+
+def _stats_fold_close(got, ref):
+    for i, (g, r) in enumerate(zip(got, ref)):
+        tol = STATS_REL_TOL if i == 0 else FOLD_REL_TOL
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert (g - r).abs().max() <= tol * r.abs().max(), ("stats", "A", "b")[i]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,M,C", [(2, 4096, 512), (1, 777, 24), (2, 33, 1536),
-                                   (2, 2097152, 32)])
-def test_groupnorm_kernels_match_plain_on_gpu(cuda, B, M, C, dtype):
+@pytest.mark.parametrize("B,M,C,G", [(2, 4096, 512, 32), (1, 777, 24, 4), (2, 33, 1536, 8),
+                                     (2, 2097152, 32, 16), (2, 300, 40, 1)])
+def test_groupnorm_kernels_match_plain_on_gpu(cuda, B, M, C, G, dtype):
     x = torch.from_numpy(nd((B, M, C), 11, 1.3, 0.7)).to(cuda, dtype)
-    vec = tgn.channel_stats.vector_launches
-    st = tgn.channel_stats(x)
-    assert tgn.channel_stats.vector_launches == vec + 1  # C allows 16-byte loads
-    ref = tgn.channel_stats_plain(x)
-    assert (st - ref).abs().max() <= 1e-4 * ref.abs().max()
-    G = 8 if C % 8 == 0 else 4
     w = torch.from_numpy(nd((C,), 12, 0.1, 1.0)).to(cuda)
     bias = torch.from_numpy(nd((C,), 13, 0.1)).to(cuda)
-    A, b = tgn.fold_affine(ref, w, bias, G, M, 1e-6)
-    rA, rb = tgn.fold_affine_plain(ref, w, bias, G, M, 1e-6)
-    torch.testing.assert_close(A, rA, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(b, rb, rtol=1e-5, atol=1e-5)
+    vec = tgn.stats_fold.vector_launches
+    st, A, b = tgn.stats_fold(x, w, bias, G, 1e-6)
+    assert tgn.stats_fold.vector_launches == vec + 1  # C allows 16-byte loads
+    _stats_fold_close((st, A, b), tgn.stats_fold_plain(x, w, bias, G, 1e-6))
     for silu in (False, True):
         y, ry = tgn.affine_act(x, A, b, silu), tgn.affine_act_plain(x, A, b, silu)
         # fp32: rounding only; bf16: one ulp (exp/sigmoid rounding can flip it)
@@ -267,20 +272,37 @@ def test_groupnorm_kernels_match_plain_on_gpu(cuda, B, M, C, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,M,C,offset", [(2, 32768, 256, 0), (2, 4099, 40, 0),
-                                          (1, 1000, 64, 1), (2, 300, 37, 0)])
-def test_channel_stats_is_bit_identical_across_runs_on_gpu(cuda, B, M, C, offset, dtype):
-    """No float atomics and a fixed summation order, on the 16-byte path and
-    on the scalar one (C not a multiple of the vector, or a misaligned
-    base); both agree with the plain version."""
+@pytest.mark.parametrize("B,M,C,G,offset", [(2, 32768, 256, 32, 0), (2, 4099, 40, 8, 0),
+                                            (1, 1000, 64, 16, 1), (2, 300, 37, 1, 0),
+                                            (2, 777, 24, 4, 0)])
+def test_channel_stats_is_bit_identical_across_runs_on_gpu(cuda, B, M, C, G, offset, dtype):
+    """No float atomics and a fixed summation order in both launches of
+    stats_fold, on the 16-byte path and on the scalar one (C not a multiple
+    of the vector, or a misaligned base): stats, A and b the same bits
+    twice, and within tolerance of the plain version."""
     flat = torch.from_numpy(nd((B * M * C + offset,), 14, 1.3, 0.7)).to(cuda, dtype)
     x = flat[offset:].view(B, M, C)
-    vec = tgn.channel_stats.vector_launches
-    first, second = tgn.channel_stats(x), tgn.channel_stats(x)
-    assert tgn.channel_stats.vector_launches - vec == (2 if tgn._vec(x, C) else 0)
-    assert torch.equal(first, second)
-    ref = tgn.channel_stats_plain(x)
-    assert (first - ref).abs().max() <= 1e-4 * ref.abs().max()
+    w = torch.from_numpy(nd((C,), 15, 0.1, 1.0)).to(cuda)
+    bias = torch.from_numpy(nd((C,), 16, 0.1)).to(cuda)
+    vec = tgn.stats_fold.vector_launches
+    first, second = (tgn.stats_fold(x, w, bias, G, 1e-6) for _ in range(2))
+    assert tgn.stats_fold.vector_launches - vec == (2 if tgn._vec(x, C) else 0)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _stats_fold_close(first, tgn.stats_fold_plain(x, w, bias, G, 1e-6))
+
+
+@pytest.mark.cuda
+def test_group_norm_forward_is_two_wrapper_launches_on_gpu(cuda):
+    """One GroupNorm forward: one stats_fold launch (partials, then reduce
+    and fold) and one affine_act launch."""
+    x = torch.from_numpy(nd((2, 32, 4, 4, 4), 31)).to(cuda, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    before = (tgn.stats_fold.launches, tgn.affine_act.launches)
+    with torch.no_grad():
+        y = tgn.group_norm(x, torch.ones(32, device=cuda), torch.zeros(32, device=cuda), 8,
+                           1e-6, True)
+    assert (tgn.stats_fold.launches, tgn.affine_act.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(y).all()
 
 
 GN_SHAPES = [  # (M, C) of every GroupNorm on the flagship paths (batch 2)

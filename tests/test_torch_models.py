@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from medical_image_generation_tpu.models import blocks as jblocks
+from medical_image_generation_tpu.models.diffusion_unet import DiffusionUNet as JDiffusionUNet
 from medical_image_generation_tpu_torch import convert
 from medical_image_generation_tpu_torch.models import blocks as tblocks
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
@@ -114,3 +115,25 @@ def test_flagship_unet_geometry():
     assert sum(p.numel() for p in m.parameters()) == 441_490_952
     attn = [mod for mod in m.modules() if isinstance(mod, tblocks.AttentionBlock)]
     assert sorted(a.head_dim for a in attn) == [512] * 5 + [768] * 6
+
+
+@pytest.mark.parametrize("extra", [{}, {"cross_attention_dim": 32, "transformer_num_layers": 2}])
+def test_unet_from_config_raises_on_with_conditioning(extra):
+    """Under with_conditioning the JAX U-Net puts a SpatialTransformer at
+    every attention site; the port has none, so from_config raises rather
+    than build another network. Without it, the two transformer options
+    change nothing: the port's parameters match the flax tree's."""
+    _, ddpm_p, _ = flagship_configs(tiny=True)
+    with pytest.raises(NotImplementedError, match="with_conditioning"):
+        DiffusionUNet.from_config(dict(ddpm_p, with_conditioning=True, **extra),
+                                  dtype=torch.float32, device="cpu")
+    cfg = dict(ddpm_p, with_conditioning=False, **extra)
+    tm = DiffusionUNet.from_config(cfg, dtype=torch.float32, device="meta")
+    jm = JDiffusionUNet.from_config(cfg, dtype=jnp.float32)
+    x = jnp.zeros((1, 16, 16, 16, ddpm_p["in_channels"]))
+    tree = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x,
+                                          jnp.zeros((1,), jnp.int32))["params"])
+    ref = convert.unet_from_flax(jax.tree_util.tree_map(
+        lambda a: np.zeros(a.shape, np.float32), tree))
+    assert {k: tuple(v.shape) for k, v in ref.items()} == \
+        {k: tuple(v.shape) for k, v in tm.state_dict().items()}

@@ -59,9 +59,34 @@ def test_dispatcher_routes_cpu_to_plain_and_rejects_others():
 @pytest.mark.parametrize("B,M,C", [(2, 256, 128), (2, 96, 24), (1, 1000, 32)])
 def test_channel_stats_plain_matches_pallas(B, M, C):
     x = nd((B, M, C), 1, 1.3, 0.7)
-    got = tgn.channel_stats(torch.from_numpy(x)).numpy()
+    got = tgn.channel_stats_plain(torch.from_numpy(x)).numpy()
     for fn in (jgn.lane_stats, jgn.lane_stats_any):
         np.testing.assert_allclose(got, np.asarray(fn(jnp.asarray(x))), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("B,M,C,G", [(2, 256, 128, 32), (2, 96, 24, 4), (1, 1000, 32, 8),
+                                     (2, 512, 64, 16)])
+def test_stats_fold_matches_pallas_stats_and_fold(B, M, C, G):
+    """stats_fold on the CPU against JAX lane_stats + _fold_affine, and the
+    whole forward (stats_fold, then affine_act) against _gn_fwd_value, fp32.
+    Channel sums of up to 1000 values of |x| ~ 2: 1e-5 relative plus 1e-3
+    absolute (summation order); A, b and y: summation order only."""
+    x, w, b = nd((B, M, C), 11, 1.3, 0.7), nd((C,), 12, 0.1, 1.0), nd((C,), 13, 0.1)
+    stats, A, bb = tgn.stats_fold(torch.from_numpy(x), torch.from_numpy(w),
+                                  torch.from_numpy(b), G, 1e-6)
+    jstats = jgn.lane_stats(jnp.asarray(x))
+    jA, jb = jgn._fold_affine(jstats[:, 0], jstats[:, 1], jnp.asarray(w), jnp.asarray(b), G, 1,
+                              M, 1e-6)
+    np.testing.assert_allclose(stats.numpy(), np.asarray(jstats), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(A.numpy(), np.asarray(jA), **F32_TOL)
+    np.testing.assert_allclose(bb.numpy(), np.asarray(jb), **F32_TOL)
+    for silu in (False, True):
+        y, s1, s2 = jgn._gn_fwd_value(jnp.asarray(x).reshape(B, M, 1, 1, C), jnp.asarray(w),
+                                      jnp.asarray(b), G, 1, 1e-6, jnp.float32, silu)
+        got = tgn.affine_act(torch.from_numpy(x), A, bb, silu)
+        np.testing.assert_allclose(got.numpy(), np.asarray(y).reshape(B, M, C), rtol=1e-5,
+                                   atol=2e-5)
+        np.testing.assert_allclose(stats.numpy(), np.stack([s1, s2], 1), rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.parametrize("silu", [False, True])
@@ -73,10 +98,14 @@ def test_affine_act_and_fold_match_pallas(silu):
     s2 = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
     jA, jb = jgn._fold_affine(jnp.asarray(s), jnp.asarray(s2), jnp.asarray(w), jnp.asarray(b),
                               G, 1, M, 1e-6)
-    tA, tb = tgn.fold_affine(torch.from_numpy(np.stack([s, s2], 1)), torch.from_numpy(w),
-                             torch.from_numpy(b), G, M, 1e-6)
+    tA, tb = tgn.fold_affine_plain(torch.from_numpy(np.stack([s, s2], 1)), torch.from_numpy(w),
+                                   torch.from_numpy(b), G, M, 1e-6)
     np.testing.assert_allclose(tA.numpy(), np.asarray(jA), **F32_TOL)
     np.testing.assert_allclose(tb.numpy(), np.asarray(jb), **F32_TOL)
+    _, fA, fb = tgn.stats_fold(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), G,
+                               1e-6)
+    np.testing.assert_allclose(fA.numpy(), np.asarray(jA), **F32_TOL)
+    np.testing.assert_allclose(fb.numpy(), np.asarray(jb), **F32_TOL)
     ref = jgn.affine_act(jnp.asarray(x), jA, jb, "silu" if silu else "none", jnp.float32)
     got = tgn.affine_act(torch.from_numpy(x), tA, tb, silu)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
