@@ -41,6 +41,24 @@ Phases (any failure raises and exits non-zero):
                    the bound summed over the step's launches), then
                    save_checkpoint and sample one volume from it through
                    LDMSampler.from_config.
+7. cli          -- the training CLI end to end at the same flagship width, from
+                   a synthetic preprocessed dataset in a temporary directory
+                   under build/ (8 patients of (1, 144, 160, 160) with a
+                   foreground sphere each, written with the port's VolStore,
+                   and an AE best_model.pt of seeded random weights): the
+                   loader alone for one train epoch (batches/s, bytes decoded
+                   a second); medimgen_torch_train_ldm for one epoch of 250
+                   train and 50 val steps with the interval sampling (2
+                   volumes, 50 DDIM steps) and last/best written, its launch
+                   counts held to what the code predicts; a resume with -c to
+                   a second epoch (restored state bit for bit equal to the
+                   file, the train loader's draws too, AdamW's count 250 ->
+                   500, loss_dict of 2 epochs); then
+                   medimgen_torch_sample_ldm on best_model.pt (1 volume, 10
+                   DDIM steps). It prints the codec, loader batches/s, CLI ms a
+                   step beside phase 6's, the loader wait and copy ms a step,
+                   val ms a step and the checkpoints' bytes and write / read
+                   seconds, each with the card's name and power limit.
 
 The last two lines of standard output are the kernels' JSON record (launches
 counted on the train path) and the device record; the card's name and power
@@ -151,10 +169,16 @@ def randomize_(model, seed):
 
 
 def phase_build():
+    import threading
+
+    from medical_image_generation_tpu_torch.io import volstore
     from medical_image_generation_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    codec = threading.Thread(target=volstore.codec_in_use)  # g++, beside the nvcc builds
+    codec.start()
     logs = _build.build_all()
+    codec.join()
     log(f"[build] {len(logs)} libraries built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, text in logs.items():
@@ -912,7 +936,7 @@ def phase_train(warmup=2, steps=10):
     if not ok:
         raise AssertionError("sampling from the saved checkpoint failed")
     return counts, {name: dict(step_ms=shares[name], step_bound_ms=b_ms)
-                    for name, b_ms in bounds.items()}
+                    for name, b_ms in bounds.items()}, ms_step
 
 
 def step_bounds(trainer, batch):
@@ -1044,6 +1068,328 @@ def profile_breakdown(label, fn):
         log(f"[profile]   {us / 1e3:8.3f} ms  x{n:<4d} {name[:110]}")
     return busy, shares
 
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+CLI_PATIENTS, CLI_VOLUME = 8, (1, 144, 160, 160)  # (C, Z, Y, X) float32 in [0, 1]
+CLI_FREE_BYTES = 16e9  # two ~4.4 GB checkpoints live at once, the dataset, the samples
+
+
+def _write_cli_dataset(root, cfg, seed=2024):
+    """A preprocessed dataset as the planner writes it: imagesTr/*.vs (the
+    port's VolStore, default (1, 1, Y, X) chunks), a properties pickle with
+    class_locations a patient, and medimgen_config.yaml. Returns the bytes
+    written."""
+    import numpy as np
+    import yaml
+
+    from medical_image_generation_tpu_torch.io.volstore import write_volume
+    from medical_image_generation_tpu_torch.planning.preprocess import save_properties
+
+    images = os.path.join(root, "Task099_Synth", "imagesTr")
+    os.makedirs(images)
+    rng = np.random.default_rng(seed)
+    _, Z, Y, X = CLI_VOLUME
+    zz, yy, xx = np.meshgrid(np.arange(Z), np.arange(Y), np.arange(X), indexing="ij",
+                             sparse=True)
+    nbytes = 0
+    for i in range(CLI_PATIENTS):
+        vol = rng.normal(0.35, 0.08, CLI_VOLUME).astype(np.float32)
+        c = rng.integers([Z // 4, Y // 4, X // 4], [3 * Z // 4, 3 * Y // 4, 3 * X // 4])
+        r = int(rng.integers(12, 24))
+        mask = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 <= r * r
+        vol[0][mask] += 0.4
+        np.clip(vol, 0.0, 1.0, out=vol)
+        pid = f"synth_{i:03d}"
+        path = os.path.join(images, f"{pid}.vs")
+        write_volume(path, vol)
+        nbytes += os.path.getsize(path)
+        locs = []
+        for z in range(Z):
+            yx = np.argwhere(mask[z])
+            if len(yx) > 50:
+                yx = yx[rng.choice(len(yx), 50, replace=False)]
+            locs.extend((z, int(y), int(x)) for y, x in yx)
+        save_properties(images, pid, {"class_locations": {1: locs},
+                                      "min_max": [(0.0, 1.0)]})
+    with open(os.path.join(root, "Task099_Synth", "medimgen_config.yaml"), "w") as f:
+        yaml.safe_dump({"3D": cfg}, f, sort_keys=False)
+    return nbytes
+
+
+def _counting_reads():
+    """Patch VolStore.read_bbox to add the bytes each read decodes (every
+    chunk the box touches, whole) to the returned dict."""
+    from medical_image_generation_tpu_torch.io import volstore
+
+    seen = {"bytes": 0, "reads": 0}
+    orig = volstore.VolStore.read_bbox
+
+    def read_bbox(self, lbs, ubs):
+        n = 1
+        for lo, hi, size, ch in zip(lbs, ubs, self.shape, self.chunk_shape):
+            lo, hi = max(int(lo), 0), min(int(hi), size)
+            n *= max(0, (hi - 1) // ch - lo // ch + 1) if hi > lo else 0
+        seen["bytes"] += n * math.prod(self.chunk_shape) * self.dtype.itemsize
+        seen["reads"] += 1
+        return orig(self, lbs, ubs)
+
+    volstore.VolStore.read_bbox = read_bbox
+    return seen, lambda: setattr(volstore.VolStore, "read_bbox", orig)
+
+
+def _run_main(fn, argv):
+    """fn(argv) with sys.stdout / sys.stderr put back afterwards (a config
+    with output_mode: log redirects them)."""
+    out, err = sys.stdout, sys.stderr
+    try:
+        return fn(argv)
+    finally:
+        sys.stdout, sys.stderr = out, err
+
+
+def _state_equal(trainer, payload):
+    """Names of the trainer states that differ, bit for bit, from a
+    last/best payload."""
+    bad = [k for k, v in trainer.unet.state_dict().items()
+           if not torch.equal(v.detach().cpu(), payload["unet"][k])]
+    opt = payload["opt_state"]
+    for key in ("mu", "nu"):
+        bad += [f"{key}.{n}" for n, t in zip(trainer.param_names, getattr(trainer.opt, key))
+                if not torch.equal(t.cpu(), opt[key][n])]
+    if trainer.opt.count != opt["count"] or trainer.step != payload["step"]:
+        bad.append(f"count {trainer.opt.count} / {opt['count']}, step {trainer.step} / "
+                   f"{payload['step']}")
+    if not torch.equal(trainer.host_generator.get_state(), payload["generators"]["host"]):
+        bad.append("host generator")
+    if not torch.equal(trainer.generator.get_state(), payload["generators"]["device"]):
+        bad.append("device generator")
+    if trainer.scale_factor != payload["scale_factor"]:
+        bad.append("scale_factor")
+    return bad
+
+
+def _copy_times(shape):
+    """Host ms to hand one loader batch to the card, pageable (the copy
+    waits for the stream) and through a pinned buffer (non_blocking), with
+    the device ms of each copy (CUDA events)."""
+    import numpy as np
+
+    a = np.random.default_rng(0).random(shape, dtype=np.float32)
+    dev = torch.device("cuda")
+    out = {}
+    for name, fn in (("pageable", lambda: torch.from_numpy(a).to(dev)),
+                     ("pinned", lambda: torch.from_numpy(a).pin_memory().to(dev,
+                                                                            non_blocking=True))):
+        host, devt = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            fn()
+            e.record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            devt.append(s.elapsed_time(e))
+        out[name] = (statistics.median(host[1:]), statistics.median(devt[1:]))
+    return out
+
+
+def phase_cli(train_counts, train_ms):
+    """The training CLI end to end (see the module docstring); returns the
+    launch counts of its first epoch."""
+    import tempfile
+
+    import numpy as np
+
+    from medical_image_generation_tpu_torch.data import loader as loader_mod
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.io import volstore
+    from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.ops import _build
+    from medical_image_generation_tpu_torch.training import checkpoints, sample, train_ldm
+
+    t_phase = time.perf_counter()
+    gpu = card()
+    base = os.path.dirname(_build.BUILD_DIR)
+    os.makedirs(base, exist_ok=True)
+    free = shutil.disk_usage(base).free
+    log(f"[cli] {gpu}: {free / 1e9:.1f} GB free under {base} (need {CLI_FREE_BYTES / 1e9:.0f})")
+    if free < CLI_FREE_BYTES:
+        raise AssertionError(f"not enough disk for the CLI phase: {free / 1e9:.1f} GB free")
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=base)
+    env = {k: os.environ.get(k) for k in ("medimgen_preprocessed", "medimgen_results")}
+    try:
+        pre, res = os.path.join(root, "preprocessed"), os.path.join(root, "results")
+        os.environ["medimgen_preprocessed"], os.environ["medimgen_results"] = pre, res
+        cfg = _train_config(tiny=False)
+        cfg["ddpm_batch_size"] = 2  # the flagship train step's batch (phase train)
+        t0 = time.perf_counter()
+        ds_bytes = _write_cli_dataset(pre, cfg)
+        codec = volstore.codec_in_use()
+        log(f"[cli] {gpu}: codec {codec}; build error: {volstore.build_error}; dataset "
+            f"{CLI_PATIENTS} x {CLI_VOLUME} float32 written in {time.perf_counter() - t0:.2f} s, "
+            f"{ds_bytes / 1e6:.1f} MB on disk")
+        ae_dir = os.path.join(res, "Task099_Synth", "3d", "autoencoder", "checkpoints")
+        os.makedirs(ae_dir)
+        vae = AutoencoderKL.from_config(cfg["vae_params"], dtype=torch.float32, device="cpu")
+        randomize_(vae, 4321)
+        torch.save({"epoch": 0, "vae": vae.state_dict()}, os.path.join(ae_dir, "best_model.pt"))
+        gn_e = sum(isinstance(m, GroupNorm) for m in vae.encoder.modules())
+        attn_e = sum(isinstance(m, AttentionBlock) for m in vae.encoder.modules())
+        gn_d = sum(isinstance(m, GroupNorm) for m in vae.decoder.modules())
+        attn_d = sum(isinstance(m, AttentionBlock) for m in vae.decoder.modules())
+        del vae
+
+        # ---- the loader alone: one train epoch of a fresh loader
+        seen, unpatch = _counting_reads()
+        try:
+            tl, _ = loader_mod.get_data_loaders(cfg, "099", "train-val-test",
+                                                cfg["ddpm_batch_size"], "3d",
+                                                cfg["ddpm_transformations"])
+            t0 = time.perf_counter()
+            n_b = sum(1 for _ in tl)
+            load_s = time.perf_counter() - t0
+        finally:
+            unpatch()
+        initial = tuple(compute_initial_patch_size(cfg["ddpm_transformations"]))
+        log(f"[cli] {gpu}: loader alone, {n_b} train batches of (2, *{initial}, 1) with "
+            f"{tl.num_threads} threads: {n_b / load_s:.2f} batches/s, "
+            f"{seen['bytes'] / load_s / 1e9:.3f} GB/s decoded ({seen['reads']} bbox reads, "
+            f"{seen['bytes'] / n_b / 1e6:.1f} MB decoded a batch)")
+        copies = _copy_times((2, *initial, 1))
+        log(f"[cli] {gpu}: one batch to the card, host ms / device ms: pageable "
+            f"{copies['pageable'][0]:.3f} / {copies['pageable'][1]:.3f}, pinned + non_blocking "
+            f"{copies['pinned'][0]:.3f} / {copies['pinned'][1]:.3f}")
+
+        # ---- medimgen_torch_train_ldm: one epoch, interval sampling, last + best
+        argv = ["099", "train-val-test", "3d", "--set", "val_plot_interval=1"]
+        _reset_counts()
+        t0 = time.perf_counter()
+        tr = _run_main(train_ldm.run_cli, argv + ["--set", "n_epochs=1"])
+        torch.cuda.synchronize()
+        run1_s = time.perf_counter() - t0
+        counts = _read_counts()
+        st = tr.epoch_stats[0]
+        steps, val_steps = st["steps"], st["val_steps"]
+        attn_u = sum(isinstance(m, AttentionBlock) for m in tr.unet.modules())
+        gn_u = sum(isinstance(m, GroupNorm) for m in tr.unet.modules())
+        ddim = 50
+        per_step = {k: v // 10 for k, v in train_counts.items()}
+        fwd_u = {"flash_attn_fwd": attn_u, "gn_stats_fold": gn_u, "gn_affine_act": gn_u}
+        fwd_e = {"flash_attn_fwd": attn_e, "gn_stats_fold": gn_e, "gn_affine_act": gn_e}
+        fwd_d = {"flash_attn_fwd": attn_d, "gn_stats_fold": gn_d, "gn_affine_act": gn_d}
+        expect = {k: (steps * per_step[k] + fwd_e.get(k, 0)                    # probe
+                      + val_steps * (fwd_e.get(k, 0) + fwd_u.get(k, 0))      # val
+                      + ddim * fwd_u.get(k, 0) + fwd_d.get(k, 0))            # samples
+                  for k in counts}
+        log(f"[cli] {gpu}: epoch of {steps} train + {val_steps} val steps, probe, {ddim}-step "
+            f"DDIM of 2 volumes: launches {counts}, predicted {expect} (per train step "
+            f"{per_step}; a forward: U-Net {attn_u} attention / {gn_u} GroupNorm, encoder "
+            f"{attn_e} / {gn_e}, decoder {attn_d} / {gn_d})")
+        if (steps, val_steps) != (250, 50) or counts != expect:
+            raise AssertionError(f"CLI epoch: {steps} / {val_steps} steps, launches {counts} "
+                                 f"!= predicted {expect}")
+        summ = tr.timer.summary()
+        cli_ms = st["train_s"] * 1e3 / steps
+        log(f"[cli] {gpu}: CLI ms a train step {cli_ms:.3f} (epoch wall {st['train_s']:.3f} s "
+            f"/ {steps}), StepTimer p50 {summ['p50_s'] * 1e3:.3f} p95 {summ['p95_s'] * 1e3:.3f} "
+            f"mean {summ['mean_s'] * 1e3:.3f}; phase train ms a step {train_ms:.3f}; loader "
+            f"queue wait {st['wait_s'] * 1e3 / steps:.3f} ms a step; host-to-device copy "
+            f"{st['copy_s'] * 1e3 / steps:.3f} ms a step (host time, pinned + non_blocking); "
+            f"val {st['val_s'] * 1e3 / val_steps:.3f} ms a step; interval samples "
+            f"{st['sample_s']:.3f} s -> {os.path.basename(st['samples'])}; run {run1_s:.1f} s")
+        losses = tr.loss_dict
+        if not (all(math.isfinite(v) for v in losses["rec_loss"] + losses["val_rec_loss"])
+                and len(losses["rec_loss"]) == 1 and tr.opt.count == 250):
+            raise AssertionError(f"CLI epoch: losses {losses}, AdamW count {tr.opt.count}")
+        ckdir = tr.save_dict["checkpoints"]
+        last = checkpoints.checkpoint_path(ckdir, "last_model")
+        best = checkpoints.checkpoint_path(ckdir, "best_model")
+        saved = st["saved"]
+        if sorted(saved["names"]) != ["best_model", "last_model"] or not (
+                os.path.exists(last) and os.path.exists(best)):
+            raise AssertionError(f"epoch 1 wrote {saved['names']}, not last and best")
+        nbytes = os.path.getsize(last)
+        write_s = saved["write_s"] / len(saved["names"])
+        t0 = time.perf_counter()
+        payload = checkpoints.load_checkpoint(last)
+        read_s = time.perf_counter() - t0
+        diff = _state_equal(tr, payload)
+        log(f"[cli] {gpu}: checkpoint {nbytes:,} bytes; device-to-host copy "
+            f"{saved['payload_s']:.3f} s; write {write_s:.3f} s a file ({nbytes / write_s / 1e9:.3f}"
+            f" GB/s); read {read_s:.3f} s ({nbytes / read_s / 1e9:.3f} GB/s); saved state equal "
+            f"to the trainer's: {not diff}")
+        if diff:
+            raise AssertionError(f"last_model.pt differs from the trainer: {diff[:5]}")
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- resume with -c to a second epoch
+        restored = {}
+        orig_restore = train_ldm.LDMTrainer._restore
+
+        def checked_restore(self):
+            orig_restore(self)
+            restored["diff"] = _state_equal(self, payload)
+            restored["start"] = self.start_epoch
+            restored["loader"] = self.train_loader.state() == payload["train_loader"]
+
+        train_ldm.LDMTrainer._restore = checked_restore
+        try:
+            t0 = time.perf_counter()
+            tr = _run_main(train_ldm.run_cli, argv + ["-c", "--set", "n_epochs=2"])
+            torch.cuda.synchronize()
+            run2_s = time.perf_counter() - t0
+        finally:
+            train_ldm.LDMTrainer._restore = orig_restore
+        del payload
+        st2 = tr.epoch_stats[0]
+        log(f"[cli] {gpu}: resume -c: start epoch {restored.get('start')} (0-based), restored "
+            f"state equal to last_model.pt: {restored.get('diff') == []}, train loader's draws "
+            f"restored: {restored.get('loader')}; AdamW count "
+            f"{tr.opt.count}; loss_dict {tr.loss_dict}; epochs run {len(tr.epoch_stats)}; CLI ms "
+            f"a train step {st2['train_s'] * 1e3 / st2['steps']:.3f}; run {run2_s:.1f} s")
+        if (restored.get("start") != 1 or restored.get("diff") != [] or not restored.get("loader")
+                or tr.opt.count != 500
+                or len(tr.loss_dict["rec_loss"]) != 2 or len(tr.epoch_stats) != 1):
+            raise AssertionError(f"resume failed: {restored}, count {tr.opt.count}, "
+                                 f"loss_dict {tr.loss_dict}")
+        run_cfg = os.path.join(tr.save_path, "config.yaml")
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- medimgen_torch_sample_ldm on best_model.pt
+        out = os.path.join(root, "samples")
+        t0 = time.perf_counter()
+        _run_main(sample.main_ldm, [run_cfg, best, "-n", "1", "--num_inference_steps", "10",
+                                    "-o", out])
+        vol = np.load(os.path.join(out, "ldm_sample_000.npy"))
+        ok = (vol.shape == (128, 128, 128, 1) and bool(np.isfinite(vol).all())
+              and float(vol.min()) >= 0.0 and float(vol.max()) <= 1.0)
+        log(f"[cli] {gpu}: medimgen_torch_sample_ldm best_model.pt, 10 DDIM steps: {vol.shape} "
+            f"min {vol.min():.4f} max {vol.max():.4f} std {vol.std():.4f} ok={ok} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not ok:
+            raise AssertionError("sampling from best_model.pt failed")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"[cli] {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1058,13 +1404,10 @@ def main() -> int:
     phase_parity()
     phase_parity_train()
     phase_slice()
-    counts, per_step = phase_train()
+    counts, per_step, train_ms = phase_train()
+    cli_counts = phase_cli(counts, train_ms)
     log(f"[env] total {time.perf_counter() - t0:.1f} s")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     src = "medical_image_generation_tpu_torch/csrc/"
     jax_ops = "medical_image_generation_tpu/ops/"
     meta = {
@@ -1080,7 +1423,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in meta.items():
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name], **rec[name], **per_step[name]})
+                        "launches": counts[name], **rec[name], **per_step[name],
+                        "cli_launches": cli_counts[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

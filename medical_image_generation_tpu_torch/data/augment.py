@@ -229,12 +229,18 @@ def _augment_one(img, d: AugmentDraws, i: int, cfg: AugmentConfig):
     return img.clamp(0.0, 1.0).to(orig_dtype)
 
 
-def augment_batch(batch, draws: AugmentDraws, cfg: AugmentConfig):
-    """Augment a channels-last batch (B, *spatial_in, C) with the given
-    draws; returns (B, *crop_to, C) (or the input's spatial shape)."""
+def check_ported(cfg: AugmentConfig, n_spatial: int) -> None:
+    """Raise ``NotImplementedError`` if ``cfg`` switches on an augmentation
+    the port lacks (the trainer calls this before its first step)."""
     on = [k for k in _UNPORTED if getattr(cfg, k)]
-    if cfg.rot_3d and batch.dim() == 5 and not cfg.dummy_2d:
+    if cfg.rot_3d and n_spatial == 3 and not cfg.dummy_2d:
         on.append("rot_3d")
     if on:
         raise NotImplementedError(f"augmentations not ported yet: {on}")
+
+
+def augment_batch(batch, draws: AugmentDraws, cfg: AugmentConfig):
+    """Augment a channels-last batch (B, *spatial_in, C) with the given
+    draws; returns (B, *crop_to, C) (or the input's spatial shape)."""
+    check_ported(cfg, batch.dim() - 2)
     return torch.stack([_augment_one(batch[i], draws, i, cfg) for i in range(batch.shape[0])])

@@ -1,13 +1,18 @@
-"""Spatial-augmentation geometry: the port's own copy.
+"""Patch geometry: the port's own copy.
 
-Copied from ``medical_image_generation_tpu/data/patches.py`` (the numpy-only
-functions at :27-36 and :51-270) so the port derives the augmentation
-ranges and the enlarged initial patch without importing the JAX package:
-``spatial_aug_params`` (the soft / nnunet presets) and
-``compute_initial_patch_size`` (the rotation/scale-enlarged training patch
-the loader extracts and the device augmentation crops back from). The
-patch sampler and bbox reads of that module belong to the host data
-pipeline, which is not ported yet.
+Copied from ``medical_image_generation_tpu/data/patches.py`` (numpy only)
+so the port derives the augmentation ranges, the enlarged initial patch and
+each patch's bounding box without importing the JAX package:
+
+* ``spatial_aug_params`` (the soft / nnunet presets) and
+  ``compute_initial_patch_size`` (the rotation/scale-enlarged training
+  patch the loader extracts and the device augmentation crops back from),
+  :27-36 and :51-270;
+* the foreground oversampling rules ``oversample_last_fraction`` and
+  ``oversample_probabilistic`` (:38-48), ``get_bbox`` (:272-336) and
+  ``crop_and_pad`` (:339-356), which the host loader (``data/loader.py``)
+  calls with the same ``np.random.Generator`` draws in the same order, so
+  both packages cut the same patches.
 """
 
 from __future__ import annotations
@@ -26,6 +31,19 @@ NNUNET_BRIGHT = (0.75, 1.25)
 NNUNET_CONTRAST = (0.75, 1.25)
 NNUNET_GAMMA = (0.7, 1.5)
 ANISOTROPY_THRESHOLD = 3  # reference data_processing.py:368
+
+
+def oversample_last_fraction(batch_pos: int, batch_size: int, oversample_ratio: float) -> bool:
+    """True when this batch position must contain foreground
+    (reference data_processing.py:426-429)."""
+    return batch_pos >= round(batch_size * (1 - oversample_ratio))
+
+
+def oversample_probabilistic(oversample_ratio: float, rng: np.random.Generator) -> bool:
+    """Foreground-forcing by independent coin toss instead of batch position
+    (reference _probabilistic_oversampling, data_processing.py:431-433;
+    enabled by the ``probabilistic_oversampling`` config flag, ctor :276)."""
+    return bool(rng.uniform() < oversample_ratio)
 
 
 def _rot_mats(angles: np.ndarray, axis: int) -> np.ndarray:
@@ -211,3 +229,90 @@ def compute_initial_patch_size(
     """The training-section patch the host loader must extract (possibly
     enlarged for the device spatial transform)."""
     return spatial_aug_params(transformations, patch_size)["initial_patch_size"]
+
+
+def get_bbox(
+    data_shape: Sequence[int],
+    patch_size: Sequence[int],
+    force_fg: bool,
+    class_locations: Optional[Dict[int, List[Tuple[int, int, int]]]],
+    rng: np.random.Generator,
+    is_2d: bool = False,
+    jitter: int = 10,
+    final_patch_size: Optional[Sequence[int]] = None,
+) -> Tuple[List[int], List[int]]:
+    """Lower/upper bbox corners for one patch (reference
+    data_processing.py:473-528).
+
+    ``patch_size`` is the INITIAL (possibly rotation/scale-enlarged) patch to
+    extract; ``final_patch_size`` the size the device transform crops back
+    to. As in the reference, the baseline padding allowance is their
+    difference — the enlarged margin may hang off the volume (zero-padded)
+    so the FINAL patch can still reach the edges. ``jitter`` bounds the H/W
+    center offset (10 for training, 0 = fixed center for validation)."""
+    dim = len(data_shape)
+    patch_size = list(patch_size)
+    final = list(final_patch_size) if final_patch_size is not None else patch_size
+
+    need_to_pad = [patch_size[d] - final[d] for d in range(dim)]
+    for d in range(dim):
+        if need_to_pad[d] + data_shape[d] < patch_size[d]:
+            need_to_pad[d] = patch_size[d] - data_shape[d]
+
+    lbs = [-need_to_pad[d] // 2 for d in range(dim)]
+    ubs = [
+        data_shape[d] + need_to_pad[d] // 2 + need_to_pad[d] % 2 - patch_size[d]
+        for d in range(dim)
+    ]
+
+    bbox_lbs = [int(rng.integers(lbs[d], ubs[d] + 1)) for d in range(dim)]
+
+    if force_fg and class_locations:
+        eligible = [c for c, locs in class_locations.items() if len(locs) > 0]
+        if eligible:
+            cls = eligible[int(rng.integers(len(eligible)))]
+            voxels = class_locations[cls]
+            vz, vy, vx = voxels[int(rng.integers(len(voxels)))]
+            voxel = (vz, vy, vx)
+            if is_2d:
+                bbox_lbs[0] = int(vz)  # take exactly that slice
+            else:
+                for d in range(dim):
+                    bbox_lbs[d] = int(
+                        max(lbs[d], min(voxel[d] - patch_size[d] // 2, ubs[d]))
+                    )
+
+    # H/W (last two axes): center crop with bounded random jitter (0 = fixed)
+    for d in range(dim - 2, dim):
+        crop = patch_size[d]
+        size = data_shape[d]
+        center = size // 2
+        if size < crop:
+            bbox_lbs[d] = center - crop // 2
+        else:
+            max_offset = min(jitter, center - crop // 2, size - center - (crop - crop // 2))
+            offset = int(rng.integers(-max_offset, max_offset + 1)) if max_offset > 0 else 0
+            bbox_lbs[d] = center + offset - crop // 2
+
+    bbox_ubs = [bbox_lbs[d] + patch_size[d] for d in range(dim)]
+    return bbox_lbs, bbox_ubs
+
+
+def crop_and_pad(array_like, lbs: Sequence[int], ubs: Sequence[int]) -> np.ndarray:
+    """Zero-padded bbox extraction from either a VolStore (lazy, native
+    decode) or an in-memory ndarray (reference crop_and_pad_nd,
+    data_processing.py:148-225)."""
+    if hasattr(array_like, "read_bbox"):
+        return array_like.read_bbox(lbs, ubs)
+    arr = np.asarray(array_like)
+    out_shape = tuple(u - l for l, u in zip(lbs, ubs))
+    out = np.zeros(out_shape, dtype=arr.dtype)
+    src, dst = [], []
+    for d, (l, u) in enumerate(zip(lbs, ubs)):
+        cl, cu = max(l, 0), min(u, arr.shape[d])
+        if cl >= cu:
+            return out
+        src.append(slice(cl, cu))
+        dst.append(slice(cl - l, cu - l))
+    out[tuple(dst)] = arr[tuple(src)]
+    return out

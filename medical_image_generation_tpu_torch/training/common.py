@@ -16,14 +16,19 @@ optax's semantics, written with ``torch._foreach_*`` ops:
 * ``make_lr_schedule``: constant, ``LinearLR`` and ``PolynomialLR``, stepped
   per optimizer step with ``total_iters`` counted in epochs, as the JAX
   package does;
-* ``ema_update``: an exponential moving average of the params.
-
-Gradient accumulation (``optax.MultiSteps``) is not ported yet.
+* ``MultiSteps``: gradient accumulation as ``optax.MultiSteps`` (0.2.6):
+  the running mean ``acc + (g - acc) / (mini_step + 1)`` in fp32, the inner
+  clip + AdamW (and with it AdamW's ``count`` and the lr schedule) run only
+  on every k-th microstep, on the mean, and the accumulator then returns to
+  zero (JAX ``training/common.py:112-123``);
+* ``ema_update``: an exponential moving average of the params, which the
+  trainer applies only on synced steps (JAX ``:34-52``);
+* ``save_last_best``: the last / best checkpoint cadence (JAX ``:178-211``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -95,10 +100,11 @@ class AdamW:
         self.count = 0  # updates applied so far
 
     @torch.no_grad()
-    def step(self, grads: List[Optional[torch.Tensor]]) -> None:
+    def step(self, grads: List[Optional[torch.Tensor]]) -> bool:
         """A None gradient (a param the loss did not reach, such as the
         class embedding of a step without labels) counts as zeros, as
-        ``jax.grad`` gives optax: the param is still decayed."""
+        ``jax.grad`` gives optax: the param is still decayed. Returns True
+        (every step updates the params)."""
         grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
                  for g, p in zip(grads, self.params)]
         if self.clip:
@@ -125,6 +131,71 @@ class AdamW:
             torch._foreach_add_(upd, torch._foreach_mul(self.params, self.wd))
         torch._foreach_add_(self.params, torch._foreach_mul(upd, -lr))
         torch._foreach_copy_(self.mu, mu)  # stored moment: rounded to mu_dtype
+        return True
+
+    def state(self) -> Dict[str, Any]:
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    @torch.no_grad()
+    def load_state(self, state: Dict[str, Any]) -> None:
+        torch._foreach_copy_(self.mu, [t.to(m.device) for t, m in zip(state["mu"], self.mu)])
+        torch._foreach_copy_(self.nu, [t.to(m.device) for t, m in zip(state["nu"], self.nu)])
+        self.count = int(state["count"])
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=k)`` over an ``AdamW``.
+
+    ``step(grads)`` folds the microstep's gradients into the fp32 running
+    mean (Welford's form, as optax's ``_acc_update`` with ``use_grad_mean``:
+    ``acc + (g - acc) / (mini_step + 1)``); on the k-th microstep the inner
+    optimizer steps on the mean, the accumulator returns to zero and True is
+    returned (a synced step). Other microsteps leave the params alone and
+    return False. ``mu``, ``nu`` and ``count`` are the inner AdamW's."""
+
+    def __init__(self, inner: AdamW, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner = inner
+        self.every_k = int(every_k)
+        self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in inner.params]
+        self.mini_step = 0
+
+    @property
+    def mu(self):
+        return self.inner.mu
+
+    @property
+    def nu(self):
+        return self.inner.nu
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    @torch.no_grad()
+    def step(self, grads: List[Optional[torch.Tensor]]) -> bool:
+        grads = [torch.zeros_like(a) if g is None else g.float()
+                 for g, a in zip(grads, self.acc)]
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        if self.mini_step + 1 < self.every_k:
+            self.mini_step += 1
+            return False
+        self.inner.step(self.acc)  # clips the mean in place, then AdamW
+        torch._foreach_zero_(self.acc)
+        self.mini_step = 0
+        return True
+
+    def state(self) -> Dict[str, Any]:
+        return {**self.inner.state(), "acc": self.acc, "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state(self, state: Dict[str, Any]) -> None:
+        self.inner.load_state(state)
+        torch._foreach_copy_(self.acc, [t.to(a.device) for t, a in zip(state["acc"], self.acc)])
+        self.mini_step = int(state["mini_step"])
 
 
 @torch.no_grad()
@@ -133,3 +204,35 @@ def ema_update(ema: List[torch.Tensor], params: Sequence[torch.Tensor], decay: f
     torch._foreach_mul_(ema, decay)
     torch._foreach_add_(ema, torch._foreach_mul([p.to(e.dtype) for e, p in zip(ema, params)],
                                                 1.0 - decay))
+
+
+def save_last_best(trainer, epoch: int, val_loss: float,
+                   payload_fn: Callable[[], Dict[str, Any]]) -> List[str]:
+    """last/best checkpoint cadence (JAX ``training/common.py:178-211``).
+
+    best_model saves on every val improvement; last_model saves every
+    ``checkpoint_interval`` epochs and on the final epoch (default 1 =
+    reference parity, train_autoencoder.py:533-560). ``payload_fn`` (the
+    device -> host copy of every state) is only called when a save will
+    happen. ``best_checkpoint_interval: k`` (default 1) restricts
+    best-model candidacy to every k-th epoch and the final epoch;
+    ``trainer.best_val`` only advances when a best save happens, so a later
+    candidate competes against the last SAVED best. Returns the names
+    written."""
+    from medical_image_generation_tpu_torch.training import checkpoints as ckpt
+
+    improved = val_loss < trainer.best_val
+    interval = max(1, int(trainer.config.get("checkpoint_interval", 1)))
+    best_interval = max(1, int(trainer.config.get("best_checkpoint_interval", 1)))
+    last_epoch = epoch + 1 >= trainer.n_epochs
+    want_last = (epoch + 1) % interval == 0 or last_epoch
+    want_best = improved and ((epoch + 1) % best_interval == 0 or last_epoch)
+    if not (want_best or want_last):
+        return []
+    payload = payload_fn()
+    if want_last:
+        ckpt.save_checkpoint(trainer.save_dict["checkpoints"], "last_model", payload)
+    if want_best:
+        trainer.best_val = val_loss
+        ckpt.save_checkpoint(trainer.save_dict["checkpoints"], "best_model", payload)
+    return ["last_model"] * want_last + ["best_model"] * want_best

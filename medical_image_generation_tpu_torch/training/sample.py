@@ -9,8 +9,13 @@ Images come out in the JAX layout (B, *spatial, C) as numpy arrays.
 
 The CLI reads a torch checkpoint (``.pt`` holding ``unet`` and ``vae``
 state_dicts, ``scale_factor`` and ``latent_shape``) plus the run's
-config.yaml, and writes one ``.npy`` volume per sample. Reading the JAX
-package's orbax checkpoints needs JAX and is not part of the port yet.
+config.yaml, and writes one ``.npy`` volume per sample. It samples ``unet``,
+the live params, as the JAX sampling CLI samples ``params``
+(``training/sample.py:89-95``); a checkpoint of a run with EMA also holds
+``ema_unet``, which the training loop's interval samples use. The
+trainer's ``save_checkpoint`` and its last/best payloads are such files, and
+``tools/orbax_to_torch.py`` (run with the JAX package) writes one from a JAX
+orbax checkpoint.
 """
 
 from __future__ import annotations

@@ -191,7 +191,7 @@ def test_train_step_matches_jax_make_train_step(class_cond, ema, labeled):
     if ema:
         ema_ref = convert.flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
                                                                     state.ema_params))
-        sd = trainer.unet_state_for_sampling()
+        sd = dict(zip(trainer.param_names, trainer.ema))
         # ema = decay * p_old + (1 - decay) * p_new: the new params differ by
         # at most 2 lr (elements with |g| near eps), plus two fp32 ulps of p
         for name in ema_ref:
@@ -229,11 +229,16 @@ def test_train_save_sample_roundtrip(tmp_path):
 
 
 def test_trainer_refuses_cpu_fallback_and_accumulation(monkeypatch):
+    """The trainer never falls back to the CPU on its own. Gradient
+    accumulation, once refused here, is now built as MultiSteps
+    (tests/test_torch_cli.py holds it against optax.MultiSteps)."""
+    from medical_image_generation_tpu_torch.training import common as tcommon
+
     cfg = _config()
     _, _, tvae, _ = tiny_vae_pair(seed=42)
-    with pytest.raises(NotImplementedError, match="grad_accumulate_step"):
-        LDMTrainer.from_config(dict(cfg, grad_accumulate_step=2), tvae.state_dict(),
-                               device="cpu", dtype=torch.float32)
+    acc = LDMTrainer.from_config(dict(cfg, grad_accumulate_step=2), tvae.state_dict(),
+                                 device="cpu", dtype=torch.float32)
+    assert isinstance(acc.opt, tcommon.MultiSteps) and acc.opt.every_k == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LDMTrainer.from_config(cfg, tvae.state_dict())
