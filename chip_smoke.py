@@ -41,19 +41,40 @@ Phases (any failure raises and exits non-zero):
                    the bound summed over the step's launches), then
                    save_checkpoint and sample one volume from it through
                    LDMSampler.from_config.
-7. cli          -- the training CLI end to end at the same flagship width, from
-                   a synthetic preprocessed dataset in a temporary directory
-                   under build/ (8 patients of (1, 144, 160, 160) with a
-                   foreground sphere each, written with the port's VolStore,
-                   and an AE best_model.pt of seeded random weights): the
-                   loader alone for one train epoch (batches/s, bytes decoded
-                   a second); medimgen_torch_train_ldm for one epoch of 250
-                   train and 50 val steps with the interval sampling (2
-                   volumes, 50 DDIM steps) and last/best written, its launch
-                   counts held to what the code predicts; a resume with -c to
-                   a second epoch (restored state bit for bit equal to the
-                   file, the train loader's draws too, AdamW's count 250 ->
-                   500, loss_dict of 2 epochs); then
+7. ae_parity    -- the tiny 3D config (seeded random weights, fp32, TF32 off)
+                   through one stage-1 AE train step with the adversarial
+                   loss on the CPU (plain versions) and on the GPU (kernels),
+                   from the same draws: the five losses, the generator's and
+                   the discriminator's gradients, the launches predicted.
+8. ae_train     -- the flagship stage-1 step (KL-VAE [32,64,128], latent 8,
+                   16 groups, fp32 masters and bf16 compute; PatchDiscriminator
+                   64ch x3; fake-3D VGG16 perceptual loss at ratio 0.2; batch 2
+                   of the rotation-enlarged (128, 165, 165) patch): 2 warm-up and 10
+                   timed steps without, then with the adversarial loss (ms a
+                   step, peak memory, launches held to the prediction, every
+                   GroupNorm shape held by phases 2-3, a profile with device
+                   busy, idle share and each kernel's device ms beside its
+                   summed bound), then the parts alone (VAE forward+backward,
+                   perceptual, the discriminator's passes, both optimizers).
+9. ae_cli       -- in a temporary directory under build/ with a synthetic
+                   preprocessed dataset (8 patients of (1, 144, 160, 160) with
+                   a foreground sphere each, written with the port's
+                   VolStore): medimgen_torch_train_autoencoder for one epoch
+                   of 250 + 50 steps without the adversarial loss (last and
+                   best written), then -c to a second epoch with it (restored
+                   state bit for bit equal to the file, the train loader's
+                   draws too; the generator's Adam count 250 -> 500, the
+                   discriminator's 0 -> 250), launches held to the prediction.
+10. cli         -- the LDM training CLI end to end at the same flagship width, on
+                   the same dataset and on the best_model.pt phase ae_cli
+                   wrote: the loader alone for one train epoch (batches/s,
+                   bytes decoded a second); medimgen_torch_train_ldm for one
+                   epoch of 100 train and 20 val steps with the interval
+                   sampling (2 volumes, 10 DDIM steps) and last/best written,
+                   its launch counts held to what the code predicts; a resume
+                   with -c to a second epoch (restored state bit for bit
+                   equal to the file, the train loader's draws too, AdamW's
+                   count 100 -> 200, loss_dict of 2 epochs); then
                    medimgen_torch_sample_ldm on best_model.pt (1 volume, 10
                    DDIM steps). It prints the codec, loader batches/s, CLI ms a
                    step beside phase 6's, the loader wait and copy ms a step,
@@ -61,12 +82,14 @@ Phases (any failure raises and exits non-zero):
                    seconds, each with the card's name and power limit.
 
 The last two lines of standard output are the kernels' JSON record (launches
-counted on the train path) and the device record; the card's name and power
-limit are printed before them.
+counted on the LDM train path, ``ae_launches`` on the ten timed AE steps with
+the adversarial loss) and the device record; the card's name and power limit
+are printed before them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -117,7 +140,12 @@ LR = 2e-5  # the flagship config's ddpm_learning_rate
 GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship paths, batch 2
     (32768, 256, 32), (32768, 768, 32), (4096, 512, 32), (4096, 1280, 32),
     (512, 768, 32), (512, 1536, 32), (32768, 128, 16), (262144, 64, 16),
-    (2097152, 32, 16)]
+    (2097152, 32, 16),
+    # the KL-VAE's other widths, forward and backward (stage-1 training): the
+    # first ResBlock of a level normalises the previous level's channels
+    (262144, 32, 16), (32768, 64, 16), (262144, 128, 16), (2097152, 64, 16),
+    # the discriminator's instance norms: one channel a group, 32^3 and 31^3 rows
+    (32768, 128, 128), (29791, 256, 256)]
 FLASH_SHAPES = [(2, 4096, 1, 512), (2, 512, 1, 768), (2, 1000, 3, 96)]  # (B, S, H, D)
 FLAGSHIP_FLASH = FLASH_SHAPES[:2]  # the U-Net's two attention sites
 FLASH_TILE = 32  # keys a tile of the forward kernel, queries a tile of the dK/dV kernel
@@ -504,7 +532,7 @@ def phase_kernels_bwd():
                 p_rel = max(_err(t_, r_) / r_.abs().max().item()
                             for t_, r_ in ((coef, r_coef), (ds, r_ds), (db, r_db)))
                 ok = x_ok and p_rel <= GN_PARAM_GRAD_TOL and vec_path and same_bits
-                line = (f"[kernels_bwd] gn_bwd {str(dt)[6:]} silu={silu} B={B} M={M} C={C}: "
+                line = (f"[kernels_bwd] gn_bwd {str(dt)[6:]} silu={silu} B={B} M={M} C={C} G={G}: "
                         f"max|dx-plain|={x_err:.3e} (max|dx|={r_dx.float().abs().max().item():.3e},"
                         f" tol {GN_BWD_TOL[dt][1]:g}*max + {GN_BWD_TOL[dt][0]:g}*|dx|; largest "
                         f"error / allowed {x_use:.3f}) "
@@ -1066,7 +1094,367 @@ def profile_breakdown(label, fn):
                              "not one of each a GroupNorm forward")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {us / 1e3:8.3f} ms  x{n:<4d} {name[:110]}")
+    profile_breakdown.last = {"busy_ms": busy, "span_ms": span, "idle_share": 1 - busy / span,
+                              "host_ms": host_ms}
     return busy, shares
+
+def gn_bounds_ms(shape, isz, grad):
+    """{kernel: least ms} of one GroupNorm call on an N C *spatial input of
+    ``shape`` and item size ``isz`` (forward; backward too when ``grad``)."""
+    B, C, M = shape[0], shape[1], math.prod(shape[2:])
+    out = {"gn_stats_fold": stats_fold_bytes(B, M, C, isz) / PEAK_BYTES * 1e3,
+           "gn_affine_act": (B * M * C * 2 * isz + 2 * B * C * 4) / PEAK_BYTES * 1e3}
+    if grad:
+        out["gn_bwd_stats"] = (2 * B * M * C * isz + 9 * B * C * 4) / PEAK_BYTES * 1e3
+        out["gn_bwd_apply"] = (3 * B * M * C * isz + 4 * B * C * 4) / PEAK_BYTES * 1e3
+    return out
+
+
+def ae_per_step(trainer, adv_on):
+    """Launches of each port kernel the code predicts for one AE train step:
+    every GroupNorm of the encoder and the decoder once forward and once
+    backward, and with the adversarial loss the discriminator's three times
+    (on the reconstruction for the generator, then on the detached
+    reconstruction and the batch for its own update), each differentiated.
+    No attention: the planner's VAE has none."""
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+
+    def n(mod):
+        return sum(isinstance(m, GroupNorm) for m in mod.modules())
+
+    gn = n(trainer.model.encoder) + n(trainer.model.decoder)
+    gn += 3 * n(trainer.discriminator) if adv_on else 0
+    return {k: (gn if k.startswith("gn_") else 0) for k in _counters()}
+
+
+def _capture_grads(opt, store, key):
+    """Wrap opt.step to keep a copy of the gradients it is given (it clips
+    them in place)."""
+    orig = opt.step
+
+    def step(grads):
+        store[key] = [g.detach().clone() for g in grads]
+        return orig(grads)
+
+    opt.step = step
+
+
+def phase_ae_parity():
+    """One AE train_step with the adversarial loss of the tiny config on the
+    CPU (plain versions) and on the GPU (kernels), from the same weights and
+    the same draws: the five losses, the gradients of the generator and of
+    the discriminator, and the GPU's launches against the prediction."""
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.training.train_autoencoder import (
+        METRICS,
+        AutoEncoderTrainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_config(tiny=True)
+    cpu = AutoEncoderTrainer.from_config(cfg, "vae", device="cpu", dtype=torch.float32, seed=21)
+    randomize_(cpu.model, 22)
+    randomize_(cpu.discriminator, 23)
+    gpu = AutoEncoderTrainer(cfg, copy.deepcopy(cpu.model).cuda(),
+                             copy.deepcopy(cpu.discriminator).cuda(),
+                             copy.deepcopy(cpu.perceptual).cuda(), "vae", device="cuda")
+    initial = compute_initial_patch_size(cfg["ae_transformations"])
+    x = torch.rand((2, *initial, 1), generator=torch.Generator().manual_seed(24))
+    draws = cpu.make_draws(x, generator=torch.Generator().manual_seed(25),
+                           host_generator=torch.Generator().manual_seed(26))
+    grads = {}
+    for name, tr in (("cpu", cpu), ("gpu", gpu)):
+        _capture_grads(tr.g_opt, grads, name + "_g")
+        _capture_grads(tr.d_opt, grads, name + "_d")
+    m_c = cpu.train_step(x, True, draws=draws)
+    _reset_counts()
+    m_g = gpu.train_step(x.cuda(), True, draws=draws)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    expect = ae_per_step(gpu, True)
+    l_err = max(abs(m_g[k].item() - m_c[k].item()) / abs(m_c[k].item()) for k in METRICS)
+    g_err = {net: max(_err(g.cpu(), c) / max(c.abs().max().item(), 1e-30)
+                      for c, g in zip(grads["cpu_" + net], grads["gpu_" + net]))
+             for net in ("g", "d")}
+    log(f"[ae_parity] tiny 3D AE step fp32 with the adversarial loss, CPU plain vs GPU "
+        f"kernels: losses {({k: round(m_c[k].item(), 6) for k in METRICS})} max rel_err="
+        f"{l_err:.3e} (tol {PARITY_LOSS_TOL:g}); max gradient err / max|grad| generator "
+        f"{g_err['g']:.3e} over {len(grads['cpu_g'])} params, discriminator {g_err['d']:.3e} "
+        f"over {len(grads['cpu_d'])} params (tol {PARITY_GRAD_TOL:g}); GPU launches {counts}, "
+        f"predicted {expect}")
+    if not (l_err <= PARITY_LOSS_TOL and max(g_err.values()) <= PARITY_GRAD_TOL):
+        raise AssertionError("tiny-config AE train-step CPU/GPU parity failed")
+    if counts != expect:
+        raise AssertionError(f"AE step launches {counts} != predicted {expect}")
+
+
+def ae_step_bounds(trainer, batch, adv_on):
+    """({kernel: least ms of the kernel's launches in one AE train step},
+    the set of (M, C, groups) the step's GroupNorms saw)."""
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+
+    seen = []
+
+    def hook(mod, args):
+        seen.append((tuple(args[0].shape), args[0].element_size(), mod.num_groups))
+
+    handles = [m.register_forward_pre_hook(hook)
+               for net in (trainer.model, trainer.discriminator) for m in net.modules()
+               if isinstance(m, GroupNorm)]
+    try:
+        trainer.train_step(batch, adv_on)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    ms = {k: 0.0 for k in _counters()}
+    for shape, isz, _ in seen:
+        for k, v in gn_bounds_ms(shape, isz, True).items():
+            ms[k] += v
+    return ms, {(math.prod(sh[2:]), sh[1], g) for sh, _, g in seen}
+
+
+def phase_ae_train(warmup=2, steps=10):
+    """The flagship stage-1 step (see the module docstring); returns
+    ({kernel: launches of the timed adversarial steps}, {kernel: device ms
+    and bound a step}, the prediction per step with and without the
+    adversarial loss)."""
+    from medical_image_generation_tpu_torch.data.augment import augment_batch
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.models.discriminator import least_squares_gan_loss
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+    from medical_image_generation_tpu_torch.training import common
+    from medical_image_generation_tpu_torch.training.train_autoencoder import (
+        METRICS,
+        AutoEncoderTrainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = True
+    dev = torch.device("cuda")
+    gpu = card()
+    cfg = _train_config(tiny=False)
+    tr = AutoEncoderTrainer.from_config(cfg, "vae", device=dev, dtype=torch.bfloat16, seed=0)
+    randomize_(tr.model, 5321)
+    randomize_(tr.discriminator, 5322)
+    n_g, n_d = sum(p.numel() for p in tr.g_params), sum(p.numel() for p in tr.d_params)
+    initial = tuple(compute_initial_patch_size(cfg["ae_transformations"]))
+    B = int(cfg["ae_batch_size"])
+    gen = torch.Generator(device=dev).manual_seed(9)
+    batch = torch.rand((B, *initial, 1), generator=gen, device=dev)
+    pp = cfg["perceptual_params"]
+    log(f"[ae_train] {gpu}: flagship KL-VAE {cfg['vae_params']['num_channels']} latent "
+        f"{cfg['vae_params']['latent_channels']} groups {cfg['vae_params']['norm_num_groups']} "
+        f"params={n_g:,} (fp32 masters, bf16 compute); PatchDiscriminator "
+        f"{cfg['discriminator_params']['num_channels']}ch x{cfg['discriminator_params']['num_layers_d']}"
+        f" params={n_d:,}; perceptual VGG16 plan {tr.perceptual.plan} fake-3D ratio "
+        f"{pp['fake_3d_ratio']}; batch {tuple(batch.shape)} -> crop {tr.aug_cfg.crop_to}; "
+        f"weights perc {tr.perc_weight} kl {tr.kl_weight} adv {tr.adv_weight}; lr "
+        f"{cfg['ae_learning_rate']} / {cfg['d_learning_rate']}, clip {tr.clip}, adam mu "
+        f"{tr.g_opt.mu[0].dtype}")
+    if (initial != (128, 165, 165) or B != 2 or n_g != 5_281_985 or n_d != 2_642_753
+            or tr.perc_weight != 0.125 or tr.kl_weight != 1e-7 or tr.adv_weight != 0.01):
+        raise AssertionError(f"not the flagship stage-1 config: patch {initial}, batch {B}, "
+                             f"params {n_g} / {n_d}")
+    per_step, out = {}, {}
+    for adv_on in (False, True):
+        per_step[adv_on] = ae_per_step(tr, adv_on)
+        for _ in range(warmup):
+            tr.train_step(batch, adv_on)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        gn.gn_bwd_apply.grad_copies = 0
+        t0 = time.perf_counter()
+        ms = [tr.train_step(batch, adv_on) for _ in range(steps)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts, scalar, scalar_bwd = _read_counts(), _scalar_stats(), _scalar_bwd()
+        copies = gn.gn_bwd_apply.grad_copies
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        losses = {k: [float(m[k]) for m in ms] for k in METRICS}
+        expect = {k: v * steps for k, v in per_step[adv_on].items()}
+        ms_step = secs * 1e3 / steps
+        log(f"[ae_train] {gpu}: adv_on={adv_on} losses (first, last) "
+            f"{({k: (round(v[0], 5), round(v[-1], 5)) for k, v in losses.items()})}")
+        log(f"[ae_train] {gpu}: adv_on={adv_on} launches per step predicted "
+            f"{per_step[adv_on]}; {steps} steps counted {counts}, expected {expect}; stats+fold "
+            f"launches without 16-byte loads {scalar}, GroupNorm backward without {scalar_bwd}; "
+            f"GroupNorm gradients copied to channels-last {copies / steps:g} a step")
+        log(f"[ae_train] {gpu}: adv_on={adv_on} {steps} steps in {secs * 1e3:.1f} ms: "
+            f"{ms_step:.3f} ms per step = {1e3 / ms_step:.3f} steps/s; peak memory "
+            f"{peak_gb:.2f} GiB")
+        if not all(math.isfinite(v) for vs in losses.values() for v in vs):
+            raise AssertionError(f"non-finite AE loss: {losses}")
+        if counts != expect or scalar or any(scalar_bwd.values()):
+            raise AssertionError(f"AE launches {counts} != expected {expect}, or scalar "
+                                 f"GroupNorm launches {scalar} / {scalar_bwd}")
+        bounds, shapes = ae_step_bounds(tr, batch, adv_on)
+        missing = shapes - set(GN_SHAPES)
+        if missing:
+            raise AssertionError(f"GroupNorm shapes of the AE step not held by the kernel "
+                                 f"phases (add them to GN_SHAPES): {sorted(missing)}")
+        busy, shares = profile_breakdown(f"AE train step adv_on={adv_on}",
+                                         lambda: tr.train_step(batch, adv_on))
+        prof = profile_breakdown.last
+        log(f"[ae_train] {gpu}: adv_on={adv_on} device busy per step={busy:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f} of a {prof['span_ms']:.3f} ms span (profiler); "
+            f"GroupNorm shapes (M, C, groups) {sorted(shapes)}")
+        for name, b_ms in bounds.items():
+            if per_step[adv_on][name]:
+                log(f"[ae_train] {gpu}: adv_on={adv_on} per step: {name} device ms="
+                    f"{shares[name]:.4f} bound ms (summed over the step's "
+                    f"{per_step[adv_on][name]} launches)={b_ms:.4f} ratio="
+                    f"{shares[name] / b_ms:.2f}")
+        out[adv_on] = dict(ms_step=ms_step, busy_ms=busy, peak_gb=peak_gb, counts=counts,
+                           **{f"{k}_step": (shares[k], bounds[k]) for k in bounds})
+
+    # the parts alone, on fixed inputs, with the adversarial loss
+    draws = tr.make_draws(batch)
+    imgs = augment_batch(batch, draws.augment, tr.aug_cfg)
+    D = tr.discriminator
+
+    def vae_fwd_bwd():
+        recon, mu, sigma = tr.model(imgs, draws.eps)
+        loss = common.l1_loss(recon, imgs) + common.kl_loss(mu, sigma) * tr.kl_weight
+        return torch.autograd.grad(loss, tr.g_params)
+
+    with torch.no_grad():
+        recon = tr.model(imgs, draws.eps)[0]
+    r = recon.detach().requires_grad_()
+    parts = {
+        "VAE forward+backward (L1 + KL)": vae_fwd_bwd,
+        "perceptual forward+backward": lambda: torch.autograd.grad(
+            tr.perceptual(r, imgs) * tr.perc_weight, r),
+        "discriminator on the reconstruction, forward+backward to it": lambda: torch.autograd.grad(
+            least_squares_gan_loss(logits_fake=D(r)) * tr.adv_weight, r),
+        "discriminator update's forward+backward (fake, real)": lambda: torch.autograd.grad(
+            least_squares_gan_loss(logits_real=D(imgs), logits_fake=D(recon)) * tr.adv_weight,
+            tr.d_params),
+    }
+    times = {k: time_ms(fn, 1, 5) for k, fn in parts.items()}
+    g_grads = list(vae_fwd_bwd())
+    d_grads = list(parts["discriminator update's forward+backward (fake, real)"]())
+    times["generator clip+Adam"] = time_ms(lambda: tr.g_opt.step(g_grads), 1, 5)
+    times["discriminator clip+Adam"] = time_ms(lambda: tr.d_opt.step(d_grads), 1, 5)
+    times["augment"] = time_ms(lambda: augment_batch(batch, draws.augment, tr.aug_cfg), 1, 5)
+    log(f"[ae_train] {gpu}: ms of the parts alone (CUDA events, median of 5): "
+        + "; ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    out["parts_ms"] = times
+    del tr, imgs, recon, r, g_grads, d_grads
+    torch.cuda.empty_cache()
+    return out, per_step
+
+
+def _ae_state_diff(trainer, payload):
+    """Names of the AE trainer states that differ, bit for bit, from a
+    last/best payload."""
+    bad = [k for k, v in trainer.model.state_dict().items()
+           if not torch.equal(v.detach().cpu(), payload["vae"][k])]
+    bad += [f"discriminator.{k}" for k, v in trainer.discriminator.state_dict().items()
+            if not torch.equal(v.detach().cpu(), payload["discriminator"][k])]
+    for key, opt, names in (("g_opt_state", trainer.g_opt, trainer.g_names),
+                            ("d_opt_state", trainer.d_opt, trainer.d_names)):
+        for part in ("mu", "nu"):
+            bad += [f"{key}.{part}.{n}" for n, t in zip(names, getattr(opt, part))
+                    if not torch.equal(t.cpu(), payload[key][part][n])]
+        if opt.count != payload[key]["count"]:
+            bad.append(f"{key}.count {opt.count} / {payload[key]['count']}")
+    if trainer.step != payload["step"] or trainer.kl_weight != payload["kl_weight"]:
+        bad.append("step / kl_weight")
+    if not torch.equal(trainer.host_generator.get_state(), payload["generators"]["host"]):
+        bad.append("host generator")
+    if not torch.equal(trainer.generator.get_state(), payload["generators"]["device"]):
+        bad.append("device generator")
+    return bad
+
+
+def phase_ae_cli(ws, per_step):
+    """medimgen_torch_train_autoencoder end to end on the CLI workspace's
+    dataset: epoch 1 without the adversarial loss, then -c to epoch 2 with
+    it; returns the launch counts of both runs."""
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+    from medical_image_generation_tpu_torch.training import checkpoints, train_autoencoder
+
+    t_phase = time.perf_counter()
+    gpu = ws["gpu"]
+    argv = ["099", "train-val-test", "3d", "--set", "autoencoder_warm_up_epochs=1",
+            "--set", "val_plot_interval=1"]
+    runs = {}
+
+    def fwd(tr):  # a reconstruct: the encoder's and the decoder's GroupNorms, forward only
+        n = sum(isinstance(m, GroupNorm) for m in tr.model.modules())
+        return {k: (n if k in ("gn_stats_fold", "gn_affine_act") else 0) for k in _counters()}
+
+    restored = {}
+    orig_restore = train_autoencoder.AutoEncoderTrainer._restore
+
+    def checked_restore(self):
+        orig_restore(self)
+        restored["diff"] = _ae_state_diff(self, restored["payload"])
+        restored["start"] = self.start_epoch
+        restored["loader"] = self.train_loader.state() == restored["payload"]["train_loader"]
+
+    for run, extra in (("epoch 1", ["--set", "n_epochs=1"]),
+                       ("-c to epoch 2", ["-c", "--set", "n_epochs=2"])):
+        adv_on = run != "epoch 1"
+        _reset_counts()
+        train_autoencoder.AutoEncoderTrainer._restore = checked_restore
+        try:
+            t0 = time.perf_counter()
+            tr = _run_main(train_autoencoder.run_cli, argv + extra)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            train_autoencoder.AutoEncoderTrainer._restore = orig_restore
+        counts = _read_counts()
+        st = tr.epoch_stats[0]
+        steps, val_steps = st["steps"], st["val_steps"]
+        f = fwd(tr)
+        expect = {k: steps * per_step[adv_on][k] + val_steps * f[k] for k in counts}
+        ld = tr.loss_dict
+        summ = tr.timer.summary()
+        log(f"[ae_cli] {gpu}: {run}: adv_on={st['adv_on']}, {steps} train + {val_steps} val "
+            f"steps, launches {counts}, predicted {expect}; CLI ms a train step "
+            f"{st['train_s'] * 1e3 / steps:.3f} (StepTimer p50 {summ['p50_s'] * 1e3:.3f} p95 "
+            f"{summ['p95_s'] * 1e3:.3f}); loader wait {st['wait_s'] * 1e3 / steps:.3f} ms and "
+            f"host-to-device copy {st['copy_s'] * 1e3 / steps:.3f} ms a step; val "
+            f"{st['val_s'] * 1e3 / val_steps:.3f} ms a step; saved {st['saved']} (payload "
+            f"{st['payload_s']:.3f} s), reconstruction {os.path.basename(st.get('recon', ''))}; "
+            f"optimizer counts {tr.g_opt.count} / {tr.d_opt.count}; loss_dict {ld}; run "
+            f"{run_s:.1f} s")
+        finite = all(math.isfinite(v) for k in ld for v in ld[k])
+        if (steps, val_steps) != (250, 50) or counts != expect or not finite \
+                or st["adv_on"] != adv_on:
+            raise AssertionError(f"AE CLI {run}: {steps} / {val_steps} steps, launches {counts} "
+                                 f"!= predicted {expect}, or losses {ld}")
+        if not adv_on:
+            if sorted(st["saved"]) != ["best_model", "last_model"] or (
+                    tr.g_opt.count, tr.d_opt.count) != (250, 0):
+                raise AssertionError(f"AE epoch 1 wrote {st['saved']}, counts "
+                                     f"{tr.g_opt.count} / {tr.d_opt.count}")
+            last = checkpoints.checkpoint_path(tr.save_dict["checkpoints"], "last_model")
+            restored["payload"] = checkpoints.load_checkpoint(last)
+            diff = _ae_state_diff(tr, restored["payload"])
+            log(f"[ae_cli] {gpu}: last_model.pt {os.path.getsize(last):,} bytes, equal to the "
+                f"trainer: {not diff}")
+            if diff:
+                raise AssertionError(f"AE last_model.pt differs from the trainer: {diff[:5]}")
+        else:
+            log(f"[ae_cli] {gpu}: resume -c: start epoch {restored.get('start')} (0-based), "
+                f"restored state equal to last_model.pt: {restored.get('diff') == []}, train "
+                f"loader's draws restored: {restored.get('loader')}")
+            if (restored.get("start") != 1 or restored.get("diff") != []
+                    or not restored.get("loader") or (tr.g_opt.count, tr.d_opt.count) != (500, 250)
+                    or len(ld["train_rec"]) != 2 or not ld["disc"][1] > 0):
+                raise AssertionError(f"AE resume failed: {restored.get('diff')}, counts "
+                                     f"{tr.g_opt.count} / {tr.d_opt.count}, loss_dict {ld}")
+        runs[run] = counts
+        del tr
+        torch.cuda.empty_cache()
+    log(f"[ae_cli] {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
 
 def card():
     """The card's name and power limit, as nvidia-smi gives them."""
@@ -1079,6 +1467,9 @@ def card():
 
 CLI_PATIENTS, CLI_VOLUME = 8, (1, 144, 160, 160)  # (C, Z, Y, X) float32 in [0, 1]
 CLI_FREE_BYTES = 16e9  # two ~4.4 GB checkpoints live at once, the dataset, the samples
+# phase cli's depth, cut from the CLI's own 250 / 50 steps and 50 DDIM steps
+# (phase ae_cli runs the loader's default epoch)
+CLI_TRAIN_STEPS, CLI_VAL_STEPS, CLI_DDIM_STEPS = 100, 20, 10
 
 
 def _write_cli_dataset(root, cfg, seed=2024):
@@ -1202,29 +1593,24 @@ def _copy_times(shape):
     return out
 
 
-def phase_cli(train_counts, train_ms):
-    """The training CLI end to end (see the module docstring); returns the
-    launch counts of its first epoch."""
+@contextlib.contextmanager
+def cli_workspace():
+    """A temporary directory under build/ with a synthetic preprocessed
+    dataset (``_write_cli_dataset``) and the flagship config, the
+    ``medimgen_*`` environment variables pointing into it; both CLI phases
+    run there, and it is deleted afterwards. Yields {root, cfg, gpu}."""
     import tempfile
 
-    import numpy as np
-
-    from medical_image_generation_tpu_torch.data import loader as loader_mod
-    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
     from medical_image_generation_tpu_torch.io import volstore
-    from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
-    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
     from medical_image_generation_tpu_torch.ops import _build
-    from medical_image_generation_tpu_torch.training import checkpoints, sample, train_ldm
 
-    t_phase = time.perf_counter()
     gpu = card()
     base = os.path.dirname(_build.BUILD_DIR)
     os.makedirs(base, exist_ok=True)
     free = shutil.disk_usage(base).free
     log(f"[cli] {gpu}: {free / 1e9:.1f} GB free under {base} (need {CLI_FREE_BYTES / 1e9:.0f})")
     if free < CLI_FREE_BYTES:
-        raise AssertionError(f"not enough disk for the CLI phase: {free / 1e9:.1f} GB free")
+        raise AssertionError(f"not enough disk for the CLI phases: {free / 1e9:.1f} GB free")
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=base)
     env = {k: os.environ.get(k) for k in ("medimgen_preprocessed", "medimgen_results")}
     try:
@@ -1238,148 +1624,7 @@ def phase_cli(train_counts, train_ms):
         log(f"[cli] {gpu}: codec {codec}; build error: {volstore.build_error}; dataset "
             f"{CLI_PATIENTS} x {CLI_VOLUME} float32 written in {time.perf_counter() - t0:.2f} s, "
             f"{ds_bytes / 1e6:.1f} MB on disk")
-        ae_dir = os.path.join(res, "Task099_Synth", "3d", "autoencoder", "checkpoints")
-        os.makedirs(ae_dir)
-        vae = AutoencoderKL.from_config(cfg["vae_params"], dtype=torch.float32, device="cpu")
-        randomize_(vae, 4321)
-        torch.save({"epoch": 0, "vae": vae.state_dict()}, os.path.join(ae_dir, "best_model.pt"))
-        gn_e = sum(isinstance(m, GroupNorm) for m in vae.encoder.modules())
-        attn_e = sum(isinstance(m, AttentionBlock) for m in vae.encoder.modules())
-        gn_d = sum(isinstance(m, GroupNorm) for m in vae.decoder.modules())
-        attn_d = sum(isinstance(m, AttentionBlock) for m in vae.decoder.modules())
-        del vae
-
-        # ---- the loader alone: one train epoch of a fresh loader
-        seen, unpatch = _counting_reads()
-        try:
-            tl, _ = loader_mod.get_data_loaders(cfg, "099", "train-val-test",
-                                                cfg["ddpm_batch_size"], "3d",
-                                                cfg["ddpm_transformations"])
-            t0 = time.perf_counter()
-            n_b = sum(1 for _ in tl)
-            load_s = time.perf_counter() - t0
-        finally:
-            unpatch()
-        initial = tuple(compute_initial_patch_size(cfg["ddpm_transformations"]))
-        log(f"[cli] {gpu}: loader alone, {n_b} train batches of (2, *{initial}, 1) with "
-            f"{tl.num_threads} threads: {n_b / load_s:.2f} batches/s, "
-            f"{seen['bytes'] / load_s / 1e9:.3f} GB/s decoded ({seen['reads']} bbox reads, "
-            f"{seen['bytes'] / n_b / 1e6:.1f} MB decoded a batch)")
-        copies = _copy_times((2, *initial, 1))
-        log(f"[cli] {gpu}: one batch to the card, host ms / device ms: pageable "
-            f"{copies['pageable'][0]:.3f} / {copies['pageable'][1]:.3f}, pinned + non_blocking "
-            f"{copies['pinned'][0]:.3f} / {copies['pinned'][1]:.3f}")
-
-        # ---- medimgen_torch_train_ldm: one epoch, interval sampling, last + best
-        argv = ["099", "train-val-test", "3d", "--set", "val_plot_interval=1"]
-        _reset_counts()
-        t0 = time.perf_counter()
-        tr = _run_main(train_ldm.run_cli, argv + ["--set", "n_epochs=1"])
-        torch.cuda.synchronize()
-        run1_s = time.perf_counter() - t0
-        counts = _read_counts()
-        st = tr.epoch_stats[0]
-        steps, val_steps = st["steps"], st["val_steps"]
-        attn_u = sum(isinstance(m, AttentionBlock) for m in tr.unet.modules())
-        gn_u = sum(isinstance(m, GroupNorm) for m in tr.unet.modules())
-        ddim = 50
-        per_step = {k: v // 10 for k, v in train_counts.items()}
-        fwd_u = {"flash_attn_fwd": attn_u, "gn_stats_fold": gn_u, "gn_affine_act": gn_u}
-        fwd_e = {"flash_attn_fwd": attn_e, "gn_stats_fold": gn_e, "gn_affine_act": gn_e}
-        fwd_d = {"flash_attn_fwd": attn_d, "gn_stats_fold": gn_d, "gn_affine_act": gn_d}
-        expect = {k: (steps * per_step[k] + fwd_e.get(k, 0)                    # probe
-                      + val_steps * (fwd_e.get(k, 0) + fwd_u.get(k, 0))      # val
-                      + ddim * fwd_u.get(k, 0) + fwd_d.get(k, 0))            # samples
-                  for k in counts}
-        log(f"[cli] {gpu}: epoch of {steps} train + {val_steps} val steps, probe, {ddim}-step "
-            f"DDIM of 2 volumes: launches {counts}, predicted {expect} (per train step "
-            f"{per_step}; a forward: U-Net {attn_u} attention / {gn_u} GroupNorm, encoder "
-            f"{attn_e} / {gn_e}, decoder {attn_d} / {gn_d})")
-        if (steps, val_steps) != (250, 50) or counts != expect:
-            raise AssertionError(f"CLI epoch: {steps} / {val_steps} steps, launches {counts} "
-                                 f"!= predicted {expect}")
-        summ = tr.timer.summary()
-        cli_ms = st["train_s"] * 1e3 / steps
-        log(f"[cli] {gpu}: CLI ms a train step {cli_ms:.3f} (epoch wall {st['train_s']:.3f} s "
-            f"/ {steps}), StepTimer p50 {summ['p50_s'] * 1e3:.3f} p95 {summ['p95_s'] * 1e3:.3f} "
-            f"mean {summ['mean_s'] * 1e3:.3f}; phase train ms a step {train_ms:.3f}; loader "
-            f"queue wait {st['wait_s'] * 1e3 / steps:.3f} ms a step; host-to-device copy "
-            f"{st['copy_s'] * 1e3 / steps:.3f} ms a step (host time, pinned + non_blocking); "
-            f"val {st['val_s'] * 1e3 / val_steps:.3f} ms a step; interval samples "
-            f"{st['sample_s']:.3f} s -> {os.path.basename(st['samples'])}; run {run1_s:.1f} s")
-        losses = tr.loss_dict
-        if not (all(math.isfinite(v) for v in losses["rec_loss"] + losses["val_rec_loss"])
-                and len(losses["rec_loss"]) == 1 and tr.opt.count == 250):
-            raise AssertionError(f"CLI epoch: losses {losses}, AdamW count {tr.opt.count}")
-        ckdir = tr.save_dict["checkpoints"]
-        last = checkpoints.checkpoint_path(ckdir, "last_model")
-        best = checkpoints.checkpoint_path(ckdir, "best_model")
-        saved = st["saved"]
-        if sorted(saved["names"]) != ["best_model", "last_model"] or not (
-                os.path.exists(last) and os.path.exists(best)):
-            raise AssertionError(f"epoch 1 wrote {saved['names']}, not last and best")
-        nbytes = os.path.getsize(last)
-        write_s = saved["write_s"] / len(saved["names"])
-        t0 = time.perf_counter()
-        payload = checkpoints.load_checkpoint(last)
-        read_s = time.perf_counter() - t0
-        diff = _state_equal(tr, payload)
-        log(f"[cli] {gpu}: checkpoint {nbytes:,} bytes; device-to-host copy "
-            f"{saved['payload_s']:.3f} s; write {write_s:.3f} s a file ({nbytes / write_s / 1e9:.3f}"
-            f" GB/s); read {read_s:.3f} s ({nbytes / read_s / 1e9:.3f} GB/s); saved state equal "
-            f"to the trainer's: {not diff}")
-        if diff:
-            raise AssertionError(f"last_model.pt differs from the trainer: {diff[:5]}")
-        del tr
-        torch.cuda.empty_cache()
-
-        # ---- resume with -c to a second epoch
-        restored = {}
-        orig_restore = train_ldm.LDMTrainer._restore
-
-        def checked_restore(self):
-            orig_restore(self)
-            restored["diff"] = _state_equal(self, payload)
-            restored["start"] = self.start_epoch
-            restored["loader"] = self.train_loader.state() == payload["train_loader"]
-
-        train_ldm.LDMTrainer._restore = checked_restore
-        try:
-            t0 = time.perf_counter()
-            tr = _run_main(train_ldm.run_cli, argv + ["-c", "--set", "n_epochs=2"])
-            torch.cuda.synchronize()
-            run2_s = time.perf_counter() - t0
-        finally:
-            train_ldm.LDMTrainer._restore = orig_restore
-        del payload
-        st2 = tr.epoch_stats[0]
-        log(f"[cli] {gpu}: resume -c: start epoch {restored.get('start')} (0-based), restored "
-            f"state equal to last_model.pt: {restored.get('diff') == []}, train loader's draws "
-            f"restored: {restored.get('loader')}; AdamW count "
-            f"{tr.opt.count}; loss_dict {tr.loss_dict}; epochs run {len(tr.epoch_stats)}; CLI ms "
-            f"a train step {st2['train_s'] * 1e3 / st2['steps']:.3f}; run {run2_s:.1f} s")
-        if (restored.get("start") != 1 or restored.get("diff") != [] or not restored.get("loader")
-                or tr.opt.count != 500
-                or len(tr.loss_dict["rec_loss"]) != 2 or len(tr.epoch_stats) != 1):
-            raise AssertionError(f"resume failed: {restored}, count {tr.opt.count}, "
-                                 f"loss_dict {tr.loss_dict}")
-        run_cfg = os.path.join(tr.save_path, "config.yaml")
-        del tr
-        torch.cuda.empty_cache()
-
-        # ---- medimgen_torch_sample_ldm on best_model.pt
-        out = os.path.join(root, "samples")
-        t0 = time.perf_counter()
-        _run_main(sample.main_ldm, [run_cfg, best, "-n", "1", "--num_inference_steps", "10",
-                                    "-o", out])
-        vol = np.load(os.path.join(out, "ldm_sample_000.npy"))
-        ok = (vol.shape == (128, 128, 128, 1) and bool(np.isfinite(vol).all())
-              and float(vol.min()) >= 0.0 and float(vol.max()) <= 1.0)
-        log(f"[cli] {gpu}: medimgen_torch_sample_ldm best_model.pt, 10 DDIM steps: {vol.shape} "
-            f"min {vol.min():.4f} max {vol.max():.4f} std {vol.std():.4f} ok={ok} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        if not ok:
-            raise AssertionError("sampling from best_model.pt failed")
+        yield {"root": root, "cfg": cfg, "gpu": gpu}
     finally:
         shutil.rmtree(root, ignore_errors=True)
         for k, v in env.items():
@@ -1387,6 +1632,186 @@ def phase_cli(train_counts, train_ms):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def phase_cli(ws, train_counts, train_ms):
+    """The LDM training CLI end to end (see the module docstring) on the
+    autoencoder phase ae_cli trained, its epochs and interval sampling cut
+    to CLI_TRAIN_STEPS / CLI_VAL_STEPS / CLI_DDIM_STEPS; returns the launch
+    counts of its first epoch."""
+    import functools
+    from unittest import mock
+
+    from medical_image_generation_tpu_torch.training import train_ldm
+
+    loaders = functools.partial(train_ldm.get_data_loaders, train_steps=CLI_TRAIN_STEPS,
+                                val_steps=CLI_VAL_STEPS)
+    samples = functools.partialmethod(train_ldm.LDMTrainer.sample_images,
+                                      num_inference_steps=CLI_DDIM_STEPS)
+    with mock.patch.object(train_ldm, "get_data_loaders", loaders), \
+            mock.patch.object(train_ldm.LDMTrainer, "sample_images", samples):
+        return _cli_runs(ws, train_counts, train_ms)
+
+
+def _cli_runs(ws, train_counts, train_ms):
+    import numpy as np
+
+    from medical_image_generation_tpu_torch.data import loader as loader_mod
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.training import checkpoints, sample, train_ldm
+
+    t_phase = time.perf_counter()
+    root, cfg, gpu = ws["root"], ws["cfg"], ws["gpu"]
+    ae_best = os.path.join(os.environ["medimgen_results"], "Task099_Synth", "3d",
+                           "autoencoder", "checkpoints", "best_model.pt")
+    ae_vae = checkpoints.load_checkpoint(ae_best)["vae"]
+    vae = AutoencoderKL.from_config(cfg["vae_params"], dtype=torch.float32, device="cpu")
+    gn_e = sum(isinstance(m, GroupNorm) for m in vae.encoder.modules())
+    attn_e = sum(isinstance(m, AttentionBlock) for m in vae.encoder.modules())
+    gn_d = sum(isinstance(m, GroupNorm) for m in vae.decoder.modules())
+    attn_d = sum(isinstance(m, AttentionBlock) for m in vae.decoder.modules())
+    del vae
+
+    # ---- the loader alone: one train epoch of a fresh loader
+    seen, unpatch = _counting_reads()
+    try:
+        tl, _ = loader_mod.get_data_loaders(cfg, "099", "train-val-test",
+                                            cfg["ddpm_batch_size"], "3d",
+                                            cfg["ddpm_transformations"],
+                                            train_steps=CLI_TRAIN_STEPS)
+        t0 = time.perf_counter()
+        n_b = sum(1 for _ in tl)
+        load_s = time.perf_counter() - t0
+    finally:
+        unpatch()
+    initial = tuple(compute_initial_patch_size(cfg["ddpm_transformations"]))
+    log(f"[cli] {gpu}: loader alone, {n_b} train batches of (2, *{initial}, 1) with "
+        f"{tl.num_threads} threads: {n_b / load_s:.2f} batches/s, "
+        f"{seen['bytes'] / load_s / 1e9:.3f} GB/s decoded ({seen['reads']} bbox reads, "
+        f"{seen['bytes'] / n_b / 1e6:.1f} MB decoded a batch)")
+    copies = _copy_times((2, *initial, 1))
+    log(f"[cli] {gpu}: one batch to the card, host ms / device ms: pageable "
+        f"{copies['pageable'][0]:.3f} / {copies['pageable'][1]:.3f}, pinned + non_blocking "
+        f"{copies['pinned'][0]:.3f} / {copies['pinned'][1]:.3f}")
+
+    # ---- medimgen_torch_train_ldm: one epoch, interval sampling, last + best
+    argv = ["099", "train-val-test", "3d", "--set", "val_plot_interval=1"]
+    _reset_counts()
+    t0 = time.perf_counter()
+    tr = _run_main(train_ldm.run_cli, argv + ["--set", "n_epochs=1"])
+    torch.cuda.synchronize()
+    run1_s = time.perf_counter() - t0
+    counts = _read_counts()
+    st = tr.epoch_stats[0]
+    steps, val_steps = st["steps"], st["val_steps"]
+    attn_u = sum(isinstance(m, AttentionBlock) for m in tr.unet.modules())
+    gn_u = sum(isinstance(m, GroupNorm) for m in tr.unet.modules())
+    ddim = CLI_DDIM_STEPS
+    per_step = {k: v // 10 for k, v in train_counts.items()}
+    fwd_u = {"flash_attn_fwd": attn_u, "gn_stats_fold": gn_u, "gn_affine_act": gn_u}
+    fwd_e = {"flash_attn_fwd": attn_e, "gn_stats_fold": gn_e, "gn_affine_act": gn_e}
+    fwd_d = {"flash_attn_fwd": attn_d, "gn_stats_fold": gn_d, "gn_affine_act": gn_d}
+    expect = {k: (steps * per_step[k] + fwd_e.get(k, 0)                    # probe
+                  + val_steps * (fwd_e.get(k, 0) + fwd_u.get(k, 0))      # val
+                  + ddim * fwd_u.get(k, 0) + fwd_d.get(k, 0))            # samples
+              for k in counts}
+    log(f"[cli] {gpu}: epoch of {steps} train + {val_steps} val steps, probe, {ddim}-step "
+        f"DDIM of 2 volumes: launches {counts}, predicted {expect} (per train step "
+        f"{per_step}; a forward: U-Net {attn_u} attention / {gn_u} GroupNorm, encoder "
+        f"{attn_e} / {gn_e}, decoder {attn_d} / {gn_d})")
+    if (steps, val_steps) != (CLI_TRAIN_STEPS, CLI_VAL_STEPS) or counts != expect:
+        raise AssertionError(f"CLI epoch: {steps} / {val_steps} steps, launches {counts} "
+                             f"!= predicted {expect}")
+    ae_same = all(torch.equal(v.cpu(), ae_vae[k].to(v.dtype))
+                  for k, v in tr.vae.state_dict().items())
+    log(f"[cli] {gpu}: the frozen VAE is phase ae_cli's best_model.pt (rounded to "
+        f"{tr.vae.post_quant_conv.Conv_0.weight.dtype}): {ae_same}")
+    if not ae_same:
+        raise AssertionError("the LDM did not train on the autoencoder phase ae_cli wrote")
+    summ = tr.timer.summary()
+    cli_ms = st["train_s"] * 1e3 / steps
+    log(f"[cli] {gpu}: CLI ms a train step {cli_ms:.3f} (epoch wall {st['train_s']:.3f} s "
+        f"/ {steps}), StepTimer p50 {summ['p50_s'] * 1e3:.3f} p95 {summ['p95_s'] * 1e3:.3f} "
+        f"mean {summ['mean_s'] * 1e3:.3f}; phase train ms a step {train_ms:.3f}; loader "
+        f"queue wait {st['wait_s'] * 1e3 / steps:.3f} ms a step; host-to-device copy "
+        f"{st['copy_s'] * 1e3 / steps:.3f} ms a step (host time, pinned + non_blocking); "
+        f"val {st['val_s'] * 1e3 / val_steps:.3f} ms a step; interval samples "
+        f"{st['sample_s']:.3f} s -> {os.path.basename(st['samples'])}; run {run1_s:.1f} s")
+    losses = tr.loss_dict
+    if not (all(math.isfinite(v) for v in losses["rec_loss"] + losses["val_rec_loss"])
+            and len(losses["rec_loss"]) == 1 and tr.opt.count == CLI_TRAIN_STEPS):
+        raise AssertionError(f"CLI epoch: losses {losses}, AdamW count {tr.opt.count}")
+    ckdir = tr.save_dict["checkpoints"]
+    last = checkpoints.checkpoint_path(ckdir, "last_model")
+    best = checkpoints.checkpoint_path(ckdir, "best_model")
+    saved = st["saved"]
+    if sorted(saved["names"]) != ["best_model", "last_model"] or not (
+            os.path.exists(last) and os.path.exists(best)):
+        raise AssertionError(f"epoch 1 wrote {saved['names']}, not last and best")
+    nbytes = os.path.getsize(last)
+    write_s = saved["write_s"] / len(saved["names"])
+    t0 = time.perf_counter()
+    payload = checkpoints.load_checkpoint(last)
+    read_s = time.perf_counter() - t0
+    diff = _state_equal(tr, payload)
+    log(f"[cli] {gpu}: checkpoint {nbytes:,} bytes; device-to-host copy "
+        f"{saved['payload_s']:.3f} s; write {write_s:.3f} s a file ({nbytes / write_s / 1e9:.3f}"
+        f" GB/s); read {read_s:.3f} s ({nbytes / read_s / 1e9:.3f} GB/s); saved state equal "
+        f"to the trainer's: {not diff}")
+    if diff:
+        raise AssertionError(f"last_model.pt differs from the trainer: {diff[:5]}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # ---- resume with -c to a second epoch
+    restored = {}
+    orig_restore = train_ldm.LDMTrainer._restore
+
+    def checked_restore(self):
+        orig_restore(self)
+        restored["diff"] = _state_equal(self, payload)
+        restored["start"] = self.start_epoch
+        restored["loader"] = self.train_loader.state() == payload["train_loader"]
+
+    train_ldm.LDMTrainer._restore = checked_restore
+    try:
+        t0 = time.perf_counter()
+        tr = _run_main(train_ldm.run_cli, argv + ["-c", "--set", "n_epochs=2"])
+        torch.cuda.synchronize()
+        run2_s = time.perf_counter() - t0
+    finally:
+        train_ldm.LDMTrainer._restore = orig_restore
+    del payload
+    st2 = tr.epoch_stats[0]
+    log(f"[cli] {gpu}: resume -c: start epoch {restored.get('start')} (0-based), restored "
+        f"state equal to last_model.pt: {restored.get('diff') == []}, train loader's draws "
+        f"restored: {restored.get('loader')}; AdamW count "
+        f"{tr.opt.count}; loss_dict {tr.loss_dict}; epochs run {len(tr.epoch_stats)}; CLI ms "
+        f"a train step {st2['train_s'] * 1e3 / st2['steps']:.3f}; run {run2_s:.1f} s")
+    if (restored.get("start") != 1 or restored.get("diff") != [] or not restored.get("loader")
+            or tr.opt.count != 2 * CLI_TRAIN_STEPS
+            or len(tr.loss_dict["rec_loss"]) != 2 or len(tr.epoch_stats) != 1):
+        raise AssertionError(f"resume failed: {restored}, count {tr.opt.count}, "
+                             f"loss_dict {tr.loss_dict}")
+    run_cfg = os.path.join(tr.save_path, "config.yaml")
+    del tr
+    torch.cuda.empty_cache()
+
+    # ---- medimgen_torch_sample_ldm on best_model.pt
+    out = os.path.join(root, "samples")
+    t0 = time.perf_counter()
+    _run_main(sample.main_ldm, [run_cfg, best, "-n", "1", "--num_inference_steps", "10",
+                                "-o", out])
+    vol = np.load(os.path.join(out, "ldm_sample_000.npy"))
+    ok = (vol.shape == (128, 128, 128, 1) and bool(np.isfinite(vol).all())
+          and float(vol.min()) >= 0.0 and float(vol.max()) <= 1.0)
+    log(f"[cli] {gpu}: medimgen_torch_sample_ldm best_model.pt, 10 DDIM steps: {vol.shape} "
+        f"min {vol.min():.4f} max {vol.max():.4f} std {vol.std():.4f} ok={ok} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError("sampling from best_model.pt failed")
     log(f"[cli] {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
     return counts
 
@@ -1405,7 +1830,11 @@ def main() -> int:
     phase_parity_train()
     phase_slice()
     counts, per_step, train_ms = phase_train()
-    cli_counts = phase_cli(counts, train_ms)
+    phase_ae_parity()
+    ae, ae_per = phase_ae_train()
+    with cli_workspace() as ws:
+        phase_ae_cli(ws, ae_per)
+        cli_counts = phase_cli(ws, counts, train_ms)
     log(f"[env] total {time.perf_counter() - t0:.1f} s")
     print(card())
     src = "medical_image_generation_tpu_torch/csrc/"
@@ -1422,9 +1851,11 @@ def main() -> int:
     }
     kernels = []
     for name, (source, replaces) in meta.items():
+        ae_ms, ae_bound = ae[True][f"{name}_step"]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name], **rec[name], **per_step[name],
-                        "cli_launches": cli_counts[name]})
+                        "cli_launches": cli_counts[name], "ae_launches": ae[True]["counts"][name],
+                        "ae_step_ms": ae_ms, "ae_step_bound_ms": ae_bound})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ re-laid-out for PyTorch:
 * GroupNorm ``scale``                   -> ``weight``
 * Embed ``embedding``                   -> ``weight``
 * ``bias``                              -> ``bias``
+* VQ ``codebook``                       -> ``codebook`` (unchanged)
 
 Input trees are nested dicts of numpy arrays (e.g. ``jax.device_get`` of the
 flax params, or a restored checkpoint payload); nothing here imports JAX.
@@ -52,8 +53,8 @@ def _leaf(name: str, value) -> tuple:
         return "weight", np.transpose(a, (a.ndim - 1, a.ndim - 2, *range(a.ndim - 2)))
     if name in ("scale", "embedding"):
         return "weight", a
-    if name == "bias":
-        return "bias", a
+    if name in ("bias", "codebook"):
+        return name, a
     raise KeyError(f"unknown flax leaf {name!r}")
 
 
@@ -77,9 +78,23 @@ def unet_from_flax(params) -> Dict[str, torch.Tensor]:
 
 
 def vae_from_flax(params) -> Dict[str, torch.Tensor]:
-    """State dict of the whole ``models.autoencoder_kl.AutoencoderKL``
-    (encoder, quant convs, decoder) from the flax ``AutoencoderKL`` params."""
+    """State dict of a stage-1 network from its flax params: the whole
+    ``models.autoencoder_kl.AutoencoderKL`` (encoder, quant convs,
+    decoder), ``models.vqvae.VQVAE`` (encoder, decoder,
+    ``quantizer.codebook``) or ``models.discriminator.PatchDiscriminator``,
+    which all carry the flax module names. The tensors are fp32:
+    ``load_state_dict`` keeps them so in a model built with
+    ``param_dtype=torch.float32`` (training) and rounds them into a bf16
+    one (sampling)."""
     return flax_to_state_dict(migrate_groupnorm_params(dict(params))[0])
+
+
+def perceptual_from_flax(params) -> Dict[str, torch.Tensor]:
+    """State dict of ``models.perceptual.VGGFeatures`` from the flax
+    ``VGGFeatures`` variables (``PerceptualLoss.params``, with or without
+    the outer ``params`` collection)."""
+    params = dict(params)
+    return flax_to_state_dict(params.get("params", params))
 
 
 def vae_decoder_from_flax(params) -> Dict[str, torch.Tensor]:

@@ -1,16 +1,22 @@
 """KL-VAE: ``Encoder`` + ``quant_conv_mu`` / ``quant_conv_log_sigma`` and
 ``encode`` / ``sampling`` / ``encode_stage_2_inputs``; ``post_quant_conv`` +
-``Decoder`` and ``decode``.
+``Decoder`` and ``decode``; ``forward`` (the training pass) and
+``reconstruct``.
 
 Port of ``medical_image_generation_tpu/models/autoencoder_kl.py`` (Encoder
 :36-81, Decoder :84-131, encode :248-254, sampling :256-258, decode :271-273,
-encode_stage_2_inputs :285-289). The encoder's and the decoder's final
-GroupNorms have no SiLU. The posterior noise ``eps`` is passed in.
+``__call__`` :275-279, reconstruct :281-283, encode_stage_2_inputs
+:285-289). The encoder's and the decoder's final GroupNorms have no SiLU.
+The posterior noise ``eps`` is passed in. ``param_dtype`` holds the conv
+weights (fp32 masters for training under bf16 compute, as the JAX AE keeps
+them); GroupNorm parameters are always fp32.
 
 The JAX ``encode`` / ``decode`` run the lane-packed encoder / decoder
 (``models/packed_encoder.py``), a TPU lane-packing strategy with the same
-math as the plain module path; the port runs the plain module path. The
-stage-1 training pieces (discriminator, perceptual loss) are not ported yet.
+math as the plain module path; the port runs the plain module path.
+``use_checkpointing`` (activation rematerialisation) is a config key the
+models do not read: the stage-1 trainer refuses it, and the frozen uses
+(LDM training, sampling) run no backward pass through the model.
 """
 
 from __future__ import annotations
@@ -40,10 +46,11 @@ class Encoder(nn.Module):
 
     def __init__(self, spatial_dims, num_channels, in_channels, out_channels, num_res_blocks,
                  norm_num_groups, attention_levels, downsample_parameters,
-                 with_nonlocal_attn=False, dtype=torch.float32, device=None):
+                 with_nonlocal_attn=False, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
         sd, G = spatial_dims, norm_num_groups
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.plan = []  # child names in execution order
         s0, k0, p0 = downsample_parameters[0]
         self.ConvND_0 = ConvND(in_channels, num_channels[0], k0, s0, p0, sd, **kw)
@@ -88,10 +95,10 @@ class Decoder(nn.Module):
     def __init__(self, spatial_dims, num_channels, in_channels, out_channels, num_res_blocks,
                  norm_num_groups, attention_levels, upsample_parameters,
                  with_nonlocal_attn=False, use_convtranspose=False, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
         sd, G = spatial_dims, norm_num_groups
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         channels = list(reversed(num_channels))
         attn = list(reversed(attention_levels))
         res_blocks = list(reversed(num_res_blocks))
@@ -145,30 +152,31 @@ class AutoencoderKL(nn.Module):
                  norm_num_groups=16, attention_levels=(False, False, False),
                  downsample_parameters=(), upsample_parameters=(),
                  with_encoder_nonlocal_attn=False, with_decoder_nonlocal_attn=False,
-                 use_convtranspose=False, with_encoder=True, dtype=torch.float32,
-                 device=None):
+                 use_convtranspose=False, with_encoder=True,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         n = len(num_channels)
         self.dtype = dtype
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         if with_encoder:
             self.encoder = Encoder(spatial_dims, num_channels, in_channels, latent_channels,
                                    per_level(num_res_blocks, n), norm_num_groups,
                                    attention_levels, downsample_parameters,
-                                   with_encoder_nonlocal_attn, dtype, device)
+                                   with_encoder_nonlocal_attn, **kw)
             self.quant_conv_mu = ConvND(latent_channels, latent_channels, 1, 1, 0,
-                                        spatial_dims, dtype=dtype, device=device)
+                                        spatial_dims, **kw)
             self.quant_conv_log_sigma = ConvND(latent_channels, latent_channels, 1, 1, 0,
-                                               spatial_dims, dtype=dtype, device=device)
+                                               spatial_dims, **kw)
         self.post_quant_conv = ConvND(latent_channels, latent_channels, 1, 1, 0, spatial_dims,
-                                      dtype=dtype, device=device)
+                                      **kw)
         self.decoder = Decoder(spatial_dims, num_channels, latent_channels, out_channels,
                                per_level(num_res_blocks, n), norm_num_groups,
                                attention_levels, upsample_parameters,
-                               with_decoder_nonlocal_attn, use_convtranspose, dtype, device)
+                               with_decoder_nonlocal_attn, use_convtranspose, **kw)
 
     @staticmethod
     def from_config(params: dict, dtype=torch.bfloat16, device=None,
-                    with_encoder: bool = True) -> "AutoencoderKL":
+                    with_encoder: bool = True, param_dtype=None) -> "AutoencoderKL":
         return AutoencoderKL(
             spatial_dims=params["spatial_dims"],
             in_channels=params.get("in_channels", 1),
@@ -185,6 +193,7 @@ class AutoencoderKL(nn.Module):
             use_convtranspose=params.get("use_convtranspose", False),
             with_encoder=with_encoder,
             dtype=dtype,
+            param_dtype=param_dtype,
             device=device,
         )
 
@@ -209,3 +218,14 @@ class AutoencoderKL(nn.Module):
     def decode(self, z):
         h = self.post_quant_conv(to_internal(z.to(self.dtype).contiguous()))
         return to_public(self.decoder(h)).float()
+
+    def forward(self, x, eps):
+        """The training pass: (fp32 reconstruction of a posterior sample,
+        mu, sigma), with the sample's noise ``eps`` passed in."""
+        mu, sigma = self.encode(x)
+        return self.decode(self.sampling(mu, sigma, eps)), mu, sigma
+
+    def reconstruct(self, x):
+        """decode(mu): the deterministic reconstruction of validation."""
+        return self.decode(self.encode(x)[0])
+

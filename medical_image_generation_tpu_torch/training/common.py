@@ -23,15 +23,31 @@ optax's semantics, written with ``torch._foreach_*`` ops:
   zero (JAX ``training/common.py:112-123``);
 * ``ema_update``: an exponential moving average of the params, which the
   trainer applies only on synced steps (JAX ``:34-52``);
-* ``save_last_best``: the last / best checkpoint cadence (JAX ``:178-211``).
+* ``generator_params`` / ``build_generator``: the stage-1 autoencoder of a
+  run config (KL-VAE, or VQ-VAE for the ``vq`` latent space), which both
+  trainers build;
+* ``init_like_flax_``: flax's default initialisation, for training from
+  scratch;
+* ``l1_loss`` and ``kl_loss``: the autoencoder's reconstruction and KL terms
+  (JAX ``:140-153``);
+* ``save_last_best``: the last / best checkpoint cadence (JAX ``:178-211``);
+* ``batch_to_device`` / ``timed_batches``: a loader batch on the device,
+  and the epoch loop's batches with the host seconds of waiting and copying.
 """
 
 from __future__ import annotations
 
+import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from medical_image_generation_tpu_torch.data.loader import unpack_batch
+from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
+from medical_image_generation_tpu_torch.models.vqvae import VQVAE
+from medical_image_generation_tpu_torch.utils.profiling import maybe_progress
 
 
 def make_lr_schedule(base_lr: float, scheduler: Optional[str], params: Optional[Dict],
@@ -206,6 +222,57 @@ def ema_update(ema: List[torch.Tensor], params: Sequence[torch.Tensor], decay: f
                                                 1.0 - decay))
 
 
+def generator_params(config: dict, latent_space_type: str) -> dict:
+    """The generator's architecture dict: ``vae_params``, or for ``vq``
+    ``vqvae_params`` when given, else the VAE geometry."""
+    if latent_space_type == "vae":
+        return config["vae_params"]
+    if latent_space_type == "vq":
+        return config.get("vqvae_params") or config["vae_params"]
+    raise ValueError("latent_space_type must be 'vae' or 'vq'")
+
+
+def build_generator(config: dict, latent_space_type: str, dtype=torch.bfloat16,
+                    param_dtype=None, device=None, with_encoder: bool = True):
+    """The KL-VAE or the VQ-VAE of a run config."""
+    params = generator_params(config, latent_space_type)
+    cls = AutoencoderKL if latent_space_type == "vae" else VQVAE
+    return cls.from_config(params, dtype=dtype, param_dtype=param_dtype, device=device,
+                           with_encoder=with_encoder)
+
+
+def init_like_flax_(module: torch.nn.Module) -> None:
+    """flax's default initialisation, for training from scratch: conv /
+    linear weights lecun_normal (truncated normal, std sqrt(1 / fan_in)),
+    biases 0, embeddings normal with std sqrt(1 / features), GroupNorm 1 / 0.
+    The U-Net's zero-initialised output conv stays zero."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)):
+                if m.weight.abs().sum() == 0:  # zero-initialised on purpose
+                    continue
+                std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
+                torch.nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, torch.nn.Embedding):
+                torch.nn.init.normal_(m.weight, 0.0, math.sqrt(1.0 / m.weight.shape[1]))
+
+
+def l1_loss(pred, target):
+    return torch.mean(torch.abs(pred - target))
+
+
+def kl_loss(mu, sigma):
+    """KL(q || N(0, 1)) summed over the latent dims, averaged over the batch,
+    in fp32."""
+    var = sigma.float() ** 2
+    mu = mu.float()
+    per_sample = 0.5 * torch.sum(mu ** 2 + var - torch.log(var + 1e-12) - 1.0,
+                                 dim=tuple(range(1, mu.dim())))
+    return torch.mean(per_sample)
+
+
 def save_last_best(trainer, epoch: int, val_loss: float,
                    payload_fn: Callable[[], Dict[str, Any]]) -> List[str]:
     """last/best checkpoint cadence (JAX ``training/common.py:178-211``).
@@ -236,3 +303,34 @@ def save_last_best(trainer, epoch: int, val_loss: float,
         trainer.best_val = val_loss
         ckpt.save_checkpoint(trainer.save_dict["checkpoints"], "best_model", payload)
     return ["last_model"] * want_last + ["best_model"] * want_best
+
+
+def batch_to_device(batch, device: torch.device):
+    """A loader batch (array or {"image", "class"}) -> (images, labels or
+    None) on ``device``, each copied once: through a pinned buffer without
+    blocking the host on the card, or directly on the CPU."""
+    imgs, labels = unpack_batch(batch)
+    imgs = torch.as_tensor(imgs)
+    if device.type == "cuda":
+        imgs = imgs.pin_memory().to(device, non_blocking=True)
+    if labels is not None:
+        labels = torch.as_tensor(np.asarray(labels, np.int64)).to(device)
+    return imgs, labels
+
+
+def timed_batches(loader, device: torch.device, stats: Dict[str, float],
+                  show_bar: bool = False, desc: Optional[str] = None):
+    """Yield ``loader``'s batches through ``batch_to_device``, adding the
+    host seconds spent waiting on the loader to ``stats["wait_s"]`` and
+    those of the copy to ``stats["copy_s"]``."""
+    it = iter(maybe_progress(loader, show_bar, total=len(loader), desc=desc))
+    while True:
+        t_wait = time.perf_counter()
+        batch = next(it, None)
+        t_copy = time.perf_counter()
+        if batch is None:
+            return
+        out = batch_to_device(batch, device)
+        stats["wait_s"] += t_copy - t_wait
+        stats["copy_s"] += time.perf_counter() - t_copy
+        yield out

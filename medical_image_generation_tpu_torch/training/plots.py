@@ -1,19 +1,21 @@
-"""Plotting artifacts: loss curves, sample grids, volume GIFs.
+"""Plotting artifacts: loss curves, sample grids, reconstructions, volume GIFs.
 
 The port's copy of ``medical_image_generation_tpu/training/plots.py``
 (:1-111), with the same artifact contract as the reference (utils.py:
-15-145, train_ldm.py:400-464): ``plots/loss.png`` curves, ``epoch_N.png``
-sample grids in 2D, animated ``epoch_N.gif`` slice fly-throughs in 3D
-(200 ms/frame). matplotlib and PIL are imported when a figure is drawn, not
-at import: without them the curves are skipped (the trainer always writes
-``loss_dict.pkl``), the interval samples are written as ``epoch_N.npy``,
-and one line says that the figures were skipped.
+15-145, train_autoencoder.py:488-531, train_ldm.py:400-464):
+``plots/loss.png`` / ``all_losses.png`` curves, ``epoch_N.png`` sample
+grids and image / reconstruction pairs in 2D, animated ``epoch_N.gif``
+slice fly-throughs in 3D (200 ms/frame). matplotlib and PIL are imported
+when a figure is drawn, not at import: without them the curves are skipped
+(the trainers always write ``loss_dict.pkl``), the interval samples and
+reconstructions are written as ``epoch_N.npy``, and one line says that the
+figures were skipped.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -64,6 +66,42 @@ def save_main_losses(train_losses: List[float], val_losses: List[float], path: s
     fig.savefig(path, dpi=100)
     plt.close(fig)
     return True
+
+
+def save_all_losses(loss_dict: Dict[str, List[float]], path: str) -> bool:
+    """Multi-curve loss plot (reference utils.py:116-145). Returns False when
+    matplotlib is missing and nothing was drawn."""
+    try:
+        plt = _pyplot()
+    except ImportError as e:
+        _skip(os.path.basename(path), e)
+        return False
+    fig, ax = plt.subplots(figsize=(10, 6))
+    for name, values in loss_dict.items():
+        if values:
+            ax.plot(values, label=name)
+    ax.set_xlabel("epoch")
+    ax.set_ylabel("loss")
+    ax.legend(fontsize=8)
+    fig.tight_layout()
+    fig.savefig(path, dpi=100)
+    plt.close(fig)
+    return True
+
+
+def save_image_pair_2d(image: np.ndarray, recon: np.ndarray, path: str) -> None:
+    """Side-by-side original/reconstruction png (reference utils.py:32-56)."""
+    plt = _pyplot()
+    image = np.squeeze(np.asarray(image))
+    recon = np.squeeze(np.asarray(recon))
+    fig, axes = plt.subplots(1, 2, figsize=(8, 4))
+    for ax, img, name in zip(axes, (image, recon), ("image", "reconstruction")):
+        ax.imshow(_to_uint8(img if img.ndim == 2 else img[..., 0]), cmap="gray")
+        ax.set_title(name)
+        ax.axis("off")
+    fig.tight_layout()
+    fig.savefig(path, dpi=100)
+    plt.close(fig)
 
 
 def save_image_grid_2d(images: Sequence[np.ndarray], path: str, ncols: int = 4) -> None:
@@ -125,4 +163,24 @@ def save_samples(images: np.ndarray, plots_dir: str, epoch: int, spatial_dims: i
     except ImportError as e:
         _skip(os.path.basename(stem), e)
         np.save(stem + ".npy", np.asarray(images))
+        return stem + ".npy"
+
+
+def save_reconstruction(image: np.ndarray, recon: np.ndarray, plots_dir: str, epoch: int,
+                        spatial_dims: int) -> str:
+    """The autoencoder loop's interval reconstruction (JAX
+    ``train_autoencoder.py:393-406``): ``epoch_N.png`` (2D pair) or
+    ``epoch_N.gif`` (3D, image and reconstruction side by side); ``epoch_N.npy``
+    of the stacked pair when matplotlib or PIL is missing. Returns the path
+    written."""
+    stem = os.path.join(plots_dir, f"epoch_{epoch + 1}")
+    try:
+        if spatial_dims == 2:
+            save_image_pair_2d(image, recon, stem + ".png")
+            return stem + ".png"
+        save_volume_gif(image, stem + ".gif", recon=recon)
+        return stem + ".gif"
+    except ImportError as e:
+        _skip(os.path.basename(stem), e)
+        np.save(stem + ".npy", np.stack([np.asarray(image), np.asarray(recon)]))
         return stem + ".npy"

@@ -4,12 +4,15 @@
 (``medical_image_generation_tpu/training/train_ldm.py:289-354``): a DDIM or
 ancestral DDPM trajectory in the latent space, classifier-free guidance
 ``e_u + g * (e_c - e_u)`` for class-conditional models, then the latent
-divided by the VAE ``scale_factor``, decoded, and clipped to [0, 1].
-Images come out in the JAX layout (B, *spatial, C) as numpy arrays.
+unscaled (divided by the KL-VAE ``scale_factor``, or mapped from [-1, 1]
+back to the VQ codebook's [min, max], JAX ``_unscale`` :152-155), decoded
+(the VQ-VAE quantizes first: ``decode_stage_2_outputs``), and clipped to
+[0, 1]. Images come out in the JAX layout (B, *spatial, C) as numpy arrays.
 
-The CLI reads a torch checkpoint (``.pt`` holding ``unet`` and ``vae``
-state_dicts, ``scale_factor`` and ``latent_shape``) plus the run's
-config.yaml, and writes one ``.npy`` volume per sample. It samples ``unet``,
+The CLI reads a torch checkpoint (``.pt`` holding ``unet`` and ``vae`` (or
+``vq``) state_dicts, ``scale_factor`` and ``latent_shape``) plus the run's
+config.yaml (its ``latent_space_type`` picks the autoencoder), and writes
+one ``.npy`` volume per sample. It samples ``unet``,
 the live params, as the JAX sampling CLI samples ``params``
 (``training/sample.py:89-95``); a checkpoint of a run with EMA also holds
 ``ema_unet``, which the training loop's interval samples use. The
@@ -31,26 +34,32 @@ from medical_image_generation_tpu_torch._device import resolve_device
 from medical_image_generation_tpu_torch.config.run import load_config
 from medical_image_generation_tpu_torch.diffusion.sampler import DDIMSampler, SegmentedDDPMSampler
 from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
-from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
+from medical_image_generation_tpu_torch.training.common import build_generator
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 class LDMSampler:
-    """Samples images from a latent diffusion model (U-Net + KL-VAE decoder).
+    """Samples images from a latent diffusion model (U-Net + the decoding
+    half of a KL-VAE, or of a VQ-VAE with ``latent_space_type="vq"``).
 
     ``num_classes`` (class-conditional models): the U-Net has
     ``num_classes + 1`` class embeddings, the last one the null class used
     for guidance."""
 
-    def __init__(self, unet: DiffusionUNet, vae: AutoencoderKL, schedule: NoiseSchedule,
+    def __init__(self, unet: DiffusionUNet, vae, schedule: NoiseSchedule,
                  scale_factor: float, latent_shape: Sequence[int],
                  num_classes: Optional[int] = None, guidance_scale: float = 2.0,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", latent_space_type: str = "vae"):
         self.device = resolve_device(device)
         self.unet = unet.eval()
         self.vae = vae.eval()
+        self.latent_space_type = latent_space_type
+        if latent_space_type == "vq":
+            codebook = self.vae.quantizer.codebook.detach()
+            self.codebook_min = float(codebook.min())
+            self.codebook_max = float(codebook.max())
         self.schedule = schedule
         self.scale_factor = float(scale_factor)
         self.latent_shape = tuple(int(v) for v in latent_shape)
@@ -61,11 +70,13 @@ class LDMSampler:
     def from_config(config: dict, unet_state, vae_state, scale_factor: float,
                     latent_shape: Sequence[int], dtype=torch.bfloat16,
                     device: str | torch.device = "cuda") -> "LDMSampler":
-        """Build the networks from a run config (``vae_params``,
-        ``ddpm_params``, ``time_scheduler_params``, optional
-        ``class_conditioning``) and load their state_dicts; ``vae_state`` may
-        be the whole KL-VAE or its decoding half (only that half is built)."""
+        """Build the networks from a run config (``vae_params`` (or
+        ``vqvae_params``), ``ddpm_params``, ``time_scheduler_params``,
+        optional ``class_conditioning`` and ``latent_space_type``) and load
+        their state_dicts; ``vae_state`` may be the whole autoencoder or its
+        decoding half (only that half is built)."""
         dev = resolve_device(device)
+        latent = config.get("latent_space_type", "vae")
         ddpm_params = dict(config["ddpm_params"])
         cc = config.get("class_conditioning") or None
         num_classes = None
@@ -73,14 +84,13 @@ class LDMSampler:
             num_classes = int(cc["num_classes"])
             ddpm_params["num_class_embeds"] = num_classes + 1
         unet = DiffusionUNet.from_config(ddpm_params, dtype=dtype, device=dev)
-        vae = AutoencoderKL.from_config(config["vae_params"], dtype=dtype, device=dev,
-                                        with_encoder=False)
+        vae = build_generator(config, latent, dtype, device=dev, with_encoder=False)
         unet.load_state_dict(unet_state)
         vae.load_state_dict({k: v for k, v in vae_state.items()
-                             if k.startswith(("post_quant_conv.", "decoder."))})
+                             if k.startswith(("post_quant_conv.", "decoder.", "quantizer."))})
         schedule = NoiseSchedule.from_config(config["time_scheduler_params"], device=dev)
         return LDMSampler(unet, vae, schedule, scale_factor, latent_shape, num_classes,
-                          float((cc or {}).get("guidance_scale", 2.0)), dev)
+                          float((cc or {}).get("guidance_scale", 2.0)), dev, latent)
 
     def _model_fn(self, labels, g: float):
         def fn(x, t):
@@ -96,7 +106,10 @@ class LDMSampler:
     @torch.no_grad()
     def decode(self, z) -> torch.Tensor:
         """Latent (scaled, as the U-Net sees it) -> image in [0, 1]."""
-        return self.vae.decode(z / self.scale_factor).clamp(0.0, 1.0)
+        if self.latent_space_type == "vae":
+            return self.vae.decode(z / self.scale_factor).clamp(0.0, 1.0)
+        lo, hi = self.codebook_min, self.codebook_max
+        return self.vae.decode_stage_2_outputs((z + 1) / 2 * (hi - lo) + lo).clamp(0.0, 1.0)
 
     @torch.no_grad()
     def sample(self, n_samples: int, sampler: str = "ddpm",
@@ -130,10 +143,12 @@ class LDMSampler:
 
 
 def load_torch_checkpoint(path: str) -> dict:
-    """A ``.pt`` payload: {"unet": state_dict, "vae": state_dict,
+    """A ``.pt`` payload: {"unet": state_dict, "vae" or "vq": state_dict,
     "scale_factor": float, "latent_shape": [..]}."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    missing = {"unet", "vae", "scale_factor", "latent_shape"} - set(payload)
+    missing = {"unet", "scale_factor", "latent_shape"} - set(payload)
+    if not {"vae", "vq"} & set(payload):
+        missing.add("vae")
     if missing:
         raise KeyError(f"checkpoint {path} lacks {sorted(missing)}")
     return payload
@@ -159,8 +174,13 @@ def main_ldm(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     payload = load_torch_checkpoint(args.checkpoint)
+    config = load_config(args.config)
+    key = config.get("latent_space_type", "vae")
+    if key not in payload:
+        raise KeyError(f"{args.checkpoint} holds no {key!r} autoencoder, which the config's "
+                       f"latent_space_type asks for")
     sampler = LDMSampler.from_config(
-        load_config(args.config), payload["unet"], payload["vae"], payload["scale_factor"],
+        config, payload["unet"], payload[key], payload["scale_factor"],
         payload["latent_shape"], dtype=_DTYPES[args.dtype], device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     images = sampler.sample(args.n_samples, sampler=args.sampler,

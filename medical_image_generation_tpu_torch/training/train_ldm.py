@@ -9,8 +9,10 @@ resume (:516-568) and the CLI (:574-627), with the JAX trainer's names. One
 
 * device augmentation of the loader's (possibly enlarged) patch, cropped
   back to the final size (``data/augment.py``);
-* the frozen KL-VAE encode and posterior sample under ``no_grad``, times
-  ``scale_factor``;
+* the frozen stage-1 encode under ``no_grad``: the KL-VAE's posterior
+  sample times ``scale_factor``, or the VQ-VAE's pre-quantization latent
+  mapped from the codebook's [min, max] to [-1, 1] (``_scale``, JAX
+  :125-155);
 * ``t`` uniform in [0, T), noise, ``add_noise`` and the training target;
 * optional classifier-free label dropout (labels replaced by the null class
   ``num_classes``);
@@ -41,22 +43,21 @@ mirrors the JAX one (``:522-534``): ``epoch``, ``unet`` (the live params,
 JAX's ``params``), ``ema_unet`` (when EMA is on), ``opt_state`` (``mu``,
 ``nu``, ``count``, and MultiSteps' ``acc`` and ``mini_step``), ``step``
 (microsteps), ``validation_loss``, ``scale_factor``, ``latent_shape``, the
-frozen ``vae`` (so ``medimgen_torch_sample_ldm`` samples from the file
-directly), the states of the trainer's two generators and the train
-loader's ``state`` (its shuffle RNG and batch seed counter): a resumed run
-continues its draws and its patient order (the JAX loop restarts its step
-counter at 0 and replays step 0's keys, and builds a fresh loader).
+frozen autoencoder under ``vae`` (``vq`` for the VQ latent space, so
+``medimgen_torch_sample_ldm`` samples from the file directly), the states
+of the trainer's two generators and the train loader's ``state`` (its
+shuffle RNG and batch seed counter): a resumed run continues its draws and
+its patient order (the JAX loop restarts its step counter at 0 and replays
+step 0's keys, and builds a fresh loader).
 
-Not ported, and refused before the first step: ``-l vq`` (no VQ-VAE yet),
-``run_generation_eval`` (FID / SSIM eval) and the augmentations that
-``data/augment.py`` lacks.
+Not ported, and refused before the first step: ``run_generation_eval``
+(FID / SSIM eval) and the augmentations that ``data/augment.py`` lacks.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import math
 import os
 import time
 from typing import Dict, NamedTuple, Optional, Sequence
@@ -80,19 +81,16 @@ from medical_image_generation_tpu_torch.data.augment import (
     check_ported,
     make_draws,
 )
-from medical_image_generation_tpu_torch.data.loader import get_data_loaders, unpack_batch
+from medical_image_generation_tpu_torch.data.loader import get_data_loaders
 from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
+from medical_image_generation_tpu_torch.models.vqvae import VQVAE
 from medical_image_generation_tpu_torch.planning.planner import compute_output_size
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
 from medical_image_generation_tpu_torch.training import common, plots
 from medical_image_generation_tpu_torch.training.sample import LDMSampler
-from medical_image_generation_tpu_torch.utils.profiling import (
-    StepTimer,
-    maybe_progress,
-    profile_trace,
-)
+from medical_image_generation_tpu_torch.utils.profiling import StepTimer, profile_trace
 
 
 class TrainDraws(NamedTuple):
@@ -100,44 +98,32 @@ class TrainDraws(NamedTuple):
     label-dropout coins, or None without class conditioning."""
 
     augment: AugmentDraws
-    eps: torch.Tensor    # posterior noise, latent-shaped
+    eps: Optional[torch.Tensor]  # posterior noise, latent-shaped (None: vq)
     t: torch.Tensor      # (B,) int64 timesteps
     noise: torch.Tensor  # diffusion noise, latent-shaped
     drop: Optional[torch.Tensor] = None
 
 
-def init_like_flax_(module: torch.nn.Module) -> None:
-    """flax's default initialisation, for training from scratch: conv /
-    linear weights lecun_normal (truncated normal, std sqrt(1 / fan_in)),
-    biases 0, embeddings normal with std sqrt(1 / features), GroupNorm 1 / 0.
-    The U-Net's zero-initialised output conv stays zero."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)):
-                if m.weight.abs().sum() == 0:  # zero-initialised on purpose
-                    continue
-                std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
-                torch.nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, torch.nn.Embedding):
-                torch.nn.init.normal_(m.weight, 0.0, math.sqrt(1.0 / m.weight.shape[1]))
-
-
 class LDMTrainer:
-    """Stage-2 latent diffusion trainer over a frozen KL-VAE. Build with
+    """Stage-2 latent diffusion trainer over a frozen KL-VAE (or VQ-VAE, with
+    ``latent_space_type="vq"``), held as ``vae``. Build with
     ``from_config``."""
 
-    def __init__(self, config: dict, unet: DiffusionUNet, vae: AutoencoderKL,
+    def __init__(self, config: dict, unet: DiffusionUNet, vae: AutoencoderKL | VQVAE,
                  device: str | torch.device = "cuda", seed: int = 0,
-                 steps_per_epoch: int = 250):
+                 steps_per_epoch: int = 250, latent_space_type: str = "vae"):
         self.device = resolve_device(device)
         self.config = config
         self.seed = seed
         self.unet = unet.train()
         self.vae = vae.eval().requires_grad_(False)
-        self.vae_params = config["vae_params"]
+        self.latent_space_type = latent_space_type
+        self.vae_params = common.generator_params(config, latent_space_type)
         self.spatial_dims = self.vae_params["spatial_dims"]
+        if latent_space_type == "vq":
+            codebook = self.vae.quantizer.codebook
+            self.codebook_min = float(codebook.min())
+            self.codebook_max = float(codebook.max())
         self.schedule = NoiseSchedule.from_config(config["time_scheduler_params"],
                                                   device=self.device)
         self.class_cond = config.get("class_conditioning") or None
@@ -180,10 +166,12 @@ class LDMTrainer:
     @staticmethod
     def from_config(config: dict, vae_state, unet_state=None,
                     device: str | torch.device = "cuda", dtype=torch.bfloat16, seed: int = 0,
-                    steps_per_epoch: int = 250) -> "LDMTrainer":
+                    steps_per_epoch: int = 250,
+                    latent_space_type: str = "vae") -> "LDMTrainer":
         """U-Net with fp32 master params computing in ``dtype`` (flax-style
         initialisation from ``seed``, or ``unet_state``), and the frozen
-        KL-VAE from ``vae_state`` (computing in ``dtype``)."""
+        KL-VAE (VQ-VAE for ``vq``) from ``vae_state`` (computing in
+        ``dtype``)."""
         dev = resolve_device(device)
         ddpm_params = dict(config["ddpm_params"])
         cc = config.get("class_conditioning") or None
@@ -193,12 +181,12 @@ class LDMTrainer:
         unet = DiffusionUNet.from_config(ddpm_params, dtype=dtype, param_dtype=torch.float32,
                                          device=dev)
         if unet_state is None:
-            init_like_flax_(unet)
+            common.init_like_flax_(unet)
         else:
             unet.load_state_dict(unet_state)
-        vae = AutoencoderKL.from_config(config["vae_params"], dtype=dtype, device=dev)
+        vae = common.build_generator(config, latent_space_type, dtype, device=dev)
         vae.load_state_dict(vae_state)
-        return LDMTrainer(config, unet, vae, dev, seed, steps_per_epoch)
+        return LDMTrainer(config, unet, vae, dev, seed, steps_per_epoch, latent_space_type)
 
     # ----------------------------------------------------------------- latent
 
@@ -210,21 +198,40 @@ class LDMTrainer:
         """(B, *latent spatial, latent_channels) of a loader batch."""
         lat = compute_output_size(self._final_spatial(batch),
                                   self.vae_params["downsample_parameters"])
-        return (batch.shape[0], *lat, self.vae_params["latent_channels"])
+        ch = (self.vae_params["latent_channels"] if self.latent_space_type == "vae"
+              else self.vae_params.get("embedding_dim", 8))
+        return (batch.shape[0], *lat, ch)
+
+    def _encode(self, imgs, eps):
+        """Stage-2 latent of a batch, before scaling: a posterior sample
+        (KL-VAE) or the pre-quantization latent (VQ-VAE)."""
+        if self.latent_space_type == "vae":
+            return self.vae.encode_stage_2_inputs(imgs, eps)
+        return self.vae.encode_stage_2_inputs(imgs)
+
+    def _scale(self, z):
+        if self.latent_space_type == "vae":
+            return z * self.scale_factor
+        lo, hi = self.codebook_min, self.codebook_max
+        return 2 * (z - lo) / (hi - lo) - 1
 
     @torch.no_grad()
     def probe_latent(self, batch, generator: Optional[torch.Generator] = None):
-        """Fix the latent shape and ``scale_factor = 1 / (std(z) + 1e-8)``
-        from one (center-cropped) batch. The posterior noise comes from
-        ``generator``, else from a generator seeded 0 (the JAX probe's
-        ``PRNGKey(0)``), never from the training stream."""
+        """Fix the latent shape and (KL-VAE) ``scale_factor = 1 / (std(z) +
+        1e-8)`` from one (center-cropped) batch. The posterior noise comes
+        from ``generator``, else from a generator seeded 0 (the JAX probe's
+        ``PRNGKey(0)``), never from the training stream. The VQ latent
+        keeps ``scale_factor`` 1 (its range is the codebook's)."""
         batch = center_crop_batch(batch.to(self.device), self._final_spatial(batch))
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        eps = torch.randn(self.latent_shape_of(batch), device=self.device,
-                          generator=generator)
-        z = self.vae.encode_stage_2_inputs(batch, eps)
-        self.scale_factor = float(1.0 / (z.std(correction=0) + 1e-8))
+        eps = None
+        if self.latent_space_type == "vae":
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            eps = torch.randn(self.latent_shape_of(batch), device=self.device,
+                              generator=generator)
+        z = self._encode(batch, eps)
+        if self.latent_space_type == "vae":
+            self.scale_factor = float(1.0 / (z.std(correction=0) + 1e-8))
         self.latent_shape = tuple(z.shape)
         return self.scale_factor, self.latent_shape
 
@@ -238,7 +245,8 @@ class LDMTrainer:
         host = host_generator or self.host_generator
         return TrainDraws(
             augment=make_draws(self.aug_cfg, B, batch.shape[-1], batch.dim() - 2, host),
-            eps=torch.randn(lat, device=self.device, generator=gen),
+            eps=(torch.randn(lat, device=self.device, generator=gen)
+                 if self.latent_space_type == "vae" else None),
             t=torch.randint(0, self.schedule.num_train_timesteps, (B,), generator=host),
             noise=torch.randn(lat, device=self.device, generator=gen),
             drop=(torch.rand((B,), generator=host) < self.cfg_dropout
@@ -246,8 +254,8 @@ class LDMTrainer:
 
     def _noised(self, imgs, draws: TrainDraws):
         with torch.no_grad():
-            z = self.vae.encode_stage_2_inputs(imgs, draws.eps.to(self.device))
-            z = (z * self.scale_factor).float()
+            eps = None if draws.eps is None else draws.eps.to(self.device)
+            z = self._scale(self._encode(imgs, eps)).float()
         t = draws.t.to(self.device)
         noise = draws.noise.to(self.device)
         return (self.schedule.add_noise(z, noise, t),
@@ -324,7 +332,8 @@ class LDMTrainer:
         with self.sampling_weights() as unet:
             out = LDMSampler(unet, self.vae, self.schedule, self.scale_factor, self.latent_shape,
                              self.num_classes if self.class_cond else None,
-                             float(cc.get("guidance_scale", 2.0)), self.device).sample(
+                             float(cc.get("guidance_scale", 2.0)), self.device,
+                             self.latent_space_type).sample(
                 n_samples, sampler=sampler, num_inference_steps=num_inference_steps,
                 generator=generator)
         return out
@@ -333,15 +342,15 @@ class LDMTrainer:
 
     def _host_state(self):
         """The sampler's part of a payload: ``unet`` (the live params),
-        ``ema_unet`` when EMA is on, ``vae``, ``scale_factor``,
+        ``ema_unet`` when EMA is on, ``vae`` (``vq``), ``scale_factor``,
         ``latent_shape``; every tensor copied to the CPU."""
         if self.latent_shape is None:
             raise RuntimeError("call probe_latent first: the checkpoint needs the latent shape")
         out = {"unet": {k: v.detach().cpu() for k, v in self.unet.state_dict().items()}}
         if self.ema is not None:
             out["ema_unet"] = {n: e.cpu() for n, e in zip(self.param_names, self.ema)}
-        out.update(vae={k: v.cpu() for k, v in self.vae.state_dict().items()},
-                   scale_factor=float(self.scale_factor),
+        out[self.latent_space_type] = {k: v.cpu() for k, v in self.vae.state_dict().items()}
+        out.update(scale_factor=float(self.scale_factor),
                    latent_shape=[int(v) for v in self.latent_shape])
         return out
 
@@ -349,7 +358,7 @@ class LDMTrainer:
         """Write the ``.pt`` that ``training.sample.load_torch_checkpoint``
         reads: ``unet`` (the live params, which ``medimgen_torch_sample_ldm``
         samples, as the JAX sampling CLI samples ``params``), ``ema_unet``
-        when EMA is on, ``vae``, ``scale_factor``, ``latent_shape``."""
+        when EMA is on, ``vae`` (``vq``), ``scale_factor``, ``latent_shape``."""
         torch.save(self._host_state(), path)
 
     def checkpoint_payload(self, epoch: int, val_loss: float) -> Dict:
@@ -411,18 +420,6 @@ class LDMTrainer:
 
     # -------------------------------------------------------------- main loop
 
-    def _to_device(self, batch):
-        """A loader batch (array or {"image", "class"}) -> (images, labels)
-        on the device, each copied once: through a pinned buffer without
-        blocking the host on the card, or directly on the CPU."""
-        imgs, labels = unpack_batch(batch)
-        imgs = torch.as_tensor(imgs)
-        if self.device.type == "cuda":
-            imgs = imgs.pin_memory().to(self.device, non_blocking=True)
-        if labels is not None:
-            labels = torch.as_tensor(np.asarray(labels, np.int64)).to(self.device)
-        return imgs, labels
-
     def train(self, train_loader, val_loader) -> None:
         if self.save_dict is None:
             self.save_dict, self.save_path = create_save_path_dict(self.config)
@@ -431,7 +428,7 @@ class LDMTrainer:
 
     def _train_impl(self, train_loader, val_loader) -> None:
         self.train_loader = train_loader
-        first = self._to_device(next(iter(train_loader)))[0]
+        first = common.batch_to_device(next(iter(train_loader)), self.device)[0]
         scale, shape = self.probe_latent(first)
         print(f"Scaling factor set to {scale}")
         print(f"Latent shape: {shape}")
@@ -447,17 +444,8 @@ class LDMTrainer:
             stats = {"epoch": epoch, "wait_s": 0.0, "copy_s": 0.0}
             losses = []
             self.timer.start()
-            it = iter(maybe_progress(train_loader, show_bar, total=len(train_loader),
-                                     desc=f"Epoch {epoch + 1}"))
-            while True:
-                t_wait = time.perf_counter()
-                batch = next(it, None)
-                t_copy = time.perf_counter()
-                if batch is None:
-                    break
-                imgs, labels = self._to_device(batch)
-                stats["wait_s"] += t_copy - t_wait
-                stats["copy_s"] += time.perf_counter() - t_copy
+            for imgs, labels in common.timed_batches(train_loader, self.device, stats,
+                                                     show_bar, f"Epoch {epoch + 1}"):
                 losses.append(self.train_step(imgs, labels))
                 self.timer.tick()
             train_loss = float(torch.stack(losses).mean())  # the epoch's one sync
@@ -469,7 +457,7 @@ class LDMTrainer:
             host = torch.Generator().manual_seed(self.seed + 10_000_000 + epoch)
             val_losses = []
             for batch in val_loader:
-                imgs, labels = self._to_device(batch)
+                imgs, labels = common.batch_to_device(batch, self.device)
                 val_losses.append(self.val_step(imgs, labels, generator=gen,
                                                 host_generator=host))
             val_loss = float(torch.stack(val_losses).mean())
@@ -553,8 +541,6 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> LDMTrainer:
     585-627) on the port; returns the trainer after training. Everything
     the port cannot do is refused here, before the first step."""
     args = parse_arguments(argv)
-    if args.latent_space_type == "vq":
-        raise NotImplementedError("-l vq: the port has no VQ-VAE yet")
     device = resolve_device(args.device)
     config = get_config_for_current_task(
         args.dataset_id, args.model_type, "ldm",
@@ -577,19 +563,25 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> LDMTrainer:
                            "checkpoints", "best_model.pt")
     if not os.path.exists(ae_best):
         raise FileNotFoundError(f"Train the autoencoder first: no checkpoint at {ae_best} "
-                                "(tools/orbax_to_torch.py converts a JAX best_model)")
+                                "(medimgen_torch_train_autoencoder writes it; "
+                                "tools/orbax_to_torch.py converts a JAX best_model)")
     config["load_autoencoder_path"] = ae_best
     print_configuration(config, config["results_path"], "train", model="ldm")
     print(f"Loading autoencoder checkpoint from {ae_best}...")
     ae = ckpt.load_checkpoint(ae_best)
     print(f"Autoencoder epoch: {ae.get('epoch')}")
+    key = args.latent_space_type
+    if key not in ae:
+        raise KeyError(f"{ae_best} holds no {key!r} autoencoder (keys {sorted(ae)}): "
+                       f"trained with another -l?")
     train_loader, val_loader = get_data_loaders(
         config, args.dataset_id, args.splitting, config["ddpm_batch_size"],
         args.model_type, config["ddpm_transformations"], args.fold,
     )
-    trainer = LDMTrainer.from_config(config, ae["vae"], device=device,
+    trainer = LDMTrainer.from_config(config, ae[key], device=device,
                                      dtype=_DTYPES[args.dtype], seed=0,
-                                     steps_per_epoch=len(train_loader))
+                                     steps_per_epoch=len(train_loader),
+                                     latent_space_type=key)
     del ae
     trainer.train(train_loader, val_loader)
     return trainer

@@ -405,7 +405,7 @@ def test_cli_trains_resumes_bit_for_bit_and_continues(cli_env, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,err", [
-    (["-l", "vq"], NotImplementedError),
+    (["--set", "ddpm_transformations.gaussian_noise=true"], NotImplementedError),
     (["--set", "run_generation_eval=true"], NotImplementedError),
     (["--set", "ddpm_transformations.elastic=true"], NotImplementedError),
     (["--set", "vae_params.num_res_blockz=2"], KeyError),
@@ -420,6 +420,26 @@ def test_cli_refuses_before_the_first_step(cli_env, monkeypatch, extra, err):
         train_ldm.run_cli(cli_env + extra)
     assert not os.path.exists(os.path.join(os.environ["medimgen_results"], "Task099_Synth",
                                            "3d", "ldm", "checkpoints", "last_model.pt"))
+
+
+def test_frozen_autoencoder_ignores_use_checkpointing(cli_env, tmp_path):
+    """A planned config with ``vae_params.use_checkpointing: true`` (the
+    planner's rematerialisation choice for stage 1) trains the LDM and
+    samples: both hold the autoencoder frozen, with no backward pass
+    through it, so only the stage-1 trainer refuses the key."""
+    ldm = train_ldm.run_cli(cli_env + ["--set", "vae_params.use_checkpointing=true",
+                                       "--set", "n_epochs=1", "--set", "val_plot_interval=5"])
+    assert ldm.config["vae_params"]["use_checkpointing"] is True
+    assert len(ldm.loss_dict["rec_loss"]) == 1 and np.isfinite(ldm.loss_dict["rec_loss"][0])
+    cfg_path = os.path.join(ldm.save_path, "config.yaml")
+    with open(cfg_path) as f:
+        assert yaml.safe_load(f)["vae_params"]["use_checkpointing"] is True
+    out = tmp_path / "samples"
+    tsample.main_ldm([cfg_path, os.path.join(ldm.save_dict["checkpoints"], "best_model.pt"),
+                      "-n", "1", "--num_inference_steps", "2", "--dtype", "fp32",
+                      "--device", "cpu", "-o", str(out)])
+    vol = np.load(out / "ldm_sample_000.npy")
+    assert vol.shape == (32, 32, 32, 1) and np.isfinite(vol).all()
 
 
 def test_sampling_cli_samples_the_live_params_not_the_ema(tmp_path, monkeypatch):

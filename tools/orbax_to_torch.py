@@ -5,9 +5,10 @@ Run with the JAX package installed (it reads the checkpoint through
 port never imports JAX. The weights go through the port's converter
 (``medical_image_generation_tpu_torch.convert``):
 
-  autoencoder (``g_params``):
+  autoencoder (``g_params``, and ``d_params`` when present):
       python tools/orbax_to_torch.py .../autoencoder/checkpoints/best_model best_model.pt
-      -> {"epoch", "vae"}: the file ``medimgen_torch_train_ldm`` reads at
+      -> {"epoch", "vae" (or "vq" for a VQ-VAE run), "discriminator"}: the
+         file ``medimgen_torch_train_ldm`` reads at
          <results>/<task>/<model_type>/autoencoder/checkpoints/best_model.pt
 
   latent diffusion model (``params``, optional ``ema_params``):
@@ -20,8 +21,8 @@ port never imports JAX. The weights go through the port's converter
          ``ema_unet``. ``--vae`` takes the AE's orbax checkpoint or a
          converted ``.pt``.
 
-The optimizer state is not converted: a converted LDM samples, it does not
-resume training.
+The optimizer state is not converted: a converted LDM samples and a
+converted autoencoder feeds the LDM; neither resumes training.
 """
 
 from __future__ import annotations
@@ -43,18 +44,34 @@ def _host(tree):
     return np.asarray(tree)
 
 
+def _autoencoder(payload) -> dict:
+    """{"vae" or "vq": state_dict[, "discriminator": state_dict]} of an AE
+    run's payload: a generator with a ``quantizer`` is a VQ-VAE."""
+    from medical_image_generation_tpu_torch import convert
+
+    g = _host(payload["g_params"])
+    out = ({"vq": convert.vae_from_flax(g)} if "quantizer" in g
+           else {"vae": convert.vae_from_flax(g)})
+    if payload.get("d_params") is not None:
+        out["discriminator"] = convert.vae_from_flax(_host(payload["d_params"]))
+    return out
+
+
 def _read_vae(path: str):
     import torch
 
     from medical_image_generation_tpu.training.checkpoints import load_checkpoint
-    from medical_image_generation_tpu_torch import convert
 
     if path.endswith(".pt"):
-        return torch.load(path, map_location="cpu", weights_only=True)["vae"]
-    payload = load_checkpoint(path)
-    if "g_params" not in payload:
-        raise KeyError(f"{path} is not an autoencoder checkpoint (no g_params)")
-    return convert.vae_from_flax(_host(payload["g_params"]))
+        ae = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        payload = load_checkpoint(path)
+        if "g_params" not in payload:
+            raise KeyError(f"{path} is not an autoencoder checkpoint (no g_params)")
+        ae = _autoencoder(payload)
+    if "vae" not in ae:
+        raise KeyError(f"{path} holds no KL-VAE (a VQ-VAE run's LDM is not converted)")
+    return ae["vae"]
 
 
 def convert_checkpoint(src: str, dst: str, vae: Optional[str] = None) -> dict:
@@ -68,7 +85,7 @@ def convert_checkpoint(src: str, dst: str, vae: Optional[str] = None) -> dict:
     payload = load_checkpoint(os.path.abspath(src))
     epoch = int(np.asarray(payload.get("epoch", -1)))
     if "g_params" in payload:
-        out = {"epoch": epoch, "vae": convert.vae_from_flax(_host(payload["g_params"]))}
+        out = {"epoch": epoch, **_autoencoder(payload)}
     elif "params" in payload:
         out = {"epoch": epoch, "unet": convert.unet_from_flax(_host(payload["params"])),
                "scale_factor": float(np.asarray(payload["scale_factor"])),
