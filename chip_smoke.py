@@ -75,16 +75,54 @@ Phases (any failure raises and exits non-zero):
                    with -c to a second epoch (restored state bit for bit
                    equal to the file, the train loader's draws too, AdamW's
                    count 100 -> 200, loss_dict of 2 epochs); then
-                   medimgen_torch_sample_ldm on best_model.pt (1 volume, 10
-                   DDIM steps). It prints the codec, loader batches/s, CLI ms a
-                   step beside phase 6's, the loader wait and copy ms a step,
+                   medimgen_torch_sample_ldm on best_model.pt (2 volumes, 10
+                   DDIM steps, read back from their .nii.gz), then phase 13.
+                   It prints the codec, loader batches/s, CLI ms a step beside
+                   phase 6's, the loader wait and copy ms a step,
                    val ms a step and the checkpoints' bytes and write / read
                    seconds, each with the card's name and power limit.
 
+11. kernels_2d   -- (after phase 3) every kernel against its plain version at
+                   the planner's 2D flagship shapes, bf16 and fp32: flash
+                   forward, dQ and dK/dV at (48, 1024, 1, 512) and (48, 256,
+                   1, 768) (the 2D U-Net's two sites, batch 48), the forward
+                   at the sampling chunks of 16 and 4; the four GroupNorm
+                   kernels at every GN_SHAPES_2D shape (the 2D VAE at batch
+                   24 and 48, the 2D discriminator, the U-Net at 48, 16 and
+                   4, the eval's ResNet50 instance norms over 100 2D images
+                   and two 3D volumes), 16-byte loads and the same bits twice.
+12. train_2d     -- (after phase 8) the 2D flagship at full width (KL-VAE [64,
+                   128, 256] and the 2D discriminator at batch 24 of the
+                   rotation-enlarged (330, 330) patch; U-Net [256, 512, 768]
+                   at batch 48 of (285, 285) -> latent 64^2 x 8): 2 + 10 AE
+                   steps without, then with the adversarial loss, and 2 + 10
+                   LDM steps, each with ms a step, device busy and idle share
+                   (profiler), peak memory, launches held to the prediction,
+                   every GroupNorm shape held by phase 11, each kernel's
+                   device ms beside its summed bound, and the parts alone.
+13. eval_3d      -- (inside phase 10) the 3D eval's features:
+                   FeatureExtractor(spatial_dims=3) on the two volumes the 3D
+                   sampling CLI wrote, read back from their .nii.gz, timed.
+14. cli_2d       -- (after phase 10) a synthetic 2D task (Task098, 8 patients
+                   of (1, 48, 256, 256)): medimgen_torch_train_autoencoder 2d
+                   for an epoch, then medimgen_torch_train_ldm 2d for an epoch
+                   with val_plot_interval 1 and the default
+                   run_generation_eval: the interval grid of 16 and
+                   evaluate_generation with n = 100 (FID, SSIM, MS-SSIM and
+                   MMD over 4950 pairs, seconds by part, launches held to the
+                   prediction); one 16-sample chunk of the full 1000-step
+                   ancestral trajectory, timed, and the full protocol's cost
+                   projected from it; then medimgen_torch_sample_ldm writing 4
+                   PNGs and the grid, read back. Cuts: epochs of 40 train / 8
+                   val steps (the loader's 250 / 50), DDIM 10 for the grid
+                   and the eval (JAX keys eval_sampler / eval_num_inference_
+                   steps; the protocol's default is the 1000-step DDPM).
+
 The last two lines of standard output are the kernels' JSON record (launches
 counted on the LDM train path, ``ae_launches`` on the ten timed AE steps with
-the adversarial loss) and the device record; the card's name and power limit
-are printed before them.
+the adversarial loss, ``launches_2d`` a 2D LDM step, a 2D AE step with the
+adversarial loss, one 2D eval and the 3D eval call) and the device record;
+the card's name and power limit are printed before them.
 """
 
 from __future__ import annotations
@@ -606,15 +644,15 @@ def _build_models(dtype, device, tiny, seed):
     return unet, vae, latent, ddpm_p, image
 
 
-def _train_config(tiny):
+def _train_config(tiny, spatial_dims=3):
     from medical_image_generation_tpu_torch.planning.planner import (
         create_config_dict,
         flagship_configs,
+        flagship_dataset,
     )
 
-    vae_p, ddpm_p, image = flagship_configs(tiny=tiny)
-    ds = {"median_shape": tuple(image), "max_shape": tuple(image)}
-    return create_config_dict(ds, [0], 1, vae_p, ddpm_p)
+    vae_p, ddpm_p, _ = flagship_configs(tiny=tiny, spatial_dims=spatial_dims)
+    return create_config_dict(flagship_dataset(tiny, spatial_dims), [0], 1, vae_p, ddpm_p)
 
 
 def _counters():
@@ -1189,32 +1227,6 @@ def phase_ae_parity():
         raise AssertionError(f"AE step launches {counts} != predicted {expect}")
 
 
-def ae_step_bounds(trainer, batch, adv_on):
-    """({kernel: least ms of the kernel's launches in one AE train step},
-    the set of (M, C, groups) the step's GroupNorms saw)."""
-    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
-
-    seen = []
-
-    def hook(mod, args):
-        seen.append((tuple(args[0].shape), args[0].element_size(), mod.num_groups))
-
-    handles = [m.register_forward_pre_hook(hook)
-               for net in (trainer.model, trainer.discriminator) for m in net.modules()
-               if isinstance(m, GroupNorm)]
-    try:
-        trainer.train_step(batch, adv_on)
-        torch.cuda.synchronize()
-    finally:
-        for h in handles:
-            h.remove()
-    ms = {k: 0.0 for k in _counters()}
-    for shape, isz, _ in seen:
-        for k, v in gn_bounds_ms(shape, isz, True).items():
-            ms[k] += v
-    return ms, {(math.prod(sh[2:]), sh[1], g) for sh, _, g in seen}
-
-
 def phase_ae_train(warmup=2, steps=10):
     """The flagship stage-1 step (see the module docstring); returns
     ({kernel: launches of the timed adversarial steps}, {kernel: device ms
@@ -1289,7 +1301,9 @@ def phase_ae_train(warmup=2, steps=10):
         if counts != expect or scalar or any(scalar_bwd.values()):
             raise AssertionError(f"AE launches {counts} != expected {expect}, or scalar "
                                  f"GroupNorm launches {scalar} / {scalar_bwd}")
-        bounds, shapes = ae_step_bounds(tr, batch, adv_on)
+        bounds, shapes = gn_seen([tr.model, tr.discriminator],
+                                 lambda: tr.train_step(batch, adv_on))
+        shapes = {s[1:] for s in shapes}  # (M, C, groups) at batch 2
         missing = shapes - set(GN_SHAPES)
         if missing:
             raise AssertionError(f"GroupNorm shapes of the AE step not held by the kernel "
@@ -1466,32 +1480,33 @@ def card():
 
 
 CLI_PATIENTS, CLI_VOLUME = 8, (1, 144, 160, 160)  # (C, Z, Y, X) float32 in [0, 1]
-CLI_FREE_BYTES = 16e9  # two ~4.4 GB checkpoints live at once, the dataset, the samples
+CLI_FREE_BYTES = 20e9  # two ~4.4 GB 3D and two ~1.7 GB 2D checkpoints, the datasets, samples
 # phase cli's depth, cut from the CLI's own 250 / 50 steps and 50 DDIM steps
 # (phase ae_cli runs the loader's default epoch)
 CLI_TRAIN_STEPS, CLI_VAL_STEPS, CLI_DDIM_STEPS = 100, 20, 10
 
 
-def _write_cli_dataset(root, cfg, seed=2024):
+def _write_cli_dataset(root, cfg, seed=2024, task="Task099_Synth", volume=CLI_VOLUME,
+                       patients=CLI_PATIENTS, key="3D"):
     """A preprocessed dataset as the planner writes it: imagesTr/*.vs (the
     port's VolStore, default (1, 1, Y, X) chunks), a properties pickle with
-    class_locations a patient, and medimgen_config.yaml. Returns the bytes
-    written."""
+    class_locations a patient, and medimgen_config.yaml with ``cfg`` under
+    ``key``. Returns the bytes written."""
     import numpy as np
     import yaml
 
     from medical_image_generation_tpu_torch.io.volstore import write_volume
     from medical_image_generation_tpu_torch.planning.preprocess import save_properties
 
-    images = os.path.join(root, "Task099_Synth", "imagesTr")
+    images = os.path.join(root, task, "imagesTr")
     os.makedirs(images)
     rng = np.random.default_rng(seed)
-    _, Z, Y, X = CLI_VOLUME
+    _, Z, Y, X = volume
     zz, yy, xx = np.meshgrid(np.arange(Z), np.arange(Y), np.arange(X), indexing="ij",
                              sparse=True)
     nbytes = 0
-    for i in range(CLI_PATIENTS):
-        vol = rng.normal(0.35, 0.08, CLI_VOLUME).astype(np.float32)
+    for i in range(patients):
+        vol = rng.normal(0.35, 0.08, volume).astype(np.float32)
         c = rng.integers([Z // 4, Y // 4, X // 4], [3 * Z // 4, 3 * Y // 4, 3 * X // 4])
         r = int(rng.integers(12, 24))
         mask = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 <= r * r
@@ -1509,8 +1524,8 @@ def _write_cli_dataset(root, cfg, seed=2024):
             locs.extend((z, int(y), int(x)) for y, x in yx)
         save_properties(images, pid, {"class_locations": {1: locs},
                                       "min_max": [(0.0, 1.0)]})
-    with open(os.path.join(root, "Task099_Synth", "medimgen_config.yaml"), "w") as f:
-        yaml.safe_dump({"3D": cfg}, f, sort_keys=False)
+    with open(os.path.join(root, task, "medimgen_config.yaml"), "w") as f:
+        yaml.safe_dump({key: cfg}, f, sort_keys=False)
     return nbytes
 
 
@@ -1658,6 +1673,7 @@ def _cli_runs(ws, train_counts, train_ms):
 
     from medical_image_generation_tpu_torch.data import loader as loader_mod
     from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.io.nifti import load_nifti
     from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
     from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
     from medical_image_generation_tpu_torch.training import checkpoints, sample, train_ldm
@@ -1799,20 +1815,645 @@ def _cli_runs(ws, train_counts, train_ms):
     del tr
     torch.cuda.empty_cache()
 
-    # ---- medimgen_torch_sample_ldm on best_model.pt
+    # ---- medimgen_torch_sample_ldm on best_model.pt: two .nii.gz volumes
     out = os.path.join(root, "samples")
     t0 = time.perf_counter()
-    _run_main(sample.main_ldm, [run_cfg, best, "-n", "1", "--num_inference_steps", "10",
+    _run_main(sample.main_ldm, [run_cfg, best, "-n", "2", "--num_inference_steps", "10",
                                 "-o", out])
-    vol = np.load(os.path.join(out, "ldm_sample_000.npy"))
-    ok = (vol.shape == (128, 128, 128, 1) and bool(np.isfinite(vol).all())
-          and float(vol.min()) >= 0.0 and float(vol.max()) <= 1.0)
-    log(f"[cli] {gpu}: medimgen_torch_sample_ldm best_model.pt, 10 DDIM steps: {vol.shape} "
-        f"min {vol.min():.4f} max {vol.max():.4f} std {vol.std():.4f} ok={ok} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    vol = load_nifti(os.path.join(out, "ldm_sample_000.nii.gz")).data  # NIfTI (X, Y, Z)
+    ok = (vol.shape == (128, 128, 128) and bool(np.isfinite(vol).all())
+          and float(vol.min()) >= 0.0 and float(vol.max()) <= 1.0
+          and sorted(os.listdir(out)) == ["ldm_sample_000.nii.gz", "ldm_sample_001.nii.gz"])
+    log(f"[cli] {gpu}: medimgen_torch_sample_ldm best_model.pt, 2 volumes, 10 DDIM steps: "
+        f"ldm_sample_000.nii.gz {vol.shape} min {vol.min():.4f} max {vol.max():.4f} std "
+        f"{vol.std():.4f} ok={ok} in {time.perf_counter() - t0:.1f} s")
     if not ok:
         raise AssertionError("sampling from best_model.pt failed")
+    eval3d = eval_3d_call(out)
     log(f"[cli] {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, eval3d
+
+
+# ------------------------------------------------------------------------ 2D
+
+# (M, C, groups) of the GroupNorms of each network on the 2D paths (the
+# planner's 2D flagship: patch 256^2, latent 64^2 x 8) and of the eval's
+# ResNet50 instance norms (one channel a group; 2D images of 256^2, 3D
+# volumes of 128^3)
+_GN_VAE_ENC_2D = [(65536, 64, 16), (16384, 64, 16), (16384, 128, 16), (4096, 128, 16),
+                  (4096, 256, 16)]
+_GN_VAE_DEC_2D = [(4096, 256, 16), (16384, 256, 16), (16384, 128, 16), (65536, 128, 16),
+                  (65536, 64, 16)]
+_GN_UNET_2D = [(4096, 256, 32), (4096, 512, 32), (4096, 768, 32), (1024, 256, 32),
+               (1024, 512, 32), (1024, 768, 32), (1024, 1024, 32), (1024, 1280, 32),
+               (256, 512, 32), (256, 768, 32), (256, 1280, 32), (256, 1536, 32)]
+_GN_DISC_2D = [(4096, 128, 128), (3969, 256, 256)]
+_GN_RESNET_2D = [(4096, 64, 64), (4096, 128, 128), (1024, 128, 128), (1024, 256, 256),
+                 (256, 256, 256), (256, 512, 512), (64, 512, 512)]
+_GN_RESNET_3D = [(32768, 64, 64), (32768, 128, 128), (4096, 128, 128), (4096, 256, 256),
+                 (512, 256, 256), (512, 512, 512), (64, 512, 512)]
+GN_SHAPES_2D = sorted(
+    {(24, *s) for s in _GN_VAE_ENC_2D + _GN_VAE_DEC_2D + _GN_DISC_2D}        # AE step
+    | {(48, *s) for s in _GN_VAE_ENC_2D + _GN_UNET_2D}                       # LDM step
+    | {(b, *s) for b in (16, 4) for s in _GN_UNET_2D + _GN_VAE_DEC_2D}      # sampling
+    | {(100, *s) for s in _GN_RESNET_2D} | {(2, *s) for s in _GN_RESNET_3D}  # eval
+    | {(100, 64, 2048, 2048)})  # the widest instance norm a ResNet50 stage could need
+FLASH_SHAPES_2D = [(48, 1024, 1, 512), (48, 256, 1, 768)]  # the 2D U-Net's sites, batch 48
+FLASH_FWD_SHAPES_2D = [(16, 1024, 1, 512), (16, 256, 1, 768), (4, 1024, 1, 512),
+                       (4, 256, 1, 768)]  # sampling chunks of 16 and 4
+AE_BATCH_2D, LDM_BATCH_2D = 24, 48
+# phase cli_2d's depth: epochs of 40 train / 8 val steps, DDIM 10 for the
+# interval grid and the eval (the planner's 250 / 50 steps, DDIM 50 and the
+# full ancestral eval trajectory)
+CLI_2D_TRAIN_STEPS, CLI_2D_VAL_STEPS, CLI_2D_PATIENTS = 40, 8, 8
+CLI_2D_VOLUME = (1, 48, 256, 256)
+
+
+def _flash_2d_case(B, S, H, D, dt, gen, backward):
+    """One flash shape against its plain versions (forward, and with
+    ``backward`` the dQ and dK/dV passes, same bits twice); returns
+    ({kernel: record}, log line)."""
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    scale = D ** -0.5
+    o, lse = fa.flash_attention(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
+    o_cut, lse_cut = fa.flash_attention_plain(q, k[:, FLASH_TILE:], v[:, FLASH_TILE:], scale)
+    o_ok, l_ok, err, lerr = flash_close(o, lse, o_ref, lse_ref, dt)
+    cut_seen = not any(flash_close(o_cut, lse_cut, o_ref, lse_ref, dt)[:2])
+    ok = o_ok and l_ok and cut_seen
+    timed = dt == torch.bfloat16
+    fl, n, bhs = B * H * S * S * D, B * S * H * D, B * H * S
+    isz = q.element_size()
+    rec = {}
+    line = (f"B={B} S={S} H={H} D={D} {str(dt)[6:]}: fwd max|o-plain|={err:.3e} "
+            f"max|lse-plain|={lerr:.3e} one-tile-skip caught={cut_seen}")
+    if timed:
+        import torch.nn.functional as F
+
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), 2, 5)
+        plain = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale), 1, 3)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 2, 5)
+        b_ = bound(4 * fl, 4 * n * isz + 4 * bhs, PEAK_BF16_FLOPS)
+        rec["flash_attn_fwd"] = dict(shape=[B, S, H, D], dtype="bf16", max_abs_err=err, ms=ms,
+                                     plain_ms=plain, bound_ms=b_[0], bound_by=b_[1],
+                                     library_ms=lib)
+        line += f" ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} bound_ms={b_[0]:.4f}"
+    if backward:
+        dq, delta = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, scale)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale)
+        r_dq, r_delta = fa.flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do, scale)
+        r_dk, r_dv = fa.flash_bwd_dkdv_plain(q, k, v, do, lse_ref, r_delta, scale)
+        dq2, delta2 = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, scale)
+        dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale)
+        same = all(torch.equal(a, b) for a, b in ((dq, dq2), (delta, delta2), (dk, dk2),
+                                                  (dv, dv2)))
+        res = {nm: within(g, r, *FLASH_BWD_TOL[dt])
+               for nm, g, r in (("dq", dq, r_dq), ("dk", dk, r_dk), ("dv", dv, r_dv))}
+        d_ok, d_err, _ = within(delta, r_delta, 1e-5, 1e-5)
+        ok = ok and all(x[0] for x in res.values()) and d_ok and same
+        line += (" | bwd " + " ".join(f"max|{nm}-plain|={x[1]:.3e}" for nm, x in res.items())
+                 + f" max|delta-plain|={d_err:.3e} bit-identical on a rerun={same}")
+        if timed:
+            ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, scale), 2, 5)
+            ms_kv = time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale), 2, 5)
+            p_dq = time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do, scale), 1, 3)
+            p_kv = time_ms(lambda: fa.flash_bwd_dkdv_plain(q, k, v, do, lse_ref, delta, scale),
+                           1, 3)
+            b_dq = bound(6 * fl, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
+            b_kv = bound(8 * fl, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
+            import torch.nn.functional as F
+
+            qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+            doh = do.transpose(1, 2).contiguous()
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+
+            lib = (time_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), 2, 5)
+                   - time_ms(sdpa, 2, 5))
+            for name, ms, pl, b_, e in (("flash_attn_bwd_dq", ms_dq, p_dq, b_dq, res["dq"][1]),
+                                        ("flash_attn_bwd_dkdv", ms_kv, p_kv, b_kv,
+                                         max(res["dk"][1], res["dv"][1]))):
+                rec[name] = dict(shape=[B, S, H, D], dtype="bf16", max_abs_err=e, ms=ms,
+                                 plain_ms=pl, bound_ms=b_[0], bound_by=b_[1], library_ms=lib)
+            line += (f" dq ms={ms_dq:.4f} plain_ms={p_dq:.4f} bound_ms={b_dq[0]:.4f} | dkdv "
+                     f"ms={ms_kv:.4f} plain_ms={p_kv:.4f} bound_ms={b_kv[0]:.4f} | SDPA backward "
+                     f"ms={lib:.4f}")
+    if not ok:
+        raise AssertionError(f"[kernels_2d] flash kernels disagree with their plain versions: "
+                             f"{line}")
+    return rec, line
+
+
+def _gn_2d_case(B, M, C, G, dt, gen):
+    """The four GroupNorm kernels at one (B, M, C, groups) against their
+    plain versions (16-byte loads, same bits twice); returns ({kernel:
+    (ms, bound ms)} in bf16, log line)."""
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+
+    x = (torch.randn((B, M, C), generator=gen, device="cuda") * 1.3 + 0.7).to(dt)
+    g = torch.randn((B, M, C), generator=gen, device="cuda").to(dt)
+    w = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(C, generator=gen, device="cuda")
+    vec0 = [f.vector_launches for f in (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply)]
+    st, A, bb = gn.stats_fold(x, w, b, G, 1e-6)
+    st_ref, rA, rbb = gn.stats_fold_plain(x, w, b, G, 1e-6)
+    same = all(torch.equal(u, v) for u, v in zip((st, A, bb), gn.stats_fold(x, w, b, G, 1e-6)))
+    srel = _err(st, st_ref) / st_ref.abs().max().item()
+    ferr = max(_err(A, rA) / rA.abs().max().item(), _err(bb, rbb) / rbb.abs().max().item())
+    ok = srel <= STATS_REL_TOL and ferr <= FOLD_REL_TOL
+    rtol, atol = AFFINE_TOL[dt]
+    aerr, xerr, prel = 0.0, 0.0, 0.0
+    for silu in (False, True):
+        y, y_ref = gn.affine_act(x, A, bb, silu), gn.affine_act_plain(x, A, bb, silu)
+        aerr = max(aerr, _err(y, y_ref))
+        ok = ok and bool(((y.float() - y_ref.float()).abs()
+                          <= atol + rtol * y_ref.float().abs()).all())
+        coef, ds, db = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
+        dx = gn.gn_bwd_apply(x, g, A, bb, coef, silu)
+        r_coef, r_ds, r_db = gn.gn_bwd_stats_plain(x, g, A, bb, st, w, G, 1e-6, silu)
+        r_dx = gn.gn_bwd_apply_plain(x, g, A, bb, r_coef, silu)
+        again = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
+        same = same and all(torch.equal(u, v) for u, v in zip(
+            (coef, ds, db, dx), (*again, gn.gn_bwd_apply(x, g, A, bb, again[0], silu))))
+        x_ok, e, _ = within(dx, r_dx, *GN_BWD_TOL[dt])
+        xerr = max(xerr, e)
+        p = max(_err(t_, r_) / r_.abs().max().item()
+                for t_, r_ in ((coef, r_coef), (ds, r_ds), (db, r_db)))
+        prel = max(prel, p)
+        ok = ok and x_ok and p <= GN_PARAM_GRAD_TOL
+    vec = [f.vector_launches - v0 for f, v0 in zip(
+        (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply), vec0)]
+    vec_ok = vec == [2, 4, 4]  # stats + fold twice; each backward pass twice a SiLU setting
+    torch.cuda.synchronize()
+    line = (f"B={B} M={M} C={C} G={G} {str(dt)[6:]}: stats rel_err={srel:.3e} A/b rel_err="
+            f"{ferr:.3e} affine max_abs_err={aerr:.3e} bwd dx max_abs_err={xerr:.3e} "
+            f"coef/dscale/dbias rel_err={prel:.3e} 16-byte loads={vec_ok} bit-identical on a "
+            f"rerun={same}")
+    if not (ok and same and vec_ok):
+        raise AssertionError(f"[kernels_2d] GroupNorm kernels disagree: {line}")
+    times = {}
+    if dt == torch.bfloat16:
+        isz = x.element_size()
+        bounds = gn_bounds_ms((B, C, M), isz, True)
+        times = {
+            "gn_stats_fold": time_ms(lambda: gn.stats_fold(x, w, b, G, 1e-6), 2, 5),
+            "gn_affine_act": time_ms(lambda: gn.affine_act(x, A, bb, True), 2, 5),
+            "gn_bwd_stats": time_ms(lambda: gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, True),
+                                    2, 5),
+            "gn_bwd_apply": time_ms(lambda: gn.gn_bwd_apply(x, g, A, bb, coef, True), 2, 5)}
+        times = {k: (v, bounds[k]) for k, v in times.items()}
+        line += " | ms / bound ms " + " ".join(f"{k[3:]}={v[0]:.4f}/{v[1]:.4f}"
+                                                 for k, v in times.items())
+    return times, line
+
+
+def phase_kernels_2d():
+    """Every port kernel against its plain version at the 2D paths' shapes:
+    flash forward and backward at batch 48 (the 2D U-Net's two attention
+    sites) and forward at the sampling chunks of 16 and 4; the four
+    GroupNorm kernels at every ``GN_SHAPES_2D`` shape, bf16 and fp32.
+    Returns {kernel: [record at each 2D flash shape]} and {kernel: the
+    largest ms / bound over the GroupNorm shapes}."""
+    gpu = card()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    recs = {}
+    t0 = time.perf_counter()
+    for shape in FLASH_SHAPES_2D + FLASH_FWD_SHAPES_2D:
+        for dt in (torch.bfloat16, torch.float32):
+            rec, line = _flash_2d_case(*shape, dt, gen, backward=shape in FLASH_SHAPES_2D)
+            log(f"[kernels_2d] {gpu}: flash {line} OK")
+            for name, r in rec.items():
+                recs.setdefault(name, []).append(r)
+    worst = {}
+    for shape in GN_SHAPES_2D:
+        for dt in (torch.bfloat16, torch.float32):
+            times, line = _gn_2d_case(*shape, dt, gen)
+            log(f"[kernels_2d] {gpu}: groupnorm {line} OK")
+            for name, (ms, b_ms) in times.items():
+                if ms / b_ms > worst.get(name, (0, None))[0]:
+                    worst[name] = (ms / b_ms, list(shape))
+        torch.cuda.empty_cache()
+    log(f"[kernels_2d] {gpu}: {len(GN_SHAPES_2D)} GroupNorm shapes and "
+        f"{len(FLASH_SHAPES_2D + FLASH_FWD_SHAPES_2D)} flash shapes agree; largest ms / bound "
+        f"(per-call medians with the wrapper's host time) {worst}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return recs, worst
+
+
+def gn_seen(nets, fn):
+    """Run fn with hooks on every GroupNorm of ``nets``: returns ({kernel:
+    least ms of the GroupNorm launches fn made, forward and backward}, the
+    set of (B, M, C, groups) they saw). Every call counts as differentiated
+    when ``torch.is_grad_enabled``."""
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+
+    seen = []
+
+    def hook(mod, args):
+        x = args[0]
+        seen.append((tuple(x.shape), x.element_size(), mod.num_groups,
+                     torch.is_grad_enabled() and x.requires_grad))
+
+    handles = [m.register_forward_pre_hook(hook) for net in nets for m in net.modules()
+               if isinstance(m, GroupNorm)]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    ms = {k: 0.0 for k in _counters()}
+    for shape, isz, _, grad in seen:
+        for k, v in gn_bounds_ms(shape, isz, grad).items():
+            ms[k] += v
+    return ms, {(sh[0], math.prod(sh[2:]), sh[1], g) for sh, _, g, _ in seen}
+
+
+def _check_gn_listed(label, shapes):
+    missing = set(shapes) - set(GN_SHAPES_2D)
+    if missing:
+        raise AssertionError(f"[{label}] GroupNorm shapes not held by phase kernels_2d (add "
+                             f"them to GN_SHAPES_2D): {sorted(missing)}")
+
+
+def _timed_steps(step, warmup, steps):
+    """(ms a step, peak GiB, launch counts, outputs) of ``steps`` calls of
+    step() after ``warmup``."""
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    gn.gn_bwd_apply.grad_copies = 0
+    t0 = time.perf_counter()
+    outs = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    if _input_copies() or _scalar_stats() or any(_scalar_bwd().values()):
+        raise AssertionError(f"flash inputs copied {_input_copies()}, scalar GroupNorm "
+                             f"launches {_scalar_stats()} / {_scalar_bwd()}")
+    return ms, torch.cuda.max_memory_allocated() / 2**30, _read_counts(), outs
+
+
+def phase_train_2d(warmup=2, steps=10):
+    """The planner's 2D flagship at full width: the stage-1 step at batch 24
+    (without, then with the adversarial loss) and the LDM step at batch 48;
+    each 2 + 10 steps with ms a step, peak memory, launches held to the
+    prediction, every GroupNorm shape held by phase kernels_2d, a profile
+    (device busy, idle share, each kernel's device ms beside its summed
+    bound) and the parts alone. Returns {"ae": .., "ldm": ..} with the
+    launches a step and the kernels' device ms / bound a step."""
+    from medical_image_generation_tpu_torch.data.augment import augment_batch
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.models.discriminator import least_squares_gan_loss
+    from medical_image_generation_tpu_torch.training import common
+    from medical_image_generation_tpu_torch.training.train_autoencoder import (
+        METRICS,
+        AutoEncoderTrainer,
+    )
+    from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    dev, gpu = torch.device("cuda"), card()
+    cfg = _train_config(False, spatial_dims=2)
+    out = {}
+
+    # ---- stage 1, batch 24
+    tr = AutoEncoderTrainer.from_config(cfg, "vae", device=dev, dtype=torch.bfloat16, seed=0)
+    randomize_(tr.model, 6321)
+    randomize_(tr.discriminator, 6322)
+    n_g, n_d = sum(p.numel() for p in tr.g_params), sum(p.numel() for p in tr.d_params)
+    initial = tuple(compute_initial_patch_size(cfg["ae_transformations"]))
+    B = int(cfg["ae_batch_size"])
+    gen = torch.Generator(device=dev).manual_seed(19)
+    batch = torch.rand((B, *initial, 1), generator=gen, device=dev)
+    log(f"[train_2d] {gpu}: 2D KL-VAE {cfg['vae_params']['num_channels']} params={n_g:,} "
+        f"(fp32 masters, bf16), PatchDiscriminator params={n_d:,}, 2D VGG16 perceptual loss; "
+        f"batch {tuple(batch.shape)} -> crop {tr.aug_cfg.crop_to}; perc {tr.perc_weight} kl "
+        f"{tr.kl_weight} adv {tr.adv_weight}")
+    if (B, n_g, tr.perc_weight, tr.kl_weight) != (AE_BATCH_2D, 7_063_457, 0.5, 1e-6):
+        raise AssertionError(f"not the planner's 2D stage-1 config: batch {B}, params {n_g}")
+    for adv_on in (False, True):
+        per_step = ae_per_step(tr, adv_on)
+        ms, peak, counts, ms_ = _timed_steps(lambda: tr.train_step(batch, adv_on), warmup, steps)
+        losses = {k: [float(m[k]) for m in ms_] for k in METRICS}
+        expect = {k: v * steps for k, v in per_step.items()}
+        bounds, shapes = gn_seen([tr.model, tr.discriminator],
+                                 lambda: tr.train_step(batch, adv_on))
+        _check_gn_listed("train_2d", shapes)
+        busy, shares = profile_breakdown(f"2D AE step adv_on={adv_on}",
+                                         lambda: tr.train_step(batch, adv_on))
+        prof = profile_breakdown.last
+        log(f"[train_2d] {gpu}: AE adv_on={adv_on}: {ms:.3f} ms a step, device busy "
+            f"{busy:.3f} ms, idle share {prof['idle_share']:.3f} (profiler), host enqueue "
+            f"{prof['host_ms']:.3f} ms, peak memory {peak:.2f} GiB; launches {counts}, predicted "
+            f"{expect}; losses (first, last) "
+            f"{({k: (round(v[0], 5), round(v[-1], 5)) for k, v in losses.items()})}")
+        for name in per_step:
+            if per_step[name]:
+                log(f"[train_2d] {gpu}: AE adv_on={adv_on} per step: {name} device ms="
+                    f"{shares[name]:.4f} bound ms={bounds[name]:.4f} ({per_step[name]} launches)")
+        if counts != expect or not all(math.isfinite(v) for vs in losses.values() for v in vs):
+            raise AssertionError(f"2D AE step: launches {counts} != {expect}, or losses {losses}")
+        out[f"ae_{int(adv_on)}"] = dict(ms=ms, busy=busy, idle=prof["idle_share"], peak=peak,
+                                        per_step=per_step,
+                                        step={k: (shares[k], bounds[k]) for k in bounds})
+    draws = tr.make_draws(batch)
+    imgs = augment_batch(batch, draws.augment, tr.aug_cfg)
+    with torch.no_grad():
+        recon = tr.model(imgs, draws.eps)[0]
+    r = recon.detach().requires_grad_()
+    D = tr.discriminator
+
+    def vae_fwd_bwd():
+        rc, mu, sigma = tr.model(imgs, draws.eps)
+        return torch.autograd.grad(common.l1_loss(rc, imgs)
+                                   + common.kl_loss(mu, sigma) * tr.kl_weight, tr.g_params)
+
+    parts = {"augment (per-sample loop, batch 24)": lambda: augment_batch(
+                 batch, draws.augment, tr.aug_cfg),
+             "VAE forward+backward": vae_fwd_bwd,
+             "perceptual forward+backward": lambda: torch.autograd.grad(
+                 tr.perceptual(r, imgs) * tr.perc_weight, r),
+             "discriminator on the reconstruction": lambda: torch.autograd.grad(
+                 least_squares_gan_loss(logits_fake=D(r)) * tr.adv_weight, r),
+             "discriminator update's passes": lambda: torch.autograd.grad(
+                 least_squares_gan_loss(logits_real=D(imgs), logits_fake=D(recon))
+                 * tr.adv_weight, tr.d_params)}
+    times = {k: time_ms(fn, 1, 3) for k, fn in parts.items()}
+    g_grads = list(vae_fwd_bwd())
+    times["generator clip+Adam"] = time_ms(lambda: tr.g_opt.step(g_grads), 1, 3)
+    log(f"[train_2d] {gpu}: AE parts alone, ms: "
+        + "; ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    out["ae_parts"] = times
+    del tr, imgs, recon, r, g_grads, D
+    torch.cuda.empty_cache()
+
+    # ---- LDM, batch 48
+    vae_f32 = AutoencoderKL.from_config(cfg["vae_params"], dtype=torch.float32, device=dev)
+    randomize_(vae_f32, 6323)
+    tr = LDMTrainer.from_config(cfg, vae_f32.state_dict(), device=dev, dtype=torch.bfloat16,
+                                seed=0)
+    del vae_f32
+    randomize_(tr.unet, 6324)
+    n_u = sum(p.numel() for p in tr.params)
+    initial = tuple(compute_initial_patch_size(cfg["ddpm_transformations"]))
+    B = int(cfg["ddpm_batch_size"])
+    batch = torch.rand((B, *initial, 1), generator=gen, device=dev)
+    scale, latent = tr.probe_latent(batch)
+
+    def count(mod, cls):
+        return sum(isinstance(m, cls) for m in mod.modules())
+
+    attn_u, gn_u, gn_e = (count(tr.unet, AttentionBlock), count(tr.unet, GroupNorm),
+                          count(tr.vae.encoder, GroupNorm))
+    per_step = {"flash_attn_fwd": attn_u, "flash_attn_bwd_dq": attn_u,
+                "flash_attn_bwd_dkdv": attn_u, "gn_stats_fold": gn_u + gn_e,
+                "gn_affine_act": gn_u + gn_e, "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u}
+    log(f"[train_2d] {gpu}: 2D U-Net {cfg['ddpm_params']['num_channels']} params={n_u:,}; "
+        f"batch {tuple(batch.shape)} -> crop {tr.aug_cfg.crop_to} -> latent {latent}; "
+        f"scale_factor {scale:.5f}; U-Net {attn_u} attention / {gn_u} GroupNorm, encoder "
+        f"{gn_e} GroupNorm")
+    if (B, n_u, latent[1:]) != (LDM_BATCH_2D, 171_277_832, (64, 64, 8)):
+        raise AssertionError(f"not the planner's 2D LDM config: batch {B}, params {n_u}, "
+                             f"latent {latent}")
+    ms, peak, counts, losses = _timed_steps(lambda: tr.train_step(batch), warmup, steps)
+    losses = [float(v) for v in losses]
+    expect = {k: v * steps for k, v in per_step.items()}
+    _check_gn_listed("train_2d", gn_seen([tr.unet, tr.vae.encoder],
+                                         lambda: tr.train_step(batch))[1])
+    bounds = step_bounds(tr, batch)
+    busy, shares = profile_breakdown("2D LDM step", lambda: tr.train_step(batch))
+    prof = profile_breakdown.last
+    log(f"[train_2d] {gpu}: LDM: {ms:.3f} ms a step, device busy {busy:.3f} ms, idle share "
+        f"{prof['idle_share']:.3f} (profiler), host enqueue {prof['host_ms']:.3f} ms, peak "
+        f"memory {peak:.2f} GiB; launches {counts}, predicted {expect}; losses {losses}")
+    for name in per_step:
+        log(f"[train_2d] {gpu}: LDM per step: {name} device ms={shares[name]:.4f} bound ms="
+            f"{bounds[name]:.4f} ({per_step[name]} launches)")
+    if counts != expect or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"2D LDM step: launches {counts} != {expect}, or losses {losses}")
+    out["ldm"] = dict(ms=ms, busy=busy, idle=prof["idle_share"], peak=peak, per_step=per_step,
+                      step={k: (shares[k], bounds[k]) for k in bounds})
+    z = torch.randn(latent, generator=gen, device=dev)
+    t = torch.randint(0, 1000, (B,), generator=gen, device=dev)
+
+    def fwd_bwd():
+        for p in tr.params:
+            p.grad = None
+        torch.mean((tr.unet(z, t).float() - z) ** 2).backward()
+
+    draws = tr.make_draws(batch)
+    imgs = augment_batch(batch, draws.augment, tr.aug_cfg)
+    times = {"augment (per-sample loop, batch 48)": time_ms(
+        lambda: augment_batch(batch, draws.augment, tr.aug_cfg), 1, 3)}
+    with torch.no_grad():
+        times["frozen encode"] = time_ms(lambda: tr.vae.encode_stage_2_inputs(imgs, draws.eps),
+                                         1, 3)
+    times["U-Net forward+backward"] = time_ms(fwd_bwd, 1, 3)
+    grads = [p.grad for p in tr.params]
+    times["clip+AdamW"] = time_ms(lambda: tr.opt.step(grads), 1, 3)
+    log(f"[train_2d] {gpu}: LDM parts alone, ms: "
+        + "; ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    out["ldm_parts"] = times
+    del tr, grads, imgs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _eval_prediction(tr, n, steps):
+    """Launches of one ``evaluate_generation`` of n samples at ``steps``
+    trajectory steps: each chunk's U-Net forwards and decode, then the
+    ResNet50 over the real and the generated images."""
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+
+    def count(mod, cls):
+        return sum(isinstance(m, cls) for m in mod.modules())
+
+    chunks = -(-n // 16)
+    gn = (chunks * (steps * count(tr.unet, GroupNorm) + count(tr.vae.decoder, GroupNorm))
+          + 2 * count(tr.feature_extractor.module, GroupNorm))
+    out = {k: 0 for k in _counters()}
+    out.update(flash_attn_fwd=chunks * steps * count(tr.unet, AttentionBlock),
+               gn_stats_fold=gn, gn_affine_act=gn)
+    return out
+
+
+def phase_cli_2d(ws):
+    """The three CLIs at the planner's 2D flagship on a synthetic 2D task
+    (see the module docstring). Returns the launches of one eval."""
+    import functools
+    from unittest import mock
+
+    import numpy as np
+
+    from medical_image_generation_tpu_torch.data import loader as loader_mod
+    from medical_image_generation_tpu_torch.io import png
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.training import sample, train_autoencoder, train_ldm
+
+    t_phase = time.perf_counter()
+    gpu = ws["gpu"]
+    cfg = _train_config(False, spatial_dims=2)
+    nbytes = _write_cli_dataset(os.environ["medimgen_preprocessed"], cfg, task="Task098_Synth2D",
+                                volume=CLI_2D_VOLUME, patients=CLI_2D_PATIENTS, key="2D")
+    log(f"[cli_2d] {gpu}: dataset {CLI_2D_PATIENTS} x {CLI_2D_VOLUME} float32, "
+        f"{nbytes / 1e6:.1f} MB on disk")
+    argv = ["098", "train-val-test", "2d", "--set", "n_epochs=1", "--set", "val_plot_interval=1"]
+    loaders = functools.partial(loader_mod.get_data_loaders, train_steps=CLI_2D_TRAIN_STEPS,
+                                val_steps=CLI_2D_VAL_STEPS)
+    samples = functools.partialmethod(train_ldm.LDMTrainer.sample_images,
+                                      num_inference_steps=CLI_DDIM_STEPS)
+    evals = []
+    orig_eval = train_ldm.LDMTrainer.evaluate_generation
+
+    def counted_eval(self, *a, **k):
+        extractor = self.feature_extractor  # built before the hooks go on
+        c0, res = _read_counts(), []
+        t0 = time.perf_counter()
+        bounds, shapes = gn_seen([self.unet, self.vae.decoder, extractor.module],
+                                 lambda: res.append(orig_eval(self, *a, **k)))
+        evals.append(dict(metrics=res[0], secs=time.perf_counter() - t0, bounds=bounds,
+                          shapes=shapes, counts={n: c - c0[n] for n, c in _read_counts().items()},
+                          expect=_eval_prediction(self, 100, CLI_DDIM_STEPS)))
+        return res[0]
+
+    with mock.patch.object(train_autoencoder, "get_data_loaders", loaders), \
+            mock.patch.object(train_ldm, "get_data_loaders", loaders), \
+            mock.patch.object(train_ldm.LDMTrainer, "sample_images", samples), \
+            mock.patch.object(train_ldm.LDMTrainer, "evaluate_generation", counted_eval):
+        # ---- medimgen_torch_train_autoencoder ... 2d
+        t0 = time.perf_counter()
+        ae = _run_main(train_autoencoder.run_cli, argv)
+        torch.cuda.synchronize()
+        st = ae.epoch_stats[0]
+        rec = png.read_png(st["recon"])
+        log(f"[cli_2d] {gpu}: medimgen_torch_train_autoencoder 2d: {st['steps']} train + "
+            f"{st['val_steps']} val steps at batch {ae.config['ae_batch_size']}, CLI ms a train "
+            f"step {st['train_s'] * 1e3 / st['steps']:.3f}, val {st['val_s'] * 1e3 / st['val_steps']:.3f}"
+            f" ms a step, loader wait {st['wait_s'] * 1e3 / st['steps']:.3f} ms a step; saved "
+            f"{st['saved']}; reconstruction {os.path.basename(st['recon'])} {rec.shape}; run "
+            f"{time.perf_counter() - t0:.1f} s")
+        if (st["steps"] != CLI_2D_TRAIN_STEPS or rec.shape != (256, 2 * 256 + 2)
+                or sorted(st["saved"]) != ["best_model", "last_model"]):
+            raise AssertionError(f"2D AE CLI: {st}")
+        del ae
+        torch.cuda.empty_cache()
+
+        # ---- medimgen_torch_train_ldm ... 2d with the default generative eval
+        t0 = time.perf_counter()
+        tr = _run_main(train_ldm.run_cli, argv + [
+            "--set", "eval_sampler=ddim", "--set", f"eval_num_inference_steps={CLI_DDIM_STEPS}",
+            "--set", "eval_mmd=true"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    st = tr.epoch_stats[0]
+    grid = png.read_png(st["samples"])
+    ev = evals[0]
+    m = ev["metrics"]
+    log(f"[cli_2d] {gpu}: medimgen_torch_train_ldm 2d: {st['steps']} train + {st['val_steps']} "
+        f"val steps at batch {tr.config['ddpm_batch_size']}, CLI ms a train step "
+        f"{st['train_s'] * 1e3 / st['steps']:.3f}, val {st['val_s'] * 1e3 / st['val_steps']:.3f} "
+        f"ms a step, loader wait {st['wait_s'] * 1e3 / st['steps']:.3f} ms and copy "
+        f"{st['copy_s'] * 1e3 / st['steps']:.3f} ms a step; interval grid "
+        f"{os.path.basename(st['samples'])} {grid.shape} in {st['sample_s']:.3f} s; run "
+        f"{run_s:.1f} s")
+    log(f"[cli_2d] {gpu}: evaluate_generation (n=100, DDIM {CLI_DDIM_STEPS}, eval_mmd): FID "
+        f"{m['fid']:.4f} SSIM {m['ssim']:.4f} +- {m['ssim_std']:.4f} MS-SSIM {m['ms_ssim']:.4f} "
+        f"+- {m['ms_ssim_std']:.4f} MMD {m['mmd']:.6f} over {m['n_pairs']} pairs; seconds "
+        f"{({k: round(v, 3) for k, v in m['seconds'].items()})} ({ev['secs']:.3f} s in all); "
+        f"launches {ev['counts']}, predicted {ev['expect']}; GroupNorm shapes "
+        f"{sorted(ev['shapes'])}; summed bound ms {({k: round(v, 4) for k, v in ev['bounds'].items() if v})}")
+    finite = all(math.isfinite(m[k]) for k in ("fid", "ssim", "ms_ssim", "mmd"))
+    if (m["n_pairs"] != 4950 or not finite or ev["counts"] != ev["expect"]
+            or grid.shape != (4 * 256 + 6,) * 2 or st["steps"] != CLI_2D_TRAIN_STEPS):
+        raise AssertionError(f"2D LDM CLI / eval: {m}, launches {ev['counts']} != "
+                             f"{ev['expect']}, grid {grid.shape}")
+    _check_gn_listed("cli_2d", ev["shapes"])
+
+    # ---- one 16-sample chunk over the full 1000-step ancestral trajectory
+    attn_u = sum(isinstance(x, AttentionBlock) for x in tr.unet.modules())
+    gn_ud = (1000 * sum(isinstance(x, GroupNorm) for x in tr.unet.modules())
+             + sum(isinstance(x, GroupNorm) for x in tr.vae.decoder.modules()))
+    _reset_counts()
+    t0 = time.perf_counter()
+    chunk = tr.sample_images(16, sampler="ddpm",
+                             generator=torch.Generator(device="cuda").manual_seed(777))
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    counts = _read_counts()
+    nonsample = sum(v for k, v in m["seconds"].items() if k != "sampling")
+    log(f"[cli_2d] {gpu}: one 16-sample chunk of the full 1000-step DDPM trajectory: "
+        f"{chunk_s:.2f} s ({chunk_s:.4f} ms a step x1000), images {chunk.shape} finite "
+        f"{bool(np.isfinite(chunk).all())}; launches {counts}; the full protocol (7 chunks, "
+        f"the last of 4 samples, + features, FID, pairwise, MMD) projects to at most "
+        f"{7 * chunk_s + nonsample:.1f} s an eval")
+    if (chunk.shape != (16, 256, 256, 1) or not np.isfinite(chunk).all()
+            or counts["flash_attn_fwd"] != 1000 * attn_u or counts["gn_stats_fold"] != gn_ud):
+        raise AssertionError(f"full-trajectory chunk: {chunk.shape}, launches {counts}")
+    run_cfg = os.path.join(tr.save_path, "config.yaml")
+    best = os.path.join(tr.save_dict["checkpoints"], "best_model.pt")
+    del tr, chunk
+    torch.cuda.empty_cache()
+
+    # ---- medimgen_torch_sample_ldm: PNGs, read back
+    out = os.path.join(ws["root"], "samples_2d")
+    t0 = time.perf_counter()
+    _run_main(sample.main_ldm, [run_cfg, best, "-n", "4", "--num_inference_steps",
+                                str(CLI_DDIM_STEPS), "-o", out])
+    names = sorted(os.listdir(out))
+    imgs = [png.read_png(os.path.join(out, f)) for f in names]
+    ok = (names == [f"ldm_sample_{i:03d}.png" for i in range(4)] + ["ldm_sample_grid.png"]
+          and all(i.shape == (256, 256) for i in imgs[:4]) and imgs[4].shape == (256, 4 * 256 + 6))
+    log(f"[cli_2d] {gpu}: medimgen_torch_sample_ldm 2d, 4 samples, {CLI_DDIM_STEPS} DDIM steps: "
+        f"{names} shapes {[i.shape for i in imgs]} ok={ok} in {time.perf_counter() - t0:.1f} s; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        raise AssertionError(f"2D sampling CLI wrote {names}")
+    return ev["counts"]
+
+
+def eval_3d_call(out_dir):
+    """The 3D eval's features (``FeatureExtractor(spatial_dims=3)``,
+    random-feature ResNet50, bf16) on the two volumes the 3D sampling CLI
+    wrote, read back from their ``.nii.gz``; returns its launches."""
+    import numpy as np
+
+    from medical_image_generation_tpu_torch.eval.features import FeatureExtractor
+    from medical_image_generation_tpu_torch.io.nifti import load_nifti
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+
+    gpu = card()
+    vols = np.stack([np.transpose(load_nifti(os.path.join(out_dir, f"ldm_sample_{i:03d}.nii.gz"))
+                                  .data, (2, 1, 0))[..., None] for i in range(2)])
+    fe = FeatureExtractor(spatial_dims=3)
+    fe(vols)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    feats = fe(vols)
+    secs = time.perf_counter() - t0
+    counts = _read_counts()
+    bounds, shapes = gn_seen([fe.module], lambda: fe(vols))
+    _check_gn_listed("eval_3d", shapes)
+    n_gn = sum(isinstance(x, GroupNorm) for x in fe.module.modules())
+    log(f"[eval_3d] {gpu}: FeatureExtractor(spatial_dims=3) on the sampling CLI's volumes "
+        f"{vols.shape} read back from .nii.gz: features {feats.shape} finite "
+        f"{bool(np.isfinite(feats).all())} in {secs * 1e3:.1f} ms; launches {counts}; "
+        f"GroupNorm shapes {sorted(shapes)}; summed bound ms "
+        f"{({k: round(v, 4) for k, v in bounds.items() if v})}")
+    if (feats.shape != (2, 2048) or not np.isfinite(feats).all()
+            or counts["gn_stats_fold"] != n_gn or fe.dtype != torch.bfloat16):
+        raise AssertionError(f"3D eval call: features {feats.shape}, launches {counts}")
     return counts
 
 
@@ -1826,15 +2467,18 @@ def main() -> int:
     phase_build()
     rec = phase_kernels()
     rec.update(phase_kernels_bwd())
+    rec_2d, worst_2d = phase_kernels_2d()
     phase_parity()
     phase_parity_train()
     phase_slice()
     counts, per_step, train_ms = phase_train()
     phase_ae_parity()
     ae, ae_per = phase_ae_train()
+    t2d = phase_train_2d()
     with cli_workspace() as ws:
         phase_ae_cli(ws, ae_per)
-        cli_counts = phase_cli(ws, counts, train_ms)
+        cli_counts, eval3d = phase_cli(ws, counts, train_ms)
+        eval2d = phase_cli_2d(ws)
     log(f"[env] total {time.perf_counter() - t0:.1f} s")
     print(card())
     src = "medical_image_generation_tpu_torch/csrc/"
@@ -1855,7 +2499,15 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name], **rec[name], **per_step[name],
                         "cli_launches": cli_counts[name], "ae_launches": ae[True]["counts"][name],
-                        "ae_step_ms": ae_ms, "ae_step_bound_ms": ae_bound})
+                        "ae_step_ms": ae_ms, "ae_step_bound_ms": ae_bound,
+                        "launches_2d": {"ldm_step": t2d["ldm"]["per_step"][name],
+                                        "ae_step": t2d["ae_1"]["per_step"][name],
+                                        "eval": eval2d[name], "eval_3d": eval3d[name]},
+                        "step_ms_2d": {"ldm": t2d["ldm"]["step"][name],
+                                       "ae": t2d["ae_1"]["step"][name]},
+                        "shapes_2d": [{k: r[k] for k in ("shape", "ms", "bound_ms")}
+                                      for r in rec_2d.get(name, [])],
+                        "worst_ms_over_bound_2d": worst_2d.get(name)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ re-laid-out for PyTorch:
 * Embed ``embedding``                   -> ``weight``
 * ``bias``                              -> ``bias``
 * VQ ``codebook``                       -> ``codebook`` (unchanged)
+* frozen-BN ``mean`` / ``var``          -> ``mean`` / ``var`` (unchanged)
 
 Input trees are nested dicts of numpy arrays (e.g. ``jax.device_get`` of the
 flax params, or a restored checkpoint payload); nothing here imports JAX.
@@ -53,7 +54,7 @@ def _leaf(name: str, value) -> tuple:
         return "weight", np.transpose(a, (a.ndim - 1, a.ndim - 2, *range(a.ndim - 2)))
     if name in ("scale", "embedding"):
         return "weight", a
-    if name in ("bias", "codebook"):
+    if name in ("bias", "codebook", "mean", "var"):
         return name, a
     raise KeyError(f"unknown flax leaf {name!r}")
 
@@ -93,6 +94,16 @@ def perceptual_from_flax(params) -> Dict[str, torch.Tensor]:
     """State dict of ``models.perceptual.VGGFeatures`` from the flax
     ``VGGFeatures`` variables (``PerceptualLoss.params``, with or without
     the outer ``params`` collection)."""
+    params = dict(params)
+    return flax_to_state_dict(params.get("params", params))
+
+
+def features_from_flax(params) -> Dict[str, torch.Tensor]:
+    """State dict of ``eval.features.ResNet50Features`` from the flax
+    ``ResNet50Features`` variables (with or without the outer ``params``
+    collection): the random-feature tree (convs with biases, per-channel
+    ``GroupNorm_k``) or the pretrained one (bias-free convs,
+    ``FrozenBatchNorm_k`` with ``scale``, ``bias``, ``mean``, ``var``)."""
     params = dict(params)
     return flax_to_state_dict(params.get("params", params))
 

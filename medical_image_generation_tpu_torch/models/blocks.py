@@ -62,21 +62,22 @@ class Linear(nn.Linear):
 
 
 class ConvND(nn.Module):
-    """Conv with per-axis kernel/stride/padding; the conv is the child
-    ``Conv_0`` (flax ``ConvND_k/Conv_0``). Its weight is kept channels-last
-    so cuDNN runs NDHWC convolutions; it is held in ``param_dtype`` and cast
-    to ``dtype`` for the conv."""
+    """Conv with per-axis kernel/stride/padding/dilation; the conv is the
+    child ``Conv_0`` (flax ``ConvND_k/Conv_0``). Its weight is kept
+    channels-last so cuDNN runs NDHWC convolutions; it is held in
+    ``param_dtype`` and cast to ``dtype`` for the conv."""
 
     def __init__(self, in_channels: int, features: int, kernel_size=3, strides=1,
                  padding=1, spatial_dims: int = 3, use_bias: bool = True,
-                 dtype=torch.float32, param_dtype=None, device=None):
+                 kernel_dilation=1, dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         conv = nn.Conv3d if spatial_dims == 3 else nn.Conv2d
         self.dtype = dtype
         self.Conv_0 = conv(
             in_channels, features, _per_axis(kernel_size, spatial_dims),
             stride=_per_axis(strides, spatial_dims), padding=_per_axis(padding, spatial_dims),
-            bias=use_bias, dtype=param_dtype or dtype, device=device)
+            dilation=_per_axis(kernel_dilation, spatial_dims), bias=use_bias,
+            dtype=param_dtype or dtype, device=device)
         fmt = torch.channels_last_3d if spatial_dims == 3 else torch.channels_last
         self.Conv_0.weight.data = self.Conv_0.weight.data.contiguous(memory_format=fmt)
 

@@ -249,20 +249,32 @@ def create_config_dict(
     }
 
 
-def flagship_configs(tiny: bool = False):
-    """(vae_params, ddpm_params, image_size) of the planner's flagship 3D
-    configuration for a 128^3 median dataset, or of its tiny test geometry
-    (the same derivation and shrink as the JAX package's
-    ``__graft_entry__._flagship_configs``)."""
-    median = (16, 16, 16) if tiny else (128, 128, 128)
-    ds = {"median_shape": median, "max_shape": median}
-    vae = create_autoencoder_dict(ds, [0], spatial_dims=3)
-    ddpm = create_ddpm_dict(ds, spatial_dims=3)
+def flagship_dataset(tiny: bool = False, spatial_dims: int = 3) -> Dict:
+    """The dataset statistics of the planner's flagship configuration, as
+    ``create_*_dict`` take them: a 128^3 median dataset (3D), a dataset of
+    max shape (128, 256, 256) (2D), or (16, 16, 16) for the tiny test
+    geometry."""
+    shape = (16, 16, 16) if tiny else ((128, 128, 128) if spatial_dims == 3 else (128, 256, 256))
+    return {"median_shape": shape, "max_shape": shape}
+
+
+def flagship_configs(tiny: bool = False, spatial_dims: int = 3):
+    """(vae_params, ddpm_params, image_size) of the planner's flagship
+    configuration, or of its tiny test geometry (the same derivation and
+    shrink as the JAX package's ``__graft_entry__._flagship_configs``).
+
+    3D: patch 128^3, KL-VAE [32, 64, 128], latent 32^3 x 8. 2D: patch
+    256^2, KL-VAE [64, 128, 256], latent 64^2 x 8, U-Net attention at 32^2
+    and 16^2. Tiny: patch 32^3 or 32^2 with narrow channels in both
+    networks."""
+    ds = flagship_dataset(tiny, spatial_dims)
+    vae = create_autoencoder_dict(ds, [0], spatial_dims=spatial_dims)
+    ddpm = create_ddpm_dict(ds, spatial_dims=spatial_dims)
     if tiny:
         vae.update(num_channels=[8, 16], norm_num_groups=4, latent_channels=4,
                    num_res_blocks=1)
         ddpm.update(num_channels=[8, 16, 16], num_head_channels=[0, 0, 8],
                     norm_num_groups=4, num_res_blocks=1, in_channels=4,
                     out_channels=4)
-    image_size = snap_patch_size(median, median, 3)
+    image_size = snap_patch_size(ds["median_shape"], ds["max_shape"], spatial_dims)
     return vae, ddpm, image_size

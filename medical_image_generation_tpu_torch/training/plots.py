@@ -5,19 +5,22 @@ The port's copy of ``medical_image_generation_tpu/training/plots.py``
 15-145, train_autoencoder.py:488-531, train_ldm.py:400-464):
 ``plots/loss.png`` / ``all_losses.png`` curves, ``epoch_N.png`` sample
 grids and image / reconstruction pairs in 2D, animated ``epoch_N.gif``
-slice fly-throughs in 3D (200 ms/frame). matplotlib and PIL are imported
-when a figure is drawn, not at import: without them the curves are skipped
-(the trainers always write ``loss_dict.pkl``), the interval samples and
-reconstructions are written as ``epoch_N.npy``, and one line says that the
-figures were skipped.
+slice fly-throughs in 3D (200 ms/frame). The 2D images are written by
+``io/png.py`` (the samples themselves, no figure), so they need neither
+matplotlib nor PIL. matplotlib and PIL are imported when a curve or a GIF is
+drawn, not at import: without them the curves are skipped (the trainers
+always write ``loss_dict.pkl``), the 3D samples and reconstructions are
+written as ``epoch_N.npy``, and one line says that the figures were skipped.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from medical_image_generation_tpu_torch.io import png
 
 _warned = False
 
@@ -37,13 +40,6 @@ def _pyplot():
     import matplotlib.pyplot as plt
 
     return plt
-
-
-def _to_uint8(img: np.ndarray) -> np.ndarray:
-    img = np.asarray(img, dtype=np.float32)
-    mn, mx = float(img.min()), float(img.max())
-    denom = (mx - mn) if mx > mn else 1.0
-    return ((img - mn) / denom * 255.0).astype(np.uint8)
 
 
 def save_main_losses(train_losses: List[float], val_losses: List[float], path: str,
@@ -89,39 +85,6 @@ def save_all_losses(loss_dict: Dict[str, List[float]], path: str) -> bool:
     return True
 
 
-def save_image_pair_2d(image: np.ndarray, recon: np.ndarray, path: str) -> None:
-    """Side-by-side original/reconstruction png (reference utils.py:32-56)."""
-    plt = _pyplot()
-    image = np.squeeze(np.asarray(image))
-    recon = np.squeeze(np.asarray(recon))
-    fig, axes = plt.subplots(1, 2, figsize=(8, 4))
-    for ax, img, name in zip(axes, (image, recon), ("image", "reconstruction")):
-        ax.imshow(_to_uint8(img if img.ndim == 2 else img[..., 0]), cmap="gray")
-        ax.set_title(name)
-        ax.axis("off")
-    fig.tight_layout()
-    fig.savefig(path, dpi=100)
-    plt.close(fig)
-
-
-def save_image_grid_2d(images: Sequence[np.ndarray], path: str, ncols: int = 4) -> None:
-    """Grid of generated samples (reference train_ldm.py:400-430)."""
-    plt = _pyplot()
-    n = len(images)
-    ncols = min(ncols, n)
-    nrows = -(-n // ncols)
-    fig, axes = plt.subplots(nrows, ncols, figsize=(3 * ncols, 3 * nrows), squeeze=False)
-    for i in range(nrows * ncols):
-        ax = axes[i // ncols][i % ncols]
-        ax.axis("off")
-        if i < n:
-            img = np.squeeze(np.asarray(images[i]))
-            ax.imshow(_to_uint8(img if img.ndim == 2 else img[..., 0]), cmap="gray")
-    fig.tight_layout()
-    fig.savefig(path, dpi=100)
-    plt.close(fig)
-
-
 def save_volume_gif(volume: np.ndarray, path: str, recon: Optional[np.ndarray] = None,
                     duration_ms: int = 200) -> None:
     """Animated per-slice GIF of a 3D volume, optionally side-by-side with a
@@ -140,7 +103,7 @@ def save_volume_gif(volume: np.ndarray, path: str, recon: Optional[np.ndarray] =
         frame = volume[z]
         if recon is not None:
             frame = np.concatenate([frame, recon[z]], axis=1)
-        frames.append(Image.fromarray(_to_uint8(frame)))
+        frames.append(Image.fromarray(png.to_uint8(frame)))
     if frames:
         frames[0].save(
             path, save_all=True, append_images=frames[1:], duration=duration_ms, loop=0
@@ -149,14 +112,14 @@ def save_volume_gif(volume: np.ndarray, path: str, recon: Optional[np.ndarray] =
 
 def save_samples(images: np.ndarray, plots_dir: str, epoch: int, spatial_dims: int) -> str:
     """The LDM loop's interval samples (JAX ``train_ldm.py:502-511``):
-    ``epoch_N.png`` (2D grid) or ``epoch_N.gif`` (3D, the first two
-    volumes side by side); ``epoch_N.npy`` of all of them when matplotlib
-    or PIL is missing. Returns the path written."""
+    ``epoch_N.png`` (2D grid, ``io/png.py``) or ``epoch_N.gif`` (3D, the
+    first two volumes side by side); in 3D ``epoch_N.npy`` of all of them
+    when PIL is missing. Returns the path written."""
     stem = os.path.join(plots_dir, f"epoch_{epoch + 1}")
+    if spatial_dims == 2:
+        png.write_png(stem + ".png", png.image_grid(list(images)))
+        return stem + ".png"
     try:
-        if spatial_dims == 2:
-            save_image_grid_2d(list(images), stem + ".png")
-            return stem + ".png"
         save_volume_gif(images[0], stem + ".gif",
                         recon=images[1] if len(images) > 1 else None)
         return stem + ".gif"
@@ -169,15 +132,15 @@ def save_samples(images: np.ndarray, plots_dir: str, epoch: int, spatial_dims: i
 def save_reconstruction(image: np.ndarray, recon: np.ndarray, plots_dir: str, epoch: int,
                         spatial_dims: int) -> str:
     """The autoencoder loop's interval reconstruction (JAX
-    ``train_autoencoder.py:393-406``): ``epoch_N.png`` (2D pair) or
-    ``epoch_N.gif`` (3D, image and reconstruction side by side); ``epoch_N.npy``
-    of the stacked pair when matplotlib or PIL is missing. Returns the path
-    written."""
+    ``train_autoencoder.py:393-406``): ``epoch_N.png`` (2D, image and
+    reconstruction side by side, ``io/png.py``) or ``epoch_N.gif`` (3D, the
+    same pair); in 3D ``epoch_N.npy`` of the stacked pair when PIL is
+    missing. Returns the path written."""
     stem = os.path.join(plots_dir, f"epoch_{epoch + 1}")
+    if spatial_dims == 2:
+        png.write_png(stem + ".png", png.image_grid([image, recon], ncols=2))
+        return stem + ".png"
     try:
-        if spatial_dims == 2:
-            save_image_pair_2d(image, recon, stem + ".png")
-            return stem + ".png"
         save_volume_gif(image, stem + ".gif", recon=recon)
         return stem + ".gif"
     except ImportError as e:

@@ -12,7 +12,10 @@ back to the VQ codebook's [min, max], JAX ``_unscale`` :152-155), decoded
 The CLI reads a torch checkpoint (``.pt`` holding ``unet`` and ``vae`` (or
 ``vq``) state_dicts, ``scale_factor`` and ``latent_shape``) plus the run's
 config.yaml (its ``latent_space_type`` picks the autoencoder), and writes
-one ``.npy`` volume per sample. It samples ``unet``,
+what the JAX ``_write_outputs`` writes (``training/sample.py:57-73``): in 3D
+one ``ldm_sample_NNN.nii.gz`` a sample, float32 in NIfTI (X, Y, Z[, C])
+order (``io/nifti.py``); in 2D one ``ldm_sample_NNN.png`` a sample and
+``ldm_sample_grid.png`` (``io/png.py``). It samples ``unet``,
 the live params, as the JAX sampling CLI samples ``params``
 (``training/sample.py:89-95``); a checkpoint of a run with EMA also holds
 ``ema_unet``, which the training loop's interval samples use. The
@@ -34,6 +37,8 @@ from medical_image_generation_tpu_torch._device import resolve_device
 from medical_image_generation_tpu_torch.config.run import load_config
 from medical_image_generation_tpu_torch.diffusion.sampler import DDIMSampler, SegmentedDDPMSampler
 from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
+from medical_image_generation_tpu_torch.io import png
+from medical_image_generation_tpu_torch.io.nifti import save_nifti
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
 from medical_image_generation_tpu_torch.training.common import build_generator
 
@@ -155,7 +160,7 @@ def load_torch_checkpoint(path: str) -> dict:
 
 
 def _parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Sample volumes from a trained LDM (PyTorch port).")
+    p = argparse.ArgumentParser(description="Sample images or volumes from a trained LDM (PyTorch port).")
     p.add_argument("config", help="run config.yaml (vae_params, ddpm_params, ...)")
     p.add_argument("checkpoint", help=".pt with unet/vae state_dicts, scale_factor, latent_shape")
     p.add_argument("-n", "--n_samples", type=int, default=4)
@@ -187,10 +192,26 @@ def main_ldm(argv: Optional[Sequence[str]] = None) -> None:
                             num_inference_steps=args.num_inference_steps,
                             class_label=args.class_label, guidance_scale=args.guidance_scale,
                             generator=gen)
-    os.makedirs(args.output_dir, exist_ok=True)
+    _write_outputs(images, args.output_dir, "ldm_sample")
+
+
+def _write_outputs(images: np.ndarray, output_dir: str, tag: str) -> None:
+    """Samples (n, *spatial, C) as files: ``{tag}_NNN.nii.gz`` in NIfTI
+    (X, Y, Z[, C]) order for volumes; ``{tag}_NNN.png`` and ``{tag}_grid.png``
+    for 2D images (JAX ``training/sample.py:57-73``)."""
+    os.makedirs(output_dir, exist_ok=True)
+    volumes = images.ndim == 5
     for i, img in enumerate(images):
-        np.save(os.path.join(args.output_dir, f"ldm_sample_{i:03d}.npy"), img)
-    print(f"Wrote {len(images)} samples of shape {images.shape[1:]} to {args.output_dir}")
+        if volumes:
+            vol = np.squeeze(img, axis=-1) if img.shape[-1] == 1 else img
+            # (Z, Y, X[, C]) -> NIfTI (X, Y, Z[, C]): the spatial axes reverse
+            vol = np.transpose(vol, (2, 1, 0, 3) if vol.ndim == 4 else (2, 1, 0))
+            save_nifti(os.path.join(output_dir, f"{tag}_{i:03d}.nii.gz"), vol.astype(np.float32))
+        else:
+            png.write_png(os.path.join(output_dir, f"{tag}_{i:03d}.png"), png.to_uint8(img))
+    if not volumes:
+        png.write_png(os.path.join(output_dir, f"{tag}_grid.png"), png.image_grid(list(images)))
+    print(f"Wrote {len(images)} samples of shape {images.shape[1:]} to {output_dir}")
 
 
 if __name__ == "__main__":

@@ -50,8 +50,19 @@ shuffle RNG and batch seed counter): a resumed run continues its draws and
 its patient order (the JAX loop restarts its step counter at 0 and replays
 step 0's keys, and builds a fresh loader).
 
-Not ported, and refused before the first step: ``run_generation_eval``
-(FID / SSIM eval) and the augmentations that ``data/augment.py`` lacks.
+Every ``val_plot_interval`` epochs, after the interval samples and when
+``run_generation_eval`` is on (the default in 2D), ``evaluate_generation``
+(JAX :358-440) scores the model: n samples (100 in 2D, 40 in 3D, at most
+16 / 2 a ``sample_images`` call) from a generator seeded ``seed + 777``
+with ``eval_sampler`` (default ``ddpm``, the full ancestral trajectory) and
+``eval_num_inference_steps``, as many real images from the val loader, FID
+over the cached ``FeatureExtractor``'s features, SSIM / MS-SSIM (window
+``EVAL_SSIM_KERNEL``) over all C(n, 2) sample pairs, and with ``eval_mmd``
+the MMD of the same features. The metrics and their seconds (sampling,
+features, pairwise) go into the epoch's ``epoch_stats``.
+
+Not ported, and refused before the first step: the augmentations that
+``data/augment.py`` lacks.
 """
 
 from __future__ import annotations
@@ -81,8 +92,12 @@ from medical_image_generation_tpu_torch.data.augment import (
     check_ported,
     make_draws,
 )
-from medical_image_generation_tpu_torch.data.loader import get_data_loaders
+from medical_image_generation_tpu_torch.data.loader import get_data_loaders, unpack_batch
 from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
+from medical_image_generation_tpu_torch.eval.features import FeatureExtractor
+from medical_image_generation_tpu_torch.eval.fid import fid_from_features
+from medical_image_generation_tpu_torch.eval.mmd import mmd_from_features
+from medical_image_generation_tpu_torch.eval.ssim import pairwise_metrics
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
@@ -338,6 +353,71 @@ class LDMTrainer:
                 generator=generator)
         return out
 
+    # -------------------------------------------------------------- eval
+
+    # the reference protocol builds MONAI's SSIM and MS-SSIM with kernel_size=4
+    EVAL_SSIM_KERNEL = 4
+
+    @property
+    def feature_extractor(self) -> FeatureExtractor:
+        """The FID extractor, built once a trainer (JAX train_ldm.py:
+        358-367)."""
+        if getattr(self, "_extractor", None) is None:
+            self._extractor = FeatureExtractor(spatial_dims=self.spatial_dims, device=self.device)
+        return self._extractor
+
+    def evaluate_generation(self, val_loader, n_samples: Optional[int] = None,
+                            generator: Optional[torch.Generator] = None) -> Dict:
+        """The generative eval (JAX train_ldm.py:373-440): FID between
+        ``n_samples`` samples and as many val images, pairwise SSIM / MS-SSIM
+        over every pair of samples, and MMD with ``eval_mmd``. Prints the
+        JAX line; returns the metrics and ``seconds`` {sampling, features,
+        pairwise}."""
+        if n_samples is None:
+            n_samples = 100 if self.spatial_dims == 2 else 40
+        gen = generator or torch.Generator(device=self.device).manual_seed(self.seed + 777)
+        sampler = str(self.config.get("eval_sampler", "ddpm"))
+        num_steps = self.config.get("eval_num_inference_steps")
+        cap = 16 if self.spatial_dims == 2 else 2
+        t0 = time.perf_counter()
+        samples, remaining = [], n_samples
+        while remaining > 0:
+            take = min(cap, remaining)
+            samples.append(self.sample_images(take, sampler=sampler,
+                                              num_inference_steps=num_steps, generator=gen))
+            remaining -= take
+        fake = np.concatenate(samples, axis=0)
+        t1 = time.perf_counter()
+        real = []
+        for batch in val_loader:
+            real.append(np.asarray(unpack_batch(batch)[0]))
+            if sum(r.shape[0] for r in real) >= n_samples:
+                break
+        real = np.concatenate(real, axis=0)[:n_samples]
+        extractor = self.feature_extractor
+        feats_real, feats_fake = extractor(real), extractor(fake)
+        t2 = time.perf_counter()
+        fid = fid_from_features(feats_real, feats_fake)
+        t3 = time.perf_counter()
+        pw = pairwise_metrics(torch.from_numpy(fake).to(self.device),
+                              win_size=self.EVAL_SSIM_KERNEL)
+        t4 = time.perf_counter()
+        metrics = {"fid": float(fid), "ssim": pw["ssim_mean"], "ssim_std": pw["ssim_std"],
+                   "ms_ssim": pw["ms_ssim_mean"], "ms_ssim_std": pw["ms_ssim_std"],
+                   "n_pairs": pw["n_pairs"]}
+        if self.config.get("eval_mmd"):
+            metrics["mmd"] = mmd_from_features(feats_real, feats_fake)
+        metrics["seconds"] = {"sampling": t1 - t0, "features": t2 - t1, "fid": t3 - t2,
+                              "pairwise": t4 - t3, "mmd": time.perf_counter() - t4}
+        print(
+            f"FID: {metrics['fid']:.4f} - "
+            f"MS-SSIM: {metrics['ms_ssim']:.4f} +- {metrics['ms_ssim_std']:.4f} - "
+            f"SSIM: {metrics['ssim']:.4f} +- {metrics['ssim_std']:.4f} "
+            f"({metrics['n_pairs']} pairs)"
+            + (f" - MMD: {metrics['mmd']:.6f}" if "mmd" in metrics else "")
+        )
+        return metrics
+
     # ------------------------------------------------------------ checkpoint
 
     def _host_state(self):
@@ -483,6 +563,10 @@ class LDMTrainer:
                 stats["samples"] = plots.save_samples(images, self.save_dict["plots"], epoch,
                                                       self.spatial_dims)
                 stats["sample_s"] = time.perf_counter() - t3
+                if self.config.get("run_generation_eval", self.spatial_dims == 2):
+                    t4 = time.perf_counter()
+                    stats["eval"] = self.evaluate_generation(val_loader)
+                    stats["eval_s"] = time.perf_counter() - t4
             self.epoch_stats.append(stats)
 
     def _save_epoch_artifacts(self, epoch, val_loss):
@@ -553,10 +637,6 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> LDMTrainer:
     if config.get("latent_space_type") != args.latent_space_type:
         raise ValueError(f"--set latent_space_type={config.get('latent_space_type')!r} "
                          f"disagrees with -l {args.latent_space_type}")
-    spatial_dims = 2 if args.model_type == "2d" else 3
-    if config.get("run_generation_eval", spatial_dims == 2):
-        raise NotImplementedError("run_generation_eval: FID / SSIM eval is not ported yet; "
-                                  "set run_generation_eval: false")
     # the LDM consumes the AE's best checkpoint (reference train_ldm.py:631-636)
     results_root = os.getenv("medimgen_results")
     ae_best = os.path.join(results_root, config["task"], args.model_type, "autoencoder",

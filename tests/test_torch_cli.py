@@ -4,7 +4,7 @@ JAX package; one accumulated train step against ``_make_train_step``;
 ``medimgen_torch_train_ldm`` on the CPU (two epochs, ``-c`` resume bit for
 bit, a third epoch), what it refuses before the first step, the sampling
 weights of its checkpoints, and the orbax -> ``.pt`` bridge. fp32, tiny 3D
-config."""
+config (the 2D CLIs: ``tests/test_torch_cli_2d.py``)."""
 
 import copy
 import functools
@@ -29,6 +29,7 @@ from medical_image_generation_tpu_torch.config import run as trun
 from medical_image_generation_tpu_torch.data import loader as tloader
 from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
 from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
+from medical_image_generation_tpu_torch.io.nifti import load_nifti
 from medical_image_generation_tpu_torch.io.volstore import write_volume
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.planning.preprocess import save_properties
@@ -406,7 +407,7 @@ def test_cli_trains_resumes_bit_for_bit_and_continues(cli_env, monkeypatch):
 
 @pytest.mark.parametrize("extra,err", [
     (["--set", "ddpm_transformations.gaussian_noise=true"], NotImplementedError),
-    (["--set", "run_generation_eval=true"], NotImplementedError),
+    (["--set", "ddpm_transformations.gaussian_blur=true"], NotImplementedError),
     (["--set", "ddpm_transformations.elastic=true"], NotImplementedError),
     (["--set", "vae_params.num_res_blockz=2"], KeyError),
     (["--set", "latent_space_type=vq"], ValueError),
@@ -438,8 +439,8 @@ def test_frozen_autoencoder_ignores_use_checkpointing(cli_env, tmp_path):
     tsample.main_ldm([cfg_path, os.path.join(ldm.save_dict["checkpoints"], "best_model.pt"),
                       "-n", "1", "--num_inference_steps", "2", "--dtype", "fp32",
                       "--device", "cpu", "-o", str(out)])
-    vol = np.load(out / "ldm_sample_000.npy")
-    assert vol.shape == (32, 32, 32, 1) and np.isfinite(vol).all()
+    vol = load_nifti(str(out / "ldm_sample_000.nii.gz")).data
+    assert vol.shape == (32, 32, 32) and np.isfinite(vol).all()
 
 
 def test_sampling_cli_samples_the_live_params_not_the_ema(tmp_path, monkeypatch):

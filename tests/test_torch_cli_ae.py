@@ -21,6 +21,7 @@ from medical_image_generation_tpu.training import checkpoints as jckpt
 from medical_image_generation_tpu_torch import convert
 from medical_image_generation_tpu_torch.data import loader as tloader
 from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+from medical_image_generation_tpu_torch.io.nifti import load_nifti
 from medical_image_generation_tpu_torch.io.volstore import write_volume
 from medical_image_generation_tpu_torch.planning.preprocess import save_properties
 from medical_image_generation_tpu_torch.training import checkpoints as tckpt
@@ -134,8 +135,8 @@ def test_ae_cli_trains_resumes_bit_for_bit_and_feeds_the_ldm(ae_env, tmp_path):
                       os.path.join(ldm.save_dict["checkpoints"], "best_model.pt"), "-n", "1",
                       "--num_inference_steps", "2", "--dtype", "fp32", "--device", "cpu",
                       "-o", str(out)])
-    vol = np.load(out / "ldm_sample_000.npy")
-    assert vol.shape == (32, 32, 32, 1) and np.isfinite(vol).all()
+    vol = load_nifti(str(out / "ldm_sample_000.nii.gz")).data
+    assert vol.shape == (32, 32, 32) and np.isfinite(vol).all()
 
 
 def test_vq_autoencoder_then_ldm_vq(ae_env, tmp_path):
@@ -164,8 +165,8 @@ def test_vq_autoencoder_then_ldm_vq(ae_env, tmp_path):
                       os.path.join(ldm.save_dict["checkpoints"], "best_model.pt"), "-n", "1",
                       "--num_inference_steps", "2", "--dtype", "fp32", "--device", "cpu",
                       "-o", str(out)])
-    vol = np.load(out / "ldm_sample_000.npy")
-    assert vol.shape == (32, 32, 32, 1) and np.isfinite(vol).all()
+    vol = load_nifti(str(out / "ldm_sample_000.nii.gz")).data
+    assert vol.shape == (32, 32, 32) and np.isfinite(vol).all()
 
 
 @pytest.mark.parametrize("extra,err", [

@@ -1,8 +1,10 @@
 """PyTorch port, host IO: the port's VolStore against the JAX package's
 (each reads what the other writes, bit for bit, with the native zstd codec
 and with the zlib fallback; out-of-bounds, fully outside and concurrent
-bbox reads), the per-patient properties pickle, and the ``.pt`` checkpoint
-and ``loss_dict.pkl`` helpers."""
+bbox reads), the per-patient properties pickle, the ``.pt`` checkpoint
+and ``loss_dict.pkl`` helpers, NIfTI files (each package reads what the
+other writes: decoded data, affine and spacing) and the port's PNG
+writer."""
 
 import concurrent.futures
 import os
@@ -11,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from medical_image_generation_tpu.io import nifti as jnifti
 from medical_image_generation_tpu.io import volstore as jvs
 from medical_image_generation_tpu.planning import preprocess as jpre
 from medical_image_generation_tpu.training import checkpoints as jckpt
+from medical_image_generation_tpu_torch.io import nifti as tnifti
+from medical_image_generation_tpu_torch.io import png as tpng
 from medical_image_generation_tpu_torch.io import volstore as tvs
 from medical_image_generation_tpu_torch.planning import preprocess as tpre
 from medical_image_generation_tpu_torch.training import checkpoints as tckpt
@@ -200,3 +205,84 @@ def test_loss_dict_cross_package(tmp_path):
     tckpt.save_loss_dict(str(tmp_path), losses)
     assert jckpt.load_loss_dict(str(tmp_path)) == losses
     assert tckpt.load_loss_dict(str(tmp_path / "missing")) is None
+
+
+# ---------------------------------------------------------------------- NIfTI
+
+NIFTI = [  # (shape, dtype, affine or None, file name)
+    ((12, 10, 8), np.float32, None, "a.nii.gz"),
+    ((7, 6, 5, 2), np.float32, np.diag([0.8, 1.2, 2.5, 1.0]), "b.nii.gz"),
+    ((9, 4, 3), np.int16, np.array([[0.0, -1.5, 0.0, 10.0], [2.0, 0.0, 0.0, -4.0],
+                                    [0.0, 0.0, 3.0, 7.5], [0.0, 0.0, 0.0, 1.0]]), "c.nii"),
+    ((5, 5, 5), np.uint8, np.diag([1.0, 1.0, 1.0, 1.0]), "d.nii.gz"),
+]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("case", range(len(NIFTI)))
+def test_nifti_cross_package(tmp_path, writer, case):
+    """A volume written by either package reads back equal in the other:
+    the decoded array (dtype and Fortran order), the sform affine and the
+    spacing, from the whole file and from the header alone."""
+    shape, dtype, affine, name = NIFTI[case]
+    data = _array(shape, dtype, seed=case)
+    path = str(tmp_path / name)
+    (jnifti if writer == "jax" else tnifti).save_nifti(path, data, affine)
+    reader = tnifti if writer == "jax" else jnifti
+    img = reader.load_nifti(path)
+    np.testing.assert_array_equal(img.data, data)
+    assert img.data.dtype == data.dtype
+    want = np.eye(4) if affine is None else affine
+    np.testing.assert_allclose(img.affine, want, rtol=0, atol=1e-6)
+    spacing = np.sqrt(np.sum(want[:3, :3] ** 2, axis=0))
+    np.testing.assert_allclose(img.spacing, spacing, rtol=1e-6)
+    np.testing.assert_allclose(reader.extract_spacing(path), spacing, rtol=1e-6)
+    np.testing.assert_allclose(tnifti.extract_spacing(path), jnifti.extract_spacing(path))
+
+
+def test_nifti_scaling_and_qform_equal_jax(tmp_path):
+    """scl_slope / scl_inter and a qform-only header decode the same in both
+    readers."""
+    import struct
+
+    path = str(tmp_path / "q.nii")
+    tnifti.save_nifti(path, np.arange(24, dtype=np.int16).reshape(2, 3, 4))
+    raw = bytearray(open(path, "rb").read())
+    struct.pack_into("<f", raw, 112, 0.5)  # scl_slope
+    struct.pack_into("<f", raw, 116, -3.0)  # scl_inter
+    struct.pack_into("<h", raw, 252, 1)  # qform_code
+    struct.pack_into("<h", raw, 254, 0)  # sform_code
+    struct.pack_into("<3f", raw, 256, 0.1, 0.2, 0.3)
+    struct.pack_into("<3f", raw, 268, 5.0, 6.0, 7.0)
+    open(path, "wb").write(bytes(raw))
+    t, j = tnifti.load_nifti(path), jnifti.load_nifti(path)
+    assert t.data.dtype == np.float32
+    np.testing.assert_array_equal(t.data, j.data)
+    np.testing.assert_array_equal(t.affine, j.affine)
+    np.testing.assert_array_equal(tnifti.extract_spacing(path), jnifti.extract_spacing(path))
+
+
+# ------------------------------------------------------------------------ PNG
+
+
+def test_png_roundtrip_and_grid(tmp_path):
+    """The port's PNG writer: 8-bit grayscale that ``read_png`` (and PIL,
+    where installed) reads back; samples min-max scaled; a grid of four to a
+    row with 2-pixel gaps."""
+    img = np.random.default_rng(0).uniform(0.2, 0.7, (37, 53, 1)).astype(np.float32)
+    u8 = tpng.to_uint8(img)
+    assert u8.shape == (37, 53) and u8.min() == 0 and u8.max() == 255
+    path = str(tmp_path / "x.png")
+    tpng.write_png(path, u8)
+    np.testing.assert_array_equal(tpng.read_png(path), u8)
+    try:
+        from PIL import Image
+    except ImportError:
+        pass
+    else:
+        np.testing.assert_array_equal(np.asarray(Image.open(path)), u8)
+    grid = tpng.image_grid([img] * 6)
+    assert grid.shape == (2 * 37 + 2, 4 * 53 + 6)
+    np.testing.assert_array_equal(grid[39:, 55:108], u8)
+    assert not grid[37:39].any() and not grid[39:, 212 - 6 + 2:].any()
+    assert not tpng.to_uint8(np.full((4, 4), 0.3)).any()

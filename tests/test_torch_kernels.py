@@ -310,7 +310,18 @@ GN_SHAPES = [  # (M, C) of every GroupNorm on the flagship paths (batch 2)
     (32768, 128), (262144, 64), (2097152, 32)]
 
 
-SLAB_SHAPES = GN_SHAPES + [(777, 24), (33, 1536), (1, 8), (4099, 40), (12345, 32), (300, 37)]
+# the eval's ResNet50 instance norms (one channel a group): 2D stages at 64^2 .. 8^2,
+# 3D at 32^3 .. 4^3, and the widest (2048) channel count
+RESNET_GN_SHAPES = [(4096, 64), (4096, 128), (1024, 128), (1024, 256), (256, 256), (256, 512),
+                    (64, 512), (32768, 64), (32768, 128), (512, 256), (512, 512), (64, 2048)]
+SLAB_SHAPES = GN_SHAPES + [(777, 24), (33, 1536), (1, 8), (4099, 40), (12345, 32),
+                           (300, 37)] + RESNET_GN_SHAPES
+# (B, M, C) of the 2D paths: the AE step (batch 24), the LDM step (48), the eval's
+# sample chunks (16 and 4) and its ResNet50 over 100 images
+SLAB_SHAPES_2D = [(24, 65536, 64), (24, 16384, 128), (24, 4096, 256), (24, 4096, 128),
+                  (24, 3969, 256), (48, 65536, 64), (48, 4096, 768), (48, 1024, 1280),
+                  (48, 256, 1536), (16, 4096, 256), (16, 256, 768), (4, 1024, 512),
+                  (4, 65536, 128), (100, 4096, 64), (100, 64, 512), (100, 64, 2048)]
 
 
 def _assert_slabs_tile_rows(rows, nblk, M, C, width, B, sms, per_sm):
@@ -349,3 +360,19 @@ def test_bwd_slabs_cover_every_row_once_in_order(pass_, M, C, itemsize, vec):
     width = 16 // itemsize if vec else 1
     _assert_slabs_tile_rows(*tgn._bwd_slabs(pass_, B, M, C, width, sms), M, C, width, B, sms,
                             tgn._BWD_BLOCKS_PER_SM[pass_])
+
+
+@pytest.mark.parametrize("pass_", ["stats", "bwd_stats", "bwd_apply"])
+@pytest.mark.parametrize("B,M,C", SLAB_SHAPES_2D)
+@pytest.mark.parametrize("itemsize,vec", [(2, True), (4, True)])
+def test_slabs_at_the_2d_batches_cover_every_row_once_in_order(pass_, B, M, C, itemsize, vec):
+    """The three row-streaming grids (the forward stats and both backward
+    passes) at the 2D paths' batches, where B alone can fill the card."""
+    sms = 132
+    width = 16 // itemsize if vec else 1
+    if pass_ == "stats":
+        got, per_sm = tgn._stats_slabs(B, M, C, width, sms), tgn._STATS_BLOCKS_PER_SM
+    else:
+        p = pass_[4:]
+        got, per_sm = tgn._bwd_slabs(p, B, M, C, width, sms), tgn._BWD_BLOCKS_PER_SM[p]
+    _assert_slabs_tile_rows(*got, M, C, width, B, sms, per_sm)

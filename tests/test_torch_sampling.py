@@ -19,6 +19,7 @@ from medical_image_generation_tpu.training.train_ldm import LDMTrainer
 from medical_image_generation_tpu_torch import _device
 from medical_image_generation_tpu_torch.diffusion.sampler import DDIMSampler
 from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
+from medical_image_generation_tpu_torch.io.nifti import load_nifti
 from medical_image_generation_tpu_torch.training import sample as tsample
 from medical_image_generation_tpu_torch.training.sample import LDMSampler
 from torch_parity import nd, tiny_unet_pair, tiny_vae_pair
@@ -131,9 +132,17 @@ def test_cli_writes_volumes(tmp_path):
     tsample.main_ldm([str(cfg), str(ckpt), "-n", "2", "--num_inference_steps", "2",
                       "--dtype", "fp32", "--device", "cpu", "-o", str(out)])
     vols = sorted(os.listdir(out))
-    assert vols == ["ldm_sample_000.npy", "ldm_sample_001.npy"]
-    v = np.load(out / vols[0])
-    assert v.shape == (32, 32, 32, 1) and np.isfinite(v).all()
+    assert vols == ["ldm_sample_000.nii.gz", "ldm_sample_001.nii.gz"]
+    sampler = LDMSampler.from_config(yaml.safe_load(cfg.read_text()), tm.state_dict(),
+                                     tvae.state_dict(), 1.3, [1, *latent, ddpm_p["in_channels"]],
+                                     dtype=torch.float32, device="cpu")
+    want = sampler.sample(2, sampler="ddim", num_inference_steps=2,
+                          generator=torch.Generator().manual_seed(0))
+    for name, img in zip(vols, want):  # NIfTI (X, Y, Z) order of the (Z, Y, X, 1) sample
+        nii = load_nifti(str(out / name))
+        assert nii.data.shape == (32, 32, 32) and nii.data.dtype == np.float32
+        np.testing.assert_array_equal(nii.data, np.transpose(img[..., 0], (2, 1, 0)))
+        np.testing.assert_array_equal(nii.affine, np.eye(4))
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):

@@ -57,7 +57,8 @@ def ae_config(**over):
 def jax_and_port(cfg, latent, seed):
     """(JAX trainer, g_state, d_state, port trainer) from the same seeded
     weights; the JAX trainer carries what ``_make_train_step`` reads."""
-    x0 = jnp.zeros((1, 32, 32, 32, 1))
+    sd = cfg["vae_params"]["spatial_dims"]
+    x0 = jnp.zeros((1, *cfg["ae_transformations"]["patch_size"][-sd:], 1))
     k0, k1 = jax.random.PRNGKey(0), jax.random.PRNGKey(1)
     if latent == "vae":
         jm = JAutoencoderKL.from_config(cfg["vae_params"], dtype=jnp.float32)
@@ -77,7 +78,7 @@ def jax_and_port(cfg, latent, seed):
     tr.adv_weight, tr.perc_weight = cfg["adv_weight"], cfg["perc_weight"]
     tr.auto_kl_weight, tr.kl_weight = jtrain_ae.parse_kl_weight(cfg.get("kl_weight"))
     tr.q_weight = cfg["q_weight"]
-    tr.aug_cfg = JAugmentConfig.from_transformations(cfg["ae_transformations"], spatial_dims=3)
+    tr.aug_cfg = JAugmentConfig.from_transformations(cfg["ae_transformations"], spatial_dims=sd)
 
     def state(apply_fn, params):
         tx = jcommon.make_optimizer(jcommon.make_lr_schedule(LR, None, None, 250), 1.0, 1)

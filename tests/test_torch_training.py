@@ -16,6 +16,7 @@ from medical_image_generation_tpu.training import common as jcommon
 from medical_image_generation_tpu.training.train_ldm import LDMTrainer as JLDMTrainer
 from medical_image_generation_tpu_torch import _device
 from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+from medical_image_generation_tpu_torch.io.nifti import load_nifti
 from medical_image_generation_tpu_torch.planning import planner as tplanner
 from medical_image_generation_tpu_torch.training import sample as tsample
 from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer, TrainDraws
@@ -224,8 +225,8 @@ def test_train_save_sample_roundtrip(tmp_path):
     out = tmp_path / "samples"
     tsample.main_ldm([str(conf), str(ckpt), "-n", "1", "--num_inference_steps", "2",
                       "--dtype", "fp32", "--device", "cpu", "-o", str(out)])
-    v = np.load(out / "ldm_sample_000.npy")
-    assert v.shape == (32, 32, 32, 1) and np.isfinite(v).all()
+    v = load_nifti(str(out / "ldm_sample_000.nii.gz")).data  # NIfTI (X, Y, Z) order
+    assert v.shape == (32, 32, 32) and v.dtype == np.float32 and np.isfinite(v).all()
 
 
 def test_trainer_refuses_cpu_fallback_and_accumulation(monkeypatch):

@@ -1,6 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 seeded random flax parameter trees, numpy <-> torch layout moves, and the
-tiny 3D U-Net / VAE built in both packages with the same weights."""
+tiny 3D (or, with ``spatial_dims=2``, 2D) U-Net / VAE built in both
+packages with the same weights."""
 
 import jax
 import jax.numpy as jnp
@@ -58,10 +59,10 @@ def public(t: torch.Tensor) -> np.ndarray:
     return t.permute(0, *range(2, t.dim()), 1).detach().float().numpy()
 
 
-def tiny_unet_pair(num_class_embeds=None, seed=0):
-    """(flax module, flax params, port module) of the tiny 3D U-Net with
-    the same seeded weights."""
-    vae_p, ddpm_p, image = flagship_configs(tiny=True)
+def tiny_unet_pair(num_class_embeds=None, seed=0, spatial_dims=3):
+    """(flax module, flax params, port module, latent, ddpm_params) of the
+    tiny 3D (or 2D) U-Net with the same seeded weights."""
+    vae_p, ddpm_p, image = flagship_configs(tiny=True, spatial_dims=spatial_dims)
     ddpm_p = dict(ddpm_p, num_class_embeds=num_class_embeds)
     latent = compute_output_size(image, vae_p["downsample_parameters"])
     jm = JDiffusionUNet.from_config(ddpm_p, dtype=jnp.float32)
@@ -74,10 +75,10 @@ def tiny_unet_pair(num_class_embeds=None, seed=0):
     return jm, params, tm.eval(), latent, ddpm_p
 
 
-def tiny_vae_pair(seed=1):
+def tiny_vae_pair(seed=1, spatial_dims=3):
     """(flax module, flax params, port module, vae_params) of the tiny 3D
-    KL-VAE, encoder and decoder, with the same seeded weights."""
-    vae_p, _, image = flagship_configs(tiny=True)
+    (or 2D) KL-VAE, encoder and decoder, with the same seeded weights."""
+    vae_p, _, image = flagship_configs(tiny=True, spatial_dims=spatial_dims)
     jm = JAutoencoderKL.from_config(vae_p, dtype=jnp.float32)
     params = rand_params(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, *image, 1)),
                                  jax.random.PRNGKey(1))["params"], seed)
