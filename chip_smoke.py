@@ -90,7 +90,8 @@ Phases (any failure raises and exits non-zero):
                    kernels at every GN_SHAPES_2D shape (the 2D VAE at batch
                    24 and 48, the 2D discriminator, the U-Net at 48, 16 and
                    4, the eval's ResNet50 instance norms over 100 2D images
-                   and two 3D volumes), 16-byte loads and the same bits twice.
+                   and two 3D volumes, phase 15's 2D probe trial at patch 128
+                   x 160), 16-byte loads and the same bits twice.
 12. train_2d     -- (after phase 8) the 2D flagship at full width (KL-VAE [64,
                    128, 256] and the 2D discriminator at batch 24 of the
                    rotation-enlarged (330, 330) patch; U-Net [256, 512, 768]
@@ -117,12 +118,37 @@ Phases (any failure raises and exits non-zero):
                    val steps (the loader's 250 / 50), DDIM 10 for the grid
                    and the eval (JAX keys eval_sampler / eval_num_inference_
                    steps; the protocol's default is the 1000-step DDPM).
+15. plan         -- (after phase 14) a raw MSD-style task (Task097, 8 patients
+                   of .nii.gz written with the port's save_nifti, 120-150
+                   voxels an axis, two spacings, three wider than the median
+                   in X) through medimgen_torch_plan_and_preprocess with the
+                   memory probe: fingerprint, preprocessing and probe timed
+                   apart; the 3D vae_params equal the flagship's; the plan
+                   (expected: no remat at batch 2 / 24) and each probe
+                   trial's peak (reserved and allocated) against the budget,
+                   launches held to the prediction; every .vs read back bit
+                   for bit against process_patient's arrays. Then the forced
+                   ladder at the 3D flagship, batch 2: peak and ms a step
+                   for no remat, "acts" and "full" (launches a step held to
+                   the prediction: a rematerialised ResBlock runs its two
+                   GroupNorm forwards again), auto_select_hyperparams at
+                   budgets between those peaks picking (2, 1, True, "acts")
+                   (only where "acts" saves 2% or more) and (2, 1, True,
+                   "full"); one step from the same weights and draws under
+                   each rung against no remat (and no remat against itself:
+                   the noise floor); and medimgen_torch_train_autoencoder on
+                   the plan with use_checkpointing: true and the policy the
+                   ladder chose, one epoch cut to 20 train / 4 val steps,
+                   launches held to the prediction. Every GroupNorm shape of
+                   the phase is one that phases 3, 4 or 11 hold against the
+                   plain versions.
 
 The last two lines of standard output are the kernels' JSON record (launches
 counted on the LDM train path, ``ae_launches`` on the ten timed AE steps with
 the adversarial loss, ``launches_2d`` a 2D LDM step, a 2D AE step with the
-adversarial loss, one 2D eval and the 3D eval call) and the device record;
-the card's name and power limit are printed before them.
+adversarial loss, one 2D eval and the 3D eval call, ``launches_plan`` one
+3D AE step with the adversarial loss under each remat rung) and the device
+record; the card's name and power limit are printed before them.
 """
 
 from __future__ import annotations
@@ -1852,8 +1878,14 @@ _GN_RESNET_2D = [(4096, 64, 64), (4096, 128, 128), (1024, 128, 128), (1024, 256,
                  (256, 256, 256), (256, 512, 512), (64, 512, 512)]
 _GN_RESNET_3D = [(32768, 64, 64), (32768, 128, 128), (4096, 128, 128), (4096, 256, 256),
                  (512, 256, 256), (512, 512, 512), (64, 512, 512)]
+# phase plan's 2D probe trial: Task097's 2D config, patch 128 x 160 (the VAE
+# at 128 x 160, 64 x 80, 32 x 40; the discriminator at 32 x 40 and 31 x 39)
+_GN_PLAN_2D = [(20480, 64, 16), (5120, 64, 16), (5120, 128, 16), (1280, 128, 16),
+               (1280, 256, 16), (5120, 256, 16), (20480, 128, 16), (1280, 128, 128),
+               (1209, 256, 256)]
 GN_SHAPES_2D = sorted(
     {(24, *s) for s in _GN_VAE_ENC_2D + _GN_VAE_DEC_2D + _GN_DISC_2D}        # AE step
+    | {(24, *s) for s in _GN_PLAN_2D}                                        # plan's probe
     | {(48, *s) for s in _GN_VAE_ENC_2D + _GN_UNET_2D}                       # LDM step
     | {(b, *s) for b in (16, 4) for s in _GN_UNET_2D + _GN_VAE_DEC_2D}      # sampling
     | {(100, *s) for s in _GN_RESNET_2D} | {(2, *s) for s in _GN_RESNET_3D}  # eval
@@ -2457,6 +2489,353 @@ def eval_3d_call(out_dir):
     return counts
 
 
+# phase plan's raw task: each patient's inner (nonzero) extent in NIfTI (X, Y,
+# Z) order and its X spacing. The cropped median is (128, 128, 128), the 3D
+# flagship's; plan_001, plan_002 and plan_006 are wider than it in X, so
+# their (1, 1, 128, 128) chunks split the last axis; plan_006 and plan_007
+# are resampled (1.25 -> 1.0 in X) and have no zero border (the cubic zoom
+# leaves no exact zeros to crop), the others a border of PLAN_BORDER voxels
+PLAN_RAW = [((128, 128, 128), 1.0), ((150, 126, 130), 1.0), ((136, 132, 126), 1.0),
+            ((124, 128, 128), 1.0), ((128, 124, 132), 1.0), ((120, 130, 124), 1.0),
+            ((112, 128, 128), 1.25), ((96, 124, 132), 1.25)]
+PLAN_BORDER = 6
+PLAN_TRAIN_STEPS, PLAN_VAL_STEPS = 20, 4  # the cut epoch of the AE CLI on the plan
+# remat vs no remat, one bf16 AE step from the same weights and draws, per
+# gradient tensor: |g - g_ref| <= tol |g_ref| + tol max|g_ref| (one bf16 ulp,
+# as GN_BWD_TOL's rtol: cuDNN's weight-gradient kernels may sum in another
+# order from one call to the next); losses relative 1e-6
+PLAN_GRAD_TOL, PLAN_LOSS_TOL = 2**-7, 1e-6
+REMAT_RUNGS = {"none": (False, "acts"), "acts": (True, "acts"), "full": (True, "full")}
+
+
+def _write_raw_task(root, seed=97):
+    """Task097_Plan: imagesTr/ + labelsTr/ .nii.gz of PLAN_RAW, written with
+    the port's save_nifti (noisy images with two labelled spheres). Returns
+    (its path, bytes written)."""
+    import numpy as np
+
+    from medical_image_generation_tpu_torch.io.nifti import save_nifti
+
+    rng = np.random.default_rng(seed)
+    ds = os.path.join(root, "Task097_Plan")
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(ds, sub))
+    nbytes = 0
+    for i, (inner, sx) in enumerate(PLAN_RAW):
+        b = PLAN_BORDER if sx == 1.0 else 0
+        box = tuple(slice(b, b + n) for n in inner)
+        img = np.zeros(tuple(n + 2 * b for n in inner), np.float32)
+        img[box] = rng.normal(300.0, 40.0, inner).clip(1.0, None)
+        lbl = np.zeros(img.shape, np.uint8)
+        grid = np.meshgrid(*(np.arange(n) for n in inner), indexing="ij", sparse=True)
+        for cls in (1, 2):
+            c = [int(rng.integers(n // 3, 2 * n // 3)) for n in inner]
+            r = int(rng.integers(10, 20))
+            m = sum((g - cg) ** 2 for g, cg in zip(grid, c)) <= r * r
+            img[box][m] += 150.0 * cls
+            lbl[box][m] = cls
+        affine = np.diag([sx, 1.0, 1.0, 1.0])
+        for sub, arr in (("imagesTr", img), ("labelsTr", lbl)):
+            path = os.path.join(ds, sub, f"plan_{i:03d}.nii.gz")
+            save_nifti(path, arr, affine)
+            nbytes += os.path.getsize(path)
+    return ds, nbytes
+
+
+def _reference_patient(ds, pid, spacing):
+    """(image, label) that process_patient computes for one raw patient:
+    resample, crop to the image's nonzero box, (C, Z, Y, X) / (Z, Y, X),
+    z-score -> min-max. The written .vs must read back to these bit for
+    bit."""
+    import numpy as np
+
+    from medical_image_generation_tpu_torch.io.nifti import load_nifti
+    from medical_image_generation_tpu_torch.planning import preprocess as pre
+
+    nii = load_nifti(os.path.join(ds, "imagesTr", pid + ".nii.gz"))
+    lab = load_nifti(os.path.join(ds, "labelsTr", pid + ".nii.gz")).get_fdata()
+    img = pre.resample_image(nii.get_fdata(), nii.spacing, spacing)
+    lab = pre.resample_label(lab.astype(np.int32), nii.spacing, spacing)
+    _, _, (lo, hi) = pre.crop_to_nonzero(img)
+    sl = tuple(slice(int(a), int(b) + 1) for a, b in zip(lo, hi))
+    image, _ = pre.normalize_zscore_then_minmax(pre.to_canonical_axes(img[sl]).astype(np.float32))
+    return image, np.transpose(lab[sl], (2, 1, 0)).astype(np.uint8)
+
+
+def ae_launches(cfg, adv_on, remat):
+    """Launches of each port kernel the code predicts for one AE train step
+    of a config (the models built on the CPU to count their GroupNorms), as
+    ``ae_per_step``; under remat each Encoder / Decoder ResBlock runs its
+    two GroupNorm forwards once more in the backward (the recompute), for
+    both policies."""
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm, ResBlock
+    from medical_image_generation_tpu_torch.models.discriminator import PatchDiscriminator
+    from medical_image_generation_tpu_torch.training import common
+
+    def n(mod):
+        return sum(isinstance(m, GroupNorm) for m in mod.modules())
+
+    g = common.build_generator(cfg, "vae", torch.float32, device="cpu")
+    gn = n(g.encoder) + n(g.decoder)
+    if adv_on:
+        gn += 3 * n(PatchDiscriminator.from_config(cfg["discriminator_params"], device="cpu"))
+    extra = sum(n(b) for b in g.modules() if isinstance(b, ResBlock)) if remat else 0
+    out = {k: 0 for k in _counters()}
+    out.update(gn_stats_fold=gn + extra, gn_affine_act=gn + extra, gn_bwd_stats=gn,
+               gn_bwd_apply=gn)
+    return out
+
+
+def phase_plan(ws):
+    """medimgen_torch_plan_and_preprocess on a raw task with the memory
+    probe, the forced remat ladder at the 3D flagship, remat against no
+    remat at full width, and the AE CLI on the plan under remat (see the
+    module docstring), every GroupNorm call's (B, M, C, groups) recorded
+    and held to the shapes the kernel phases check. Returns {rung: {kernel:
+    launches in one trial step}}."""
+    from unittest import mock
+
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+
+    seen, forward = set(), GroupNorm.forward
+
+    def recording_forward(mod, x, *a, **k):
+        seen.add((x.shape[0], math.prod(x.shape[2:]), x.shape[1], mod.num_groups))
+        return forward(mod, x, *a, **k)
+
+    with mock.patch.object(GroupNorm, "forward", recording_forward):
+        per_rung = _plan_run(ws)
+    held = set(GN_SHAPES_2D) | {(2, *s) for s in GN_SHAPES}  # phases 11; 3 and 4 at batch 2
+    log(f"[plan] {ws['gpu']}: GroupNorm shapes (B, M, C, groups) of the phase {sorted(seen)}")
+    if seen - held:
+        raise AssertionError(f"[plan] GroupNorm shapes not held by the kernel phases (add them "
+                             f"to _GN_PLAN_2D or GN_SHAPES): {sorted(seen - held)}")
+    return per_rung
+
+
+def _plan_run(ws):
+    import functools
+    from unittest import mock
+
+    import numpy as np
+    import yaml
+
+    from medical_image_generation_tpu_torch.data import loader as loader_mod
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.io.volstore import VolStore
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+    from medical_image_generation_tpu_torch.planning import cli, memory
+    from medical_image_generation_tpu_torch.planning.planner import flagship_configs
+    from medical_image_generation_tpu_torch.training import train_autoencoder
+    from medical_image_generation_tpu_torch.training.train_autoencoder import (
+        METRICS,
+        AutoEncoderTrainer,
+    )
+
+    t_phase = time.perf_counter()
+    gpu = ws["gpu"]
+    t0 = time.perf_counter()
+    raw, nbytes = _write_raw_task(os.path.join(ws["root"], "raw"))
+    log(f"[plan] {gpu}: raw task {len(PLAN_RAW)} patients (NIfTI X, Y, Z inner extents "
+        f"{[r[0] for r in PLAN_RAW]}, X spacings {[r[1] for r in PLAN_RAW]}), "
+        f"{nbytes / 1e6:.1f} MB of .nii.gz written in {time.perf_counter() - t0:.1f} s")
+
+    # ---- medimgen_torch_plan_and_preprocess with the probe, its parts timed
+    marks, trials = {}, []
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            marks.setdefault(name, [time.perf_counter(), None])
+            out = fn(*a, **k)
+            marks[name][1] = time.perf_counter()
+            return out
+        return wrapped
+
+    orig_trial = memory.trial_ae_step
+
+    def recorded_trial(config, batch_size, use_checkpointing=False, remat_policy="acts",
+                       device="cuda"):
+        c0 = _read_counts()
+        out = orig_trial(config, batch_size, use_checkpointing, remat_policy, device)
+        trials.append(dict(out, cfg=config, batch=batch_size, remat=use_checkpointing,
+                           counts={k: v - c0[k] for k, v in _read_counts().items()}))
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "calculate_median_spacing",
+                           timed("spacing", cli.calculate_median_spacing)), \
+            mock.patch.object(cli, "calculate_dataset_fingerprint",
+                              timed("fingerprint", cli.calculate_dataset_fingerprint)), \
+            mock.patch.object(memory, "auto_select_hyperparams",
+                              timed("probe", memory.auto_select_hyperparams)), \
+            mock.patch.object(memory, "trial_ae_step", recorded_trial):
+        _run_main(cli.main, [raw])
+    cli_s = time.perf_counter() - t0
+    fp_s = sum(marks[k][1] - marks[k][0] for k in ("spacing", "fingerprint"))
+    pre_s = marks["probe"][0] - marks["fingerprint"][1]
+    probe_s = marks["probe"][1] - marks["probe"][0]
+    out = os.path.join(os.environ["medimgen_preprocessed"], "Task097_Plan")
+    with open(os.path.join(out, "dataset.json")) as f:
+        dataset = json.load(f)
+    with open(os.path.join(out, "medimgen_config.yaml")) as f:
+        plan = yaml.safe_load(f)
+    budget = memory.device_memory_budget()
+    log(f"[plan] {gpu}: medimgen_torch_plan_and_preprocess in {cli_s:.1f} s: fingerprint "
+        f"{fp_s:.2f} s, preprocessing {pre_s:.2f} s, probe {probe_s:.2f} s; dataset "
+        f"{({k: dataset[k] for k in ('median_shape', 'max_shape', 'median_spacing', 'n_patients', 'class_labels')})}")
+    for t in trials:
+        sd = t["cfg"]["vae_params"]["spatial_dims"]
+        expect = {k: v * memory.TRIAL_STEPS
+                  for k, v in ae_launches(t["cfg"], True, t["remat"]).items()}
+        log(f"[plan] {gpu}: probe trial {sd}D batch {t['batch']} remat {t['remat']}: peak "
+            f"reserved {t['reserved'] / 2**30:.3f} GiB, allocated {t['allocated'] / 2**30:.3f} "
+            f"GiB (budget {budget / 2**30:.3f} GiB = {memory.SAFETY_FRACTION} x the card), "
+            f"{t['ms']:.2f} ms a step; {memory.TRIAL_STEPS} steps launched {t['counts']}, predicted "
+            f"{expect}")
+        if t["counts"] != expect:
+            raise AssertionError(f"probe trial launches {t['counts']} != predicted {expect}")
+    chosen = {k: (c["ae_batch_size"], c["grad_accumulate_step"],
+                  c["vae_params"]["use_checkpointing"], c["vae_params"]["remat_policy"],
+                  c["ddpm_batch_size"]) for k, c in plan.items()}
+    log(f"[plan] {gpu}: plan (ae batch, grad accumulation, remat, policy, ddpm batch) {chosen}")
+    vae_ref = json.loads(json.dumps(flagship_configs(spatial_dims=3)[0]))
+    vae3 = {k: v for k, v in plan["3D"]["vae_params"].items() if k != "remat_policy"}
+    if (dataset["median_shape"] != [128, 128, 128] or dataset["n_patients"] != len(PLAN_RAW)
+            or vae3 != vae_ref or chosen["3D"] != (2, 1, False, "acts", 4)
+            or chosen["2D"] != (24, 1, False, "acts", 24) or len(trials) != 2):
+        raise AssertionError(f"plan: {dataset}, {chosen}, 3D vae_params {vae3} vs flagship "
+                             f"{vae_ref}, {len(trials)} probe trials")
+
+    # ---- every .vs read back against what process_patient computes
+    t0 = time.perf_counter()
+    wider = []
+    for i in range(len(PLAN_RAW)):
+        pid = f"plan_{i:03d}"
+        image, label = _reference_patient(raw, pid, dataset["median_spacing"])
+        vi = VolStore(os.path.join(out, "imagesTr", pid + ".vs"))
+        vl = VolStore(os.path.join(out, "labelsTr", pid + ".vs"))
+        if not (np.array_equal(vi.read_full(), image) and np.array_equal(vl.read_full(), label)):
+            raise AssertionError(f"{pid}: the preprocessed volume differs from process_patient's")
+        if vi.shape[-1] > vi.chunk_shape[-1]:
+            wider.append((pid, vi.shape, vi.chunk_shape))
+    log(f"[plan] {gpu}: all {len(PLAN_RAW)} images and labels read back bit for bit equal to "
+        f"process_patient's arrays ({time.perf_counter() - t0:.1f} s), the chunks of "
+        f"{len(wider)} split the last axis: {wider}")
+    if len(wider) < 3:
+        raise AssertionError(f"fewer than 3 patients wider than the median: {wider}")
+
+    # ---- the forced ladder at the 3D flagship, batch 2: each rung measured
+    # by the probe's own trial (ms a step over its last two steps)
+    cfg3 = copy.deepcopy(plan["3D"])
+    n = memory.TRIAL_STEPS
+    meas = {}
+    for rung, (remat, policy) in REMAT_RUNGS.items():
+        _reset_counts()
+        t = memory.trial_ae_step(cfg3, 2, remat, policy)
+        counts = _read_counts()
+        per = ae_launches(cfg3, True, remat)
+        meas[rung] = dict(t, per_step={k: v // n for k, v in counts.items()})
+        log(f"[plan] {gpu}: 3D AE step, batch 2, adversarial loss, remat {rung}: peak reserved "
+            f"{t['reserved'] / 2**30:.3f} GiB, allocated {t['allocated'] / 2**30:.3f} GiB, "
+            f"{t['ms']:.3f} ms a step; launches a step {meas[rung]['per_step']}, predicted "
+            f"{per}")
+        if counts != {k: v * n for k, v in per.items()}:
+            raise AssertionError(f"remat {rung}: launches {counts} != {n} x {per}")
+    peak = {r: m["reserved"] for r, m in meas.items()}
+    acts_saves = peak["none"] - peak["acts"] > 0.02 * peak["none"]
+    if not peak["full"] < 0.98 * min(peak["none"], peak["acts"]):
+        raise AssertionError(f"full remat saves nothing: {peak}")
+    policy = "acts" if acts_saves else "full"
+    picks = []
+    if acts_saves:
+        picks.append(((peak["none"] + peak["acts"]) // 2, (2, 1, True, "acts")))
+    else:
+        log(f"[plan] {gpu}: remat 'acts' saves {(peak['none'] - peak['acts']) / 2**30:.3f} GiB "
+            f"of {peak['none'] / 2**30:.3f}: less than 2%, so only 'full' is held")
+    picks.append(((peak["full"] + min(peak["none"], peak["acts"])) // 2, (2, 1, True, "full")))
+    for b, want in picks:
+        got = tuple(memory.auto_select_hyperparams(cfg3, "3d", init_batch_size=2, budget_bytes=b))
+        log(f"[plan] {gpu}: ladder at a budget of {b / 2**30:.3f} GiB picks {got} (want {want})")
+        if got != want:
+            raise AssertionError(f"ladder at {b} bytes picked {got}, want {want}")
+
+    # ---- remat against no remat: one step from the same weights and draws
+    dev = torch.device("cuda")
+    initial = compute_initial_patch_size(cfg3["ae_transformations"])
+    x = torch.rand((2, *initial, 1), generator=torch.Generator(device=dev).manual_seed(41),
+                   device=dev)
+    draws, runs = None, []
+    for rung in ("none", "none", "acts", "full"):  # no remat twice: the noise floor
+        remat, pol = REMAT_RUNGS[rung]
+        c = copy.deepcopy(cfg3)
+        c["vae_params"].update(use_checkpointing=remat, remat_policy=pol)
+        tr = AutoEncoderTrainer.from_config(c, "vae", device=dev, dtype=torch.bfloat16, seed=0)
+        randomize_(tr.model, 5321)
+        randomize_(tr.discriminator, 5322)
+        if draws is None:
+            draws = tr.make_draws(x, generator=torch.Generator(device=dev).manual_seed(42),
+                                  host_generator=torch.Generator().manual_seed(43))
+        grads = {}
+        _capture_grads(tr.g_opt, grads, "g")
+        _capture_grads(tr.d_opt, grads, "d")
+        m = tr.train_step(x, True, draws=draws)
+        runs.append((rung, {k: m[k].item() for k in METRICS}, grads))
+        del tr, grads, m
+        torch.cuda.empty_cache()
+    _, ref_l, ref_g = runs[0]
+    for rung, losses, grads in runs[1:]:
+        l_err = max(abs(losses[k] - ref_l[k]) / max(abs(ref_l[k]), 1e-30) for k in METRICS)
+        ok, worst = l_err <= PLAN_LOSS_TOL, {}
+        for net in ("g", "d"):
+            errs = [within(a, b, PLAN_GRAD_TOL, PLAN_GRAD_TOL) for a, b in zip(grads[net],
+                                                                              ref_g[net])]
+            ok &= all(e[0] for e in errs) and len(errs) == len(ref_g[net])
+            worst[net] = max(_err(a, b) / max(b.abs().max().item(), 1e-30)
+                             for a, b in zip(grads[net], ref_g[net]))
+        log(f"[plan] {gpu}: one flagship AE step, remat {rung} vs no remat: losses "
+            f"{({k: round(v, 6) for k, v in losses.items()})} max rel_err {l_err:.3e} (tol "
+            f"{PLAN_LOSS_TOL:g}); max |g - g_ref| / max|g_ref| generator {worst['g']:.3e}, "
+            f"discriminator {worst['d']:.3e} (elementwise tol {PLAN_GRAD_TOL:g} |g_ref| + "
+            f"{PLAN_GRAD_TOL:g} max|g_ref|)")
+        if not ok:
+            raise AssertionError(f"remat {rung}: losses or gradients differ from no remat")
+    del runs, ref_g, x
+    torch.cuda.empty_cache()
+
+    # ---- medimgen_torch_train_autoencoder on the plan, under remat
+    argv = ["097", "train-val-test", "3d", "--set", "n_epochs=1", "--set",
+            "autoencoder_warm_up_epochs=0", "--set", "vae_params.use_checkpointing=true",
+            "--set", f"vae_params.remat_policy={policy}"]
+    loaders = functools.partial(loader_mod.get_data_loaders, train_steps=PLAN_TRAIN_STEPS,
+                                val_steps=PLAN_VAL_STEPS)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_autoencoder, "get_data_loaders", loaders):
+        tr = _run_main(train_autoencoder.run_cli, argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts, st, ld = _read_counts(), tr.epoch_stats[0], tr.loss_dict
+    n_fwd = sum(isinstance(m, GroupNorm) for m in tr.model.modules())
+    per = ae_launches(cfg3, True, True)
+    expect = {k: st["steps"] * v + st["val_steps"] * (n_fwd if k in ("gn_stats_fold",
+                                                                     "gn_affine_act") else 0)
+              for k, v in per.items()}
+    log(f"[plan] {gpu}: medimgen_torch_train_autoencoder 097 3d on the plan, "
+        f"use_checkpointing true, remat_policy {policy}: {st['steps']} train + "
+        f"{st['val_steps']} val steps at batch {tr.config['ae_batch_size']}, CLI ms a train "
+        f"step {st['train_s'] * 1e3 / st['steps']:.3f}, launches {counts}, predicted {expect}; "
+        f"loss_dict {ld}; saved {st['saved']}; run {run_s:.1f} s")
+    finite = all(math.isfinite(v) for k in ld for v in ld[k])
+    if (counts != expect or not finite or tr.model.encoder.remat != policy
+            or (st["steps"], st["val_steps"]) != (PLAN_TRAIN_STEPS, PLAN_VAL_STEPS)
+            or sorted(st["saved"]) != ["best_model", "last_model"] or not ld["disc"][0] > 0):
+        raise AssertionError(f"AE CLI on the plan: launches {counts} != {expect}, or {st}")
+    del tr
+    torch.cuda.empty_cache()
+    log(f"[plan] {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+    return {r: m["per_step"] for r, m in meas.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2479,6 +2858,7 @@ def main() -> int:
         phase_ae_cli(ws, ae_per)
         cli_counts, eval3d = phase_cli(ws, counts, train_ms)
         eval2d = phase_cli_2d(ws)
+        plan = phase_plan(ws)
     log(f"[env] total {time.perf_counter() - t0:.1f} s")
     print(card())
     src = "medical_image_generation_tpu_torch/csrc/"
@@ -2507,6 +2887,7 @@ def main() -> int:
                                        "ae": t2d["ae_1"]["step"][name]},
                         "shapes_2d": [{k: r[k] for k in ("shape", "ms", "bound_ms")}
                                       for r in rec_2d.get(name, [])],
+                        "launches_plan": {rung: plan[rung][name] for rung in REMAT_RUNGS},
                         "worst_ms_over_bound_2d": worst_2d.get(name)})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

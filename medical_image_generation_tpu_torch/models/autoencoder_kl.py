@@ -14,15 +14,26 @@ them); GroupNorm parameters are always fp32.
 The JAX ``encode`` / ``decode`` run the lane-packed encoder / decoder
 (``models/packed_encoder.py``), a TPU lane-packing strategy with the same
 math as the plain module path; the port runs the plain module path.
-``use_checkpointing`` (activation rematerialisation) is a config key the
-models do not read: the stage-1 trainer refuses it, and the frozen uses
-(LDM training, sampling) run no backward pass through the model.
+
+``use_checkpointing`` / ``remat_policy`` (JAX :45-60, :94-101, :156-194;
+the policies of ``models/packed_encoder.py:166-201``) rematerialise each
+Encoder / Decoder ResBlock in the backward pass (``remat_call``):
+``"full"`` keeps only block inputs across the forward; ``"acts"`` also
+keeps every convolution's output, so the backward recomputes no
+convolution, only the GroupNorms (whose kernels are called through ctypes,
+not as dispatcher ops, so a policy could not name them anyway). Neither
+changes a parameter name or a result. Rematerialisation applies only when
+autograd records the forward: the frozen uses (LDM training, sampling) run
+under ``no_grad`` and skip it.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
+from torch.utils import checkpoint
 
 from medical_image_generation_tpu_torch.models.blocks import (
     AttentionBlock,
@@ -38,6 +49,41 @@ from medical_image_generation_tpu_torch.models.blocks import (
 
 
 LOGVAR_MIN, LOGVAR_MAX = -30.0, 20.0
+REMAT_POLICIES = ("acts", "full")
+
+
+def validate_remat_policy(remat_policy: str) -> str:
+    """Eager config validation: an unknown policy in a hand-edited YAML is a
+    config error."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; valid: {REMAT_POLICIES}")
+    return remat_policy
+
+
+def _save_convolutions():
+    """Selective-checkpoint contexts that keep every convolution's output
+    (the "acts" policy)."""
+    return checkpoint.create_selective_checkpoint_contexts([torch.ops.aten.convolution.default])
+
+
+def remat_call(block: nn.Module, h, remat: Optional[str]):
+    """``block(h)``, rematerialised in the backward under ``remat`` ("acts",
+    "full", or None for no remat) when autograd records the call. The
+    blocks draw no random numbers, so no RNG state is stashed."""
+    if remat is None or not torch.is_grad_enabled():
+        return block(h)
+    context = _save_convolutions if remat == "acts" else checkpoint.noop_context_fn
+    return checkpoint.checkpoint(block, h, use_reentrant=False, preserve_rng_state=False,
+                                 context_fn=context)
+
+
+def run_plan(net, h):
+    """The children of an Encoder / Decoder in ``net.plan`` order, each
+    ResBlock under ``remat_call`` with ``net.remat``."""
+    for name in net.plan:
+        mod = getattr(net, name)
+        h = remat_call(mod, h, net.remat) if isinstance(mod, ResBlock) else mod(h)
+    return h
 
 
 class Encoder(nn.Module):
@@ -46,11 +92,12 @@ class Encoder(nn.Module):
 
     def __init__(self, spatial_dims, num_channels, in_channels, out_channels, num_res_blocks,
                  norm_num_groups, attention_levels, downsample_parameters,
-                 with_nonlocal_attn=False, dtype=torch.float32, param_dtype=None,
-                 device=None):
+                 with_nonlocal_attn=False, remat=None, dtype=torch.float32,
+                 param_dtype=None, device=None):
         super().__init__()
         sd, G = spatial_dims, norm_num_groups
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.remat = remat  # remat_call's policy for the ResBlocks
         self.plan = []  # child names in execution order
         s0, k0, p0 = downsample_parameters[0]
         self.ConvND_0 = ConvND(in_channels, num_channels[0], k0, s0, p0, sd, **kw)
@@ -81,10 +128,7 @@ class Encoder(nn.Module):
         self.ConvND_1 = ConvND(num_channels[-1], out_channels, 3, 1, 1, sd, **kw)
 
     def forward(self, x):
-        h = self.ConvND_0(x)
-        for name in self.plan:
-            h = getattr(self, name)(h)
-        return self.ConvND_1(self.GroupNorm_0(h, silu=False))
+        return self.ConvND_1(self.GroupNorm_0(run_plan(self, self.ConvND_0(x)), silu=False))
 
 
 class Decoder(nn.Module):
@@ -94,11 +138,12 @@ class Decoder(nn.Module):
 
     def __init__(self, spatial_dims, num_channels, in_channels, out_channels, num_res_blocks,
                  norm_num_groups, attention_levels, upsample_parameters,
-                 with_nonlocal_attn=False, use_convtranspose=False, dtype=torch.float32,
-                 param_dtype=None, device=None):
+                 with_nonlocal_attn=False, use_convtranspose=False, remat=None,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         sd, G = spatial_dims, norm_num_groups
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.remat = remat  # remat_call's policy for the ResBlocks
         channels = list(reversed(num_channels))
         attn = list(reversed(attention_levels))
         res_blocks = list(reversed(num_res_blocks))
@@ -133,10 +178,7 @@ class Decoder(nn.Module):
         self.ConvND_1 = ConvND(channels[-1], out_channels, 3, 1, 1, sd, **kw)
 
     def forward(self, z):
-        h = self.ConvND_0(z)
-        for name in self.plan:
-            h = getattr(self, name)(h)
-        return self.ConvND_1(self.GroupNorm_0(h, silu=False))
+        return self.ConvND_1(self.GroupNorm_0(run_plan(self, self.ConvND_0(z)), silu=False))
 
 
 class AutoencoderKL(nn.Module):
@@ -152,17 +194,19 @@ class AutoencoderKL(nn.Module):
                  norm_num_groups=16, attention_levels=(False, False, False),
                  downsample_parameters=(), upsample_parameters=(),
                  with_encoder_nonlocal_attn=False, with_decoder_nonlocal_attn=False,
-                 use_convtranspose=False, with_encoder=True,
-                 dtype=torch.float32, param_dtype=None, device=None):
+                 use_convtranspose=False, use_checkpointing=False, remat_policy="acts",
+                 with_encoder=True, dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         n = len(num_channels)
         self.dtype = dtype
+        validate_remat_policy(remat_policy)
+        remat = remat_policy if use_checkpointing else None
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         if with_encoder:
             self.encoder = Encoder(spatial_dims, num_channels, in_channels, latent_channels,
                                    per_level(num_res_blocks, n), norm_num_groups,
                                    attention_levels, downsample_parameters,
-                                   with_encoder_nonlocal_attn, **kw)
+                                   with_encoder_nonlocal_attn, remat, **kw)
             self.quant_conv_mu = ConvND(latent_channels, latent_channels, 1, 1, 0,
                                         spatial_dims, **kw)
             self.quant_conv_log_sigma = ConvND(latent_channels, latent_channels, 1, 1, 0,
@@ -172,7 +216,7 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(spatial_dims, num_channels, latent_channels, out_channels,
                                per_level(num_res_blocks, n), norm_num_groups,
                                attention_levels, upsample_parameters,
-                               with_decoder_nonlocal_attn, use_convtranspose, **kw)
+                               with_decoder_nonlocal_attn, use_convtranspose, remat, **kw)
 
     @staticmethod
     def from_config(params: dict, dtype=torch.bfloat16, device=None,
@@ -191,6 +235,8 @@ class AutoencoderKL(nn.Module):
             with_encoder_nonlocal_attn=params.get("with_encoder_nonlocal_attn", False),
             with_decoder_nonlocal_attn=params.get("with_decoder_nonlocal_attn", False),
             use_convtranspose=params.get("use_convtranspose", False),
+            use_checkpointing=bool(params.get("use_checkpointing", False)),
+            remat_policy=params.get("remat_policy", "acts"),
             with_encoder=with_encoder,
             dtype=dtype,
             param_dtype=param_dtype,

@@ -10,6 +10,8 @@ are fp32; the loss is codebook + 0.25 * commitment.
 The JAX ``encode`` / ``decode`` run the lane-packed encoder / decoder
 (``models/packed_encoder.py``), a TPU lane-packing strategy with the same
 math as the plain module path; the port runs the module path.
+``use_checkpointing`` / ``remat_policy`` (JAX :66-124) reach the same
+Encoder / Decoder as the KL-VAE's (``autoencoder_kl.remat_call``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from medical_image_generation_tpu_torch.models.autoencoder_kl import Decoder, Encoder
+from medical_image_generation_tpu_torch.models.autoencoder_kl import (
+    Decoder,
+    Encoder,
+    validate_remat_policy,
+)
 from medical_image_generation_tpu_torch.models.blocks import per_level, to_internal, to_public
 
 
@@ -59,12 +65,14 @@ class VQVAE(nn.Module):
                  num_channels=(32, 64, 128), num_res_blocks=2, norm_num_groups=16,
                  attention_levels=(False, False, False), downsample_parameters=(),
                  upsample_parameters=(), num_embeddings=256, embedding_dim=8,
-                 with_encoder=True, dtype=torch.float32,
-                 param_dtype=None, device=None):
+                 use_checkpointing=False, remat_policy="acts", with_encoder=True,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         n = len(num_channels)
         self.dtype = dtype
-        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        validate_remat_policy(remat_policy)
+        kw = dict(remat=remat_policy if use_checkpointing else None, dtype=dtype,
+                  param_dtype=param_dtype, device=device)
         if with_encoder:
             self.encoder = Encoder(spatial_dims, num_channels, in_channels, embedding_dim,
                                    per_level(num_res_blocks, n), norm_num_groups,
@@ -90,6 +98,8 @@ class VQVAE(nn.Module):
             upsample_parameters=params["upsample_parameters"],
             num_embeddings=params.get("num_embeddings", 256),
             embedding_dim=params.get("embedding_dim", 8),
+            use_checkpointing=bool(params.get("use_checkpointing", False)),
+            remat_policy=params.get("remat_policy", "acts"),
             with_encoder=with_encoder, dtype=dtype, param_dtype=param_dtype, device=device)
 
     def encode(self, x):

@@ -1,7 +1,7 @@
 """Planner math for model configs: the port's own copy.
 
 Copied from ``medical_image_generation_tpu/planning/planner.py`` (the
-numpy-free functions at :28-286) so the port builds planner configs without
+numpy-free functions at :28-295) so the port builds planner configs without
 importing the JAX package. Same semantics: the nnU-Net-style per-axis
 stride/kernel/padding derivation, the KL-VAE / diffusion U-Net architecture
 dicts derived from a dataset's median shape, and the full training config
@@ -247,6 +247,15 @@ def create_config_dict(
         "ddpm_learning_rate": 2e-5,
         "ddpm_params": ddpm_dict,
     }
+
+
+def epochs_multiplier(n_patients: int) -> int:
+    """Dataset-size epoch multiplier (reference configuration.py:1629-1634)."""
+    if 0.7 * n_patients < 100:
+        return 1
+    if 0.7 * n_patients < 500:
+        return 2
+    return 3
 
 
 def flagship_dataset(tiny: bool = False, spatial_dims: int = 3) -> Dict:

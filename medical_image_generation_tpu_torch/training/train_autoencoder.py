@@ -41,8 +41,10 @@ loader's state, so ``-c`` resumes bit for bit: unlike the JAX loop, which
 restarts its step counter (and with it its keys) at 0 and measures an
 ``auto`` kl_weight again at the resumed params.
 
-Not ported, and refused before the first step: ``use_checkpointing``
-(``NotImplementedError``) and the augmentations ``data/augment.py`` lacks.
+The generator is built with the config's ``use_checkpointing`` /
+``remat_policy`` (ResBlock rematerialisation, ``models/autoencoder_kl.py``).
+Not ported, and refused before the first step: the augmentations
+``data/augment.py`` lacks.
 """
 
 from __future__ import annotations
@@ -94,15 +96,6 @@ def parse_kl_weight(kw) -> Tuple[bool, float]:
     return False, float(1e-6 if kw is None else kw)
 
 
-def check_no_checkpointing(use_checkpointing: bool) -> None:
-    """Refuse activation rematerialisation, which only a backward pass
-    through the generator would use."""
-    if use_checkpointing:
-        raise NotImplementedError(
-            "use_checkpointing (activation rematerialisation) is not ported yet "
-            "(ROADMAP queue 1, item 8: memory planning); set use_checkpointing: false")
-
-
 class AEDraws(NamedTuple):
     """Every random number of one train step. ``eps``: the posterior noise,
     latent-shaped (KL-VAE), or None (VQ-VAE)."""
@@ -126,7 +119,6 @@ class AutoEncoderTrainer:
         self.discriminator = discriminator.train()
         self.perceptual = perceptual.eval()
         self.vae_params = common.generator_params(config, latent_space_type)
-        check_no_checkpointing(self.vae_params.get("use_checkpointing", False))
         self.spatial_dims = self.vae_params["spatial_dims"]
         self.adv_weight = float(config.get("adv_weight", 0.01))
         self.perc_weight = float(config.get("perc_weight", 0.5))

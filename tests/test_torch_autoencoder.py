@@ -19,11 +19,12 @@ from medical_image_generation_tpu.training import common as jcommon
 from medical_image_generation_tpu_torch import convert
 from medical_image_generation_tpu_torch.models import discriminator as tdisc
 from medical_image_generation_tpu_torch.models import perceptual as tperc
+from medical_image_generation_tpu_torch.models import autoencoder_kl
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
+from medical_image_generation_tpu_torch.models.blocks import ResBlock
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
 from medical_image_generation_tpu_torch.planning.planner import flagship_configs
 from medical_image_generation_tpu_torch.training import common as tcommon
-from medical_image_generation_tpu_torch.training import train_autoencoder
 from torch_parity import nd, rand_params, tiny_vae_pair
 
 # fp32 on both sides: convolutions and reductions summed in another order
@@ -226,8 +227,9 @@ def test_autoencoder_forward_and_reconstruct_match_jax():
 def test_autoencoder_param_dtype_and_checkpointing_refusal():
     """bf16 compute over fp32 master params (the JAX AE's layout): every
     conv weight fp32, the output fp32. The models build from a config with
-    use_checkpointing (the frozen uses need no rematerialisation); the
-    stage-1 trainer refuses it."""
+    use_checkpointing, the flag reaches the Encoder's and the Decoder's
+    ResBlocks, the state_dict keys stay, and an unknown remat_policy is
+    refused."""
     vae_p, _, _ = flagship_configs(tiny=True)
     m = AutoencoderKL.from_config(vae_p, dtype=torch.bfloat16, param_dtype=torch.float32,
                                   device="cpu")
@@ -240,8 +242,20 @@ def test_autoencoder_param_dtype_and_checkpointing_refusal():
     assert set(AutoencoderKL.from_config(remat, device="cpu").state_dict()) == set(
         m.state_dict())
     VQVAE.from_config(remat, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        train_autoencoder.check_no_checkpointing(True)
+    for cls in (AutoencoderKL, VQVAE):
+        r = cls.from_config(dict(remat, remat_policy="full"), dtype=torch.float32,
+                            device="cpu")
+        blocks = [b for b in r.modules() if isinstance(b, ResBlock)]
+        seen = []
+        orig = autoencoder_kl.checkpoint.checkpoint
+        autoencoder_kl.checkpoint.checkpoint = lambda fn, *a, **k: (seen.append(fn), fn(*a))[1]
+        try:
+            r(x) if cls is VQVAE else r(x, eps)
+        finally:
+            autoencoder_kl.checkpoint.checkpoint = orig
+        assert len(blocks) > 0 and [id(b) for b in seen] == [id(b) for b in blocks]
+        with pytest.raises(ValueError, match="remat_policy"):
+            cls.from_config(dict(remat, remat_policy="bogus"), device="cpu")
 
 
 def test_kl_and_l1_losses_match_jax():

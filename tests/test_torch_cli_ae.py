@@ -38,8 +38,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def ae_env(tmp_path, monkeypatch):
     """A preprocessed dataset written with the port's VolStore (6 patients
     of (1, 36, 40, 40)), the tiny stage-1 config as the planner's
-    medimgen_config.yaml, the env vars, and loaders of 3 train / 2 val
-    steps for both trainers."""
+    medimgen_config.yaml (with the probe's ``remat_policy``), the env vars,
+    and loaders of 3 train / 2 val steps for both trainers."""
     pre, res = tmp_path / "pre", tmp_path / "res"
     images = pre / "Task099_Synth" / "imagesTr"
     images.mkdir(parents=True)
@@ -51,6 +51,8 @@ def ae_env(tmp_path, monkeypatch):
                         {"class_locations": {1: [(z, 20, 20) for z in range(10, 26)]}})
     cfg = ae_config(ae_batch_size=2, ddpm_batch_size=2, num_workers=2, kl_weight=1e-7,
                     adv_weight=0.01)
+    # remat_policy as the planner writes it after its memory probe
+    cfg["vae_params"] = dict(cfg["vae_params"], remat_policy="acts")
     with open(pre / "Task099_Synth" / "medimgen_config.yaml", "w") as f:
         yaml.safe_dump({"3D": cfg}, f)
     monkeypatch.setenv("medimgen_preprocessed", str(pre))
@@ -170,7 +172,8 @@ def test_vq_autoencoder_then_ldm_vq(ae_env, tmp_path):
 
 
 @pytest.mark.parametrize("extra,err", [
-    (["--set", "vae_params.use_checkpointing=true"], NotImplementedError),
+    (["--set", "vae_params.use_checkpointing=true", "--set", "vae_params.remat_policy=bogus"],
+     ValueError),
     (["--set", "ae_transformations.elastic=true"], NotImplementedError),
     (["--set", "latent_space_type=vq"], ValueError),
     (["--set", "vae_params.num_res_blockz=2"], KeyError),

@@ -376,3 +376,31 @@ def test_slabs_at_the_2d_batches_cover_every_row_once_in_order(pass_, B, M, C, i
         p = pass_[4:]
         got, per_sm = tgn._bwd_slabs(p, B, M, C, width, sms), tgn._BWD_BLOCKS_PER_SM[p]
     _assert_slabs_tile_rows(*got, M, C, width, B, sms, per_sm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["acts", "full"])
+def test_group_norm_under_remat_on_gpu(cuda, policy):
+    """A bf16 ResBlock under ``remat_call`` (non-reentrant checkpointing;
+    "acts" keeps the conv outputs): the same output and gradients, bit for
+    bit, as without remat, with both GroupNorms' forward kernels launched
+    again in the backward."""
+    from medical_image_generation_tpu_torch.models.autoencoder_kl import remat_call
+    from medical_image_generation_tpu_torch.models.blocks import ResBlock
+
+    torch.manual_seed(0)
+    blk = ResBlock(32, 64, 16, 1e-6, 3, dtype=torch.bfloat16, param_dtype=torch.float32,
+                   device=cuda)
+    x = torch.from_numpy(nd((2, 32, 16, 16, 16), 1)).to(cuda, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last_3d).requires_grad_()
+
+    def run(remat):
+        y = remat_call(blk, x, remat)
+        n = tgn.stats_fold.launches
+        grads = torch.autograd.grad(y.float().square().sum(), [x, *blk.parameters()])
+        return y, grads, tgn.stats_fold.launches - n
+
+    y0, g0, n0 = run(None)
+    y1, g1, n1 = run(policy)
+    assert (n0, n1) == (0, 2)
+    assert torch.equal(y0, y1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
