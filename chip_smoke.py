@@ -60,11 +60,12 @@ Phases (any failure raises and exits non-zero):
                    preprocessed dataset (8 patients of (1, 144, 160, 160) with
                    a foreground sphere each, written with the port's
                    VolStore): medimgen_torch_train_autoencoder for one epoch
-                   of 250 + 50 steps without the adversarial loss (last and
-                   best written), then -c to a second epoch with it (restored
-                   state bit for bit equal to the file, the train loader's
-                   draws too; the generator's Adam count 250 -> 500, the
-                   discriminator's 0 -> 250), launches held to the prediction.
+                   of 100 + 20 steps (the loader's 250 + 50, cut) without the
+                   adversarial loss (last and best written), then -c to a
+                   second epoch with it (restored state bit for bit equal to
+                   the file, the train loader's draws too; the generator's
+                   Adam count 100 -> 200, the discriminator's 0 -> 100),
+                   launches held to the prediction.
 10. cli         -- the LDM training CLI end to end at the same flagship width, on
                    the same dataset and on the best_model.pt phase ae_cli
                    wrote: the loader alone for one train epoch (batches/s,
@@ -86,7 +87,8 @@ Phases (any failure raises and exits non-zero):
                    the planner's 2D flagship shapes, bf16 and fp32: flash
                    forward, dQ and dK/dV at (48, 1024, 1, 512) and (48, 256,
                    1, 768) (the 2D U-Net's two sites, batch 48), the forward
-                   at the sampling chunks of 16 and 4; the four GroupNorm
+                   at the sampling chunks of 16 and 4 (and at the one 3D
+                   volume phase 6 samples, batch 1); the four GroupNorm
                    kernels at every GN_SHAPES_2D shape (the 2D VAE at batch
                    24 and 48, the 2D discriminator, the U-Net at 48, 16 and
                    4, the eval's ResNet50 instance norms over 100 2D images
@@ -143,12 +145,63 @@ Phases (any failure raises and exits non-zero):
                    the phase is one that phases 3, 4 or 11 hold against the
                    plain versions.
 
+16. ddpm_train   -- (after phase 12) the pixel-space DDPM step (DDPMTrainer,
+                   U-Net [256, 512, 768] at pixel resolution, in and out
+                   channels 1, fp32 masters, bf16, seeded random weights) at
+                   the planner's 3D flagship (batch 4 of (128, 143, 143) ->
+                   128^3) and 2D flagship (batch 48 of (285, 285) -> 256^2):
+                   one step at the planner's batch without and with
+                   use_checkpointing (an out-of-memory error is the
+                   measured result, with the bytes it asked), then batches
+                   halved until one fits (no remat tried first); at that
+                   batch 2 (3D) / 4 (2D) timed steps (ms, peak, launches
+                   held to the prediction: every GroupNorm forward kernel
+                   46 + 34 times a step under remat), a profile of one step
+                   (device busy, idle share, each kernel's device ms beside
+                   its summed bound), the two 1-channel convs' kernels
+                   (cuDNN's pick), and one sampling forward at batch 1 (3D)
+                   / 16 and 4 (2D) with its launches. Every flash and
+                   GroupNorm shape met is recorded (the flash calls of the
+                   trials that ran out of memory too).
+17. kernels_ddpm -- every kernel at every flash and GroupNorm shape phase 16
+                   met, bf16 and fp32 (bf16 only, untimed, where only a
+                   trial that ran out of memory met it), same bits twice:
+                   flash forward, dQ
+                   and dK/dV at (B, 262144, 1, 512), (B, 32768, 1, 768),
+                   (B, 16384, 1, 512) and (B, 4096, 1, 768) and the sampling
+                   batches, against chunked plain references (the lse over
+                   every query and key, o / dQ at four query tiles, dK / dV
+                   at four key tiles summed over every query, delta every
+                   row), with ms, the bound and SDPA's memory-efficient
+                   backend beside them; the four GroupNorm kernels against
+                   plain versions computed in row chunks. No fp32 flash at
+                   262144 tokens and no fp32 GroupNorm over 2^31 elements
+                   (scalar fp32 kernels and whole fp32 references too slow
+                   or too large there; neither is on the DDPM's path).
+18. ddpm_cli     -- (last, in the CLI workspace, after deleting the earlier
+                   phases' runs) medimgen_torch_train_ddpm at the batch and
+                   remat phase 16 chose: 2D on Task098, one epoch of 6 + 2
+                   steps with the interval grid (16 samples, DDIM 50),
+                   last / best, then -c to a second epoch (restored state
+                   bit for bit, AdamW's count carries on), then
+                   medimgen_torch_sample_ddpm writing 4 PNGs and the grid
+                   (DDIM 10), read back; 3D on the dataset of phase 10, one
+                   epoch of 2 + 1 steps, then the sampling CLI writing one
+                   .nii.gz at 2 DDIM steps, read back. Launches held to the
+                   prediction; every GroupNorm shape held by phase 17.
+Every flash forward and backward of every phase is recorded, and the run
+fails at the end if one ran at a shape no kernel phase (or the CPU-vs-GPU
+parity phases) held against its plain version.
+
 The last two lines of standard output are the kernels' JSON record (launches
 counted on the LDM train path, ``ae_launches`` on the ten timed AE steps with
 the adversarial loss, ``launches_2d`` a 2D LDM step, a 2D AE step with the
 adversarial loss, one 2D eval and the 3D eval call, ``launches_plan`` one
-3D AE step with the adversarial loss under each remat rung) and the device
-record; the card's name and power limit are printed before them.
+3D AE step with the adversarial loss under each remat rung, ``launches_ddpm``
+a 2D and a 3D DDPM step, one 2D (batch 16) and one 3D (batch 1) sampling
+forward and each DDPM CLI's first epoch, ``step_ms_ddpm`` each kernel's
+device ms / bound a DDPM step, ``shapes_ddpm`` (shape, ms, bound_ms) at
+phase 17's shapes) and the device record; the card's name and power limit are printed before them.
 """
 
 from __future__ import annotations
@@ -1033,47 +1086,10 @@ def phase_train(warmup=2, steps=10):
 
 def step_bounds(trainer, batch):
     """{kernel: least ms the card could take for the kernel's launches in one
-    train step}: the bound of each launch, from the shapes that reach the
-    GroupNorm and attention modules in one step, summed."""
-    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
-
-    seen = []  # (module kind, differentiated, input shape, itemsize)
-
-    def hook_for(kind, grad):
-        def hook(mod, args):
-            x = args[0]
-            seen.append((kind, grad, mod, tuple(x.shape), x.element_size()))
-        return hook
-
-    handles = [m.register_forward_pre_hook(hook_for(cls.__name__, grad))
-               for net, grad in ((trainer.unet, True), (trainer.vae.encoder, False))
-               for m in net.modules() for cls in (GroupNorm, AttentionBlock)
-               if isinstance(m, cls)]
-    try:
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-    finally:
-        for h in handles:
-            h.remove()
-    ms = {k: 0.0 for k in _counters()}
-    for kind, grad, mod, shape, isz in seen:
-        B, C, M = shape[0], shape[1], math.prod(shape[2:])
-        if kind == "GroupNorm":
-            ms["gn_stats_fold"] += stats_fold_bytes(B, M, C, isz) / PEAK_BYTES * 1e3
-            ms["gn_affine_act"] += (B * M * C * 2 * isz + 2 * B * C * 4) / PEAK_BYTES * 1e3
-            if grad:
-                ms["gn_bwd_stats"] += (2 * B * M * C * isz + 9 * B * C * 4) / PEAK_BYTES * 1e3
-                ms["gn_bwd_apply"] += (3 * B * M * C * isz + 4 * B * C * 4) / PEAK_BYTES * 1e3
-        else:
-            S, H, D = M, mod.num_heads, mod.head_dim
-            fl, n, bhs = B * H * S * S * D, B * S * H * D, B * H * S
-            ms["flash_attn_fwd"] += bound(4 * fl, 4 * n * isz + 4 * bhs, PEAK_BF16_FLOPS)[0]
-            if grad:
-                ms["flash_attn_bwd_dq"] += bound(6 * fl, 6 * n * isz + 8 * bhs,
-                                                 PEAK_BF16_FLOPS)[0]
-                ms["flash_attn_bwd_dkdv"] += bound(8 * fl, 6 * n * isz + 8 * bhs,
-                                                   PEAK_BF16_FLOPS)[0]
-    return ms
+    LDM train step} (``module_bounds`` over the U-Net and the frozen
+    encoder)."""
+    return module_bounds([trainer.unet, trainer.vae.encoder],
+                         lambda: trainer.train_step(batch))[0]
 
 
 WARM_LAUNCHES = 256  # tiny kernels a profile records before the call it reads
@@ -1088,7 +1104,7 @@ PORT_KERNELS = {  # profile name patterns of each port kernel, by its counter's 
 }
 
 
-def profile_breakdown(label, fn):
+def profile_breakdown(label, fn, time_host=True):
     """One call under torch.profiler: device time by kernel, the port
     kernels' share, and the device's busy share of the call's wall time
     (single stream, so kernels do not overlap); plus the host's enqueue time.
@@ -1098,13 +1114,17 @@ def profile_breakdown(label, fn):
     read. Launch counts are checked on the wrappers' counters, which miss
     nothing; each profile pattern is one kernel a wrapper call, so the
     profile may show fewer (events it dropped, logged) but never more.
-    Returns (device busy ms, {port kernel: device ms})."""
+    ``time_host=False`` skips the unprofiled call that times the host's
+    enqueue (for calls of tens of seconds). Returns (device busy ms, {port
+    kernel: device ms})."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
+    host_ms = float("nan")
+    if time_host:
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     _reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1412,7 +1432,20 @@ def _ae_state_diff(trainer, payload):
 def phase_ae_cli(ws, per_step):
     """medimgen_torch_train_autoencoder end to end on the CLI workspace's
     dataset: epoch 1 without the adversarial loss, then -c to epoch 2 with
-    it; returns the launch counts of both runs."""
+    it, epochs cut to AE_CLI_TRAIN_STEPS / AE_CLI_VAL_STEPS; returns the
+    launch counts of both runs."""
+    import functools
+    from unittest import mock
+
+    from medical_image_generation_tpu_torch.training import train_autoencoder
+
+    loaders = functools.partial(train_autoencoder.get_data_loaders,
+                                train_steps=AE_CLI_TRAIN_STEPS, val_steps=AE_CLI_VAL_STEPS)
+    with mock.patch.object(train_autoencoder, "get_data_loaders", loaders):
+        return _ae_cli_runs(ws, per_step)
+
+
+def _ae_cli_runs(ws, per_step):
     from medical_image_generation_tpu_torch.models.blocks import GroupNorm
     from medical_image_generation_tpu_torch.training import checkpoints, train_autoencoder
 
@@ -1464,13 +1497,14 @@ def phase_ae_cli(ws, per_step):
             f"optimizer counts {tr.g_opt.count} / {tr.d_opt.count}; loss_dict {ld}; run "
             f"{run_s:.1f} s")
         finite = all(math.isfinite(v) for k in ld for v in ld[k])
-        if (steps, val_steps) != (250, 50) or counts != expect or not finite \
+        if (steps, val_steps) != (AE_CLI_TRAIN_STEPS, AE_CLI_VAL_STEPS) or counts != expect \
+                or not finite \
                 or st["adv_on"] != adv_on:
             raise AssertionError(f"AE CLI {run}: {steps} / {val_steps} steps, launches {counts} "
                                  f"!= predicted {expect}, or losses {ld}")
         if not adv_on:
             if sorted(st["saved"]) != ["best_model", "last_model"] or (
-                    tr.g_opt.count, tr.d_opt.count) != (250, 0):
+                    tr.g_opt.count, tr.d_opt.count) != (AE_CLI_TRAIN_STEPS, 0):
                 raise AssertionError(f"AE epoch 1 wrote {st['saved']}, counts "
                                      f"{tr.g_opt.count} / {tr.d_opt.count}")
             last = checkpoints.checkpoint_path(tr.save_dict["checkpoints"], "last_model")
@@ -1485,7 +1519,9 @@ def phase_ae_cli(ws, per_step):
                 f"restored state equal to last_model.pt: {restored.get('diff') == []}, train "
                 f"loader's draws restored: {restored.get('loader')}")
             if (restored.get("start") != 1 or restored.get("diff") != []
-                    or not restored.get("loader") or (tr.g_opt.count, tr.d_opt.count) != (500, 250)
+                    or not restored.get("loader")
+                    or (tr.g_opt.count, tr.d_opt.count) != (2 * AE_CLI_TRAIN_STEPS,
+                                                            AE_CLI_TRAIN_STEPS)
                     or len(ld["train_rec"]) != 2 or not ld["disc"][1] > 0):
                 raise AssertionError(f"AE resume failed: {restored.get('diff')}, counts "
                                      f"{tr.g_opt.count} / {tr.d_opt.count}, loss_dict {ld}")
@@ -1508,8 +1544,9 @@ def card():
 CLI_PATIENTS, CLI_VOLUME = 8, (1, 144, 160, 160)  # (C, Z, Y, X) float32 in [0, 1]
 CLI_FREE_BYTES = 20e9  # two ~4.4 GB 3D and two ~1.7 GB 2D checkpoints, the datasets, samples
 # phase cli's depth, cut from the CLI's own 250 / 50 steps and 50 DDIM steps
-# (phase ae_cli runs the loader's default epoch)
 CLI_TRAIN_STEPS, CLI_VAL_STEPS, CLI_DDIM_STEPS = 100, 20, 10
+# phase ae_cli's depth, cut from the loader's 250 / 50 steps
+AE_CLI_TRAIN_STEPS, AE_CLI_VAL_STEPS = 100, 20
 
 
 def _write_cli_dataset(root, cfg, seed=2024, task="Task099_Synth", volume=CLI_VOLUME,
@@ -1602,7 +1639,7 @@ def _state_equal(trainer, payload):
         bad.append("host generator")
     if not torch.equal(trainer.generator.get_state(), payload["generators"]["device"]):
         bad.append("device generator")
-    if trainer.scale_factor != payload["scale_factor"]:
+    if "scale_factor" in payload and trainer.scale_factor != payload["scale_factor"]:
         bad.append("scale_factor")
     return bad
 
@@ -1892,7 +1929,8 @@ GN_SHAPES_2D = sorted(
     | {(100, 64, 2048, 2048)})  # the widest instance norm a ResNet50 stage could need
 FLASH_SHAPES_2D = [(48, 1024, 1, 512), (48, 256, 1, 768)]  # the 2D U-Net's sites, batch 48
 FLASH_FWD_SHAPES_2D = [(16, 1024, 1, 512), (16, 256, 1, 768), (4, 1024, 1, 512),
-                       (4, 256, 1, 768)]  # sampling chunks of 16 and 4
+                       (4, 256, 1, 768),  # sampling chunks of 16 and 4
+                       (1, 4096, 1, 512), (1, 512, 1, 768)]  # phase train's one 3D volume
 AE_BATCH_2D, LDM_BATCH_2D = 24, 48
 # phase cli_2d's depth: epochs of 40 train / 8 val steps, DDIM 10 for the
 # interval grid and the eval (the planner's 250 / 50 steps, DDIM 50 and the
@@ -1981,69 +2019,6 @@ def _flash_2d_case(B, S, H, D, dt, gen, backward):
     return rec, line
 
 
-def _gn_2d_case(B, M, C, G, dt, gen):
-    """The four GroupNorm kernels at one (B, M, C, groups) against their
-    plain versions (16-byte loads, same bits twice); returns ({kernel:
-    (ms, bound ms)} in bf16, log line)."""
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
-
-    x = (torch.randn((B, M, C), generator=gen, device="cuda") * 1.3 + 0.7).to(dt)
-    g = torch.randn((B, M, C), generator=gen, device="cuda").to(dt)
-    w = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
-    b = 0.1 * torch.randn(C, generator=gen, device="cuda")
-    vec0 = [f.vector_launches for f in (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply)]
-    st, A, bb = gn.stats_fold(x, w, b, G, 1e-6)
-    st_ref, rA, rbb = gn.stats_fold_plain(x, w, b, G, 1e-6)
-    same = all(torch.equal(u, v) for u, v in zip((st, A, bb), gn.stats_fold(x, w, b, G, 1e-6)))
-    srel = _err(st, st_ref) / st_ref.abs().max().item()
-    ferr = max(_err(A, rA) / rA.abs().max().item(), _err(bb, rbb) / rbb.abs().max().item())
-    ok = srel <= STATS_REL_TOL and ferr <= FOLD_REL_TOL
-    rtol, atol = AFFINE_TOL[dt]
-    aerr, xerr, prel = 0.0, 0.0, 0.0
-    for silu in (False, True):
-        y, y_ref = gn.affine_act(x, A, bb, silu), gn.affine_act_plain(x, A, bb, silu)
-        aerr = max(aerr, _err(y, y_ref))
-        ok = ok and bool(((y.float() - y_ref.float()).abs()
-                          <= atol + rtol * y_ref.float().abs()).all())
-        coef, ds, db = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
-        dx = gn.gn_bwd_apply(x, g, A, bb, coef, silu)
-        r_coef, r_ds, r_db = gn.gn_bwd_stats_plain(x, g, A, bb, st, w, G, 1e-6, silu)
-        r_dx = gn.gn_bwd_apply_plain(x, g, A, bb, r_coef, silu)
-        again = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
-        same = same and all(torch.equal(u, v) for u, v in zip(
-            (coef, ds, db, dx), (*again, gn.gn_bwd_apply(x, g, A, bb, again[0], silu))))
-        x_ok, e, _ = within(dx, r_dx, *GN_BWD_TOL[dt])
-        xerr = max(xerr, e)
-        p = max(_err(t_, r_) / r_.abs().max().item()
-                for t_, r_ in ((coef, r_coef), (ds, r_ds), (db, r_db)))
-        prel = max(prel, p)
-        ok = ok and x_ok and p <= GN_PARAM_GRAD_TOL
-    vec = [f.vector_launches - v0 for f, v0 in zip(
-        (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply), vec0)]
-    vec_ok = vec == [2, 4, 4]  # stats + fold twice; each backward pass twice a SiLU setting
-    torch.cuda.synchronize()
-    line = (f"B={B} M={M} C={C} G={G} {str(dt)[6:]}: stats rel_err={srel:.3e} A/b rel_err="
-            f"{ferr:.3e} affine max_abs_err={aerr:.3e} bwd dx max_abs_err={xerr:.3e} "
-            f"coef/dscale/dbias rel_err={prel:.3e} 16-byte loads={vec_ok} bit-identical on a "
-            f"rerun={same}")
-    if not (ok and same and vec_ok):
-        raise AssertionError(f"[kernels_2d] GroupNorm kernels disagree: {line}")
-    times = {}
-    if dt == torch.bfloat16:
-        isz = x.element_size()
-        bounds = gn_bounds_ms((B, C, M), isz, True)
-        times = {
-            "gn_stats_fold": time_ms(lambda: gn.stats_fold(x, w, b, G, 1e-6), 2, 5),
-            "gn_affine_act": time_ms(lambda: gn.affine_act(x, A, bb, True), 2, 5),
-            "gn_bwd_stats": time_ms(lambda: gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, True),
-                                    2, 5),
-            "gn_bwd_apply": time_ms(lambda: gn.gn_bwd_apply(x, g, A, bb, coef, True), 2, 5)}
-        times = {k: (v, bounds[k]) for k, v in times.items()}
-        line += " | ms / bound ms " + " ".join(f"{k[3:]}={v[0]:.4f}/{v[1]:.4f}"
-                                                 for k, v in times.items())
-    return times, line
-
-
 def phase_kernels_2d():
     """Every port kernel against its plain version at the 2D paths' shapes:
     flash forward and backward at batch 48 (the 2D U-Net's two attention
@@ -2064,7 +2039,7 @@ def phase_kernels_2d():
     worst = {}
     for shape in GN_SHAPES_2D:
         for dt in (torch.bfloat16, torch.float32):
-            times, line = _gn_2d_case(*shape, dt, gen)
+            times, line = _gn_case(*shape, dt, gen, "kernels_2d")
             log(f"[kernels_2d] {gpu}: groupnorm {line} OK")
             for name, (ms, b_ms) in times.items():
                 if ms / b_ms > worst.get(name, (0, None))[0]:
@@ -2836,6 +2811,745 @@ def _plan_run(ws):
     return {r: m["per_step"] for r, m in meas.items()}
 
 
+# ------------------------------------------------------------------ slice 11
+
+FLASH_SEEN = set()     # ("fwd" | "bwd", (B, S, H, D)) of every flash call on the card
+FLASH_CHECKED = set()  # the same, for the shapes a phase held against the plain versions
+_FLASH_CAPTURES = []   # open flash_capture sets
+
+
+def install_flash_recorder():
+    """Record the (B, S, H, D) of every flash forward and backward that runs
+    on the card, in FLASH_SEEN (and in any open ``flash_capture`` set)."""
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
+    fwd, bwd = fa._fwd, fa.flash_attention_bwd
+
+    def note(kind, q):
+        if q.is_cuda:
+            for s in [FLASH_SEEN, *_FLASH_CAPTURES]:
+                s.add((kind, tuple(q.shape)))
+
+    def rec_fwd(q, k, v, scale):
+        note("fwd", q)
+        return fwd(q, k, v, scale)
+
+    def rec_bwd(q, k, v, o, lse, do, scale):
+        note("bwd", q)
+        return bwd(q, k, v, o, lse, do, scale)
+
+    fa._fwd, fa.flash_attention_bwd = rec_fwd, rec_bwd
+
+
+@contextlib.contextmanager
+def flash_capture():
+    """Yields the set of flash (kind, shape) that run on the card inside."""
+    seen = set()
+    _FLASH_CAPTURES.append(seen)
+    try:
+        yield seen
+    finally:
+        _FLASH_CAPTURES.remove(seen)
+
+
+def flash_checked(kind, shapes):
+    FLASH_CHECKED.update((kind, tuple(s)) for s in shapes)
+
+
+def check_flash_listed():
+    """Raise if a flash forward or backward ran at a shape that no kernel
+    phase held against its plain version."""
+    missing = FLASH_SEEN - FLASH_CHECKED
+    if missing:
+        raise AssertionError(f"flash calls at shapes no kernel phase checked: {sorted(missing)}")
+    log(f"[env] every flash call ran at a checked shape: {len(FLASH_SEEN)} (kind, shape) "
+        f"pairs seen, {len(FLASH_CHECKED)} checked")
+
+
+@contextlib.contextmanager
+def gn_recorder():
+    """Yields the set of (B, M, C, groups) of every port GroupNorm call
+    inside (a global forward pre-hook; a rematerialised call counts again)."""
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+
+    seen = set()
+
+    def hook(mod, args):
+        if isinstance(mod, GroupNorm):
+            x = args[0]
+            seen.add((x.shape[0], math.prod(x.shape[2:]), x.shape[1], mod.num_groups))
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+DDPM_STEPS = {3: 2, 2: 4}  # timed steps after the ladder's step at the chosen batch
+DDPM_SAMPLE_BATCHES = {3: (1,), 2: (16, 4)}  # the interval samples, the sampling CLI's -n 4
+DDPM_CLI_STEPS = {3: (2, 1), 2: (6, 2)}  # train / val steps of the DDPM CLI epochs
+DDPM_CLI_DDIM = 10  # DDIM steps of the 2D sampling CLI (the 3D one takes 2)
+DDPM_F32_MAX = 2**31  # elements: the fp32 checks of larger GroupNorms are left out
+GN_REF_CHUNK = 2**27  # elements a chunk of the GroupNorm plain references (_gn_case)
+
+
+def _oom_bytes(msg):
+    """The bytes an out-of-memory error says it tried to allocate."""
+    import re
+
+    m = re.search(r"Tried to allocate ([0-9.]+) (GiB|MiB|KiB|B)", msg)
+    if not m:
+        return None
+    return float(m.group(1)) * {"GiB": 2**30, "MiB": 2**20, "KiB": 2**10, "B": 1}[m.group(2)]
+
+
+def _ddpm_trial(tr, batch, remat):
+    """One DDPM train step at ``batch`` with the U-Net's remat on or off:
+    {fits, ms, peak allocated / reserved GiB} or, on out of memory, {fits:
+    False, asked bytes, allocated GiB at the failure}. Nothing else is
+    caught."""
+    import gc
+
+    tr.unet.remat = "full" if remat else None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = {"batch": int(batch.shape[0]), "remat": bool(remat)}
+    try:
+        loss = tr.train_step(batch)
+        torch.cuda.synchronize()
+        out.update(fits=True, ms=(time.perf_counter() - t0) * 1e3, loss=float(loss),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+    except torch.cuda.OutOfMemoryError as e:
+        out.update(fits=False, asked=_oom_bytes(str(e)),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   secs=time.perf_counter() - t0)
+    for p in tr.params:
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def module_bounds(nets, fn):
+    """fn() with hooks on the GroupNorms and attention blocks of ``nets``:
+    returns {kernel: summed bound ms} of the launches fn makes (a forward
+    kernel's bound a call, so a recomputed GroupNorm counts twice; a
+    backward kernel's once a module that ran under autograd) and the
+    GroupNorm (B, M, C, groups) it met."""
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+
+    seen, grads = [], {}
+
+    def hook(mod, args):
+        x = args[0]
+        seen.append((mod, tuple(x.shape), x.element_size()))
+        if torch.is_grad_enabled() and x.requires_grad:
+            grads[id(mod)] = (mod, tuple(x.shape), x.element_size())
+
+    handles = [m.register_forward_pre_hook(hook) for net in nets for m in net.modules()
+               if isinstance(m, (GroupNorm, AttentionBlock))]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    ms = {k: 0.0 for k in _counters()}
+    for calls, grad in ((seen, False), (grads.values(), True)):
+        for mod, shape, isz in calls:
+            B, C, M = shape[0], shape[1], math.prod(shape[2:])
+            if isinstance(mod, GroupNorm):
+                for k, v in gn_bounds_ms(shape, isz, grad).items():
+                    if grad == k.startswith("gn_bwd"):
+                        ms[k] += v
+            else:
+                fl, n, bhs = B * mod.num_heads * M * M * mod.head_dim, B * M * C, B * M
+                if not grad:
+                    ms["flash_attn_fwd"] += bound(4 * fl, 4 * n * isz + 4 * bhs,
+                                                  PEAK_BF16_FLOPS)[0]
+                else:
+                    ms["flash_attn_bwd_dq"] += bound(6 * fl, 6 * n * isz + 8 * bhs,
+                                                     PEAK_BF16_FLOPS)[0]
+                    ms["flash_attn_bwd_dkdv"] += bound(8 * fl, 6 * n * isz + 8 * bhs,
+                                                       PEAK_BF16_FLOPS)[0]
+    shapes = {(sh[0], math.prod(sh[2:]), sh[1], m.num_groups) for m, sh, _ in seen
+              if isinstance(m, GroupNorm)}
+    return ms, shapes
+
+
+def _conv_kernels(conv, x):
+    """The device kernels of one forward + backward of ``conv`` on ``x``
+    (input and weight gradients): [(ms, name)] by time, and their sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = x.detach().requires_grad_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = conv(x)
+        torch.autograd.grad(y, [x, *conv.parameters()], torch.ones_like(y))
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(((ms, n[:80]) for n, ms in by.items()), reverse=True)
+    return top[:4], sum(by.values())
+
+
+def phase_ddpm_train():
+    """The pixel-space DDPM step at the planner's 3D and 2D flagship widths
+    (see the module docstring). Returns {3: .., 2: ..} with the planner's
+    trials, the batch and remat that ran, ms a step, launches a step and a
+    sampling forward, each kernel's device ms / bound a step, and the flash
+    and GroupNorm shapes the step and the sampling forwards met."""
+    from medical_image_generation_tpu_torch.config.run import filter_config_by_mode
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.models.blocks import (
+        AttentionBlock,
+        GroupNorm,
+        ResBlock,
+        to_internal,
+    )
+    from medical_image_generation_tpu_torch.training.train_ddpm import DDPMTrainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    dev, gpu = torch.device("cuda"), card()
+    out = {}
+    for sd in (3, 2):
+        t_dim = time.perf_counter()
+        cfg = filter_config_by_mode(_train_config(False, spatial_dims=sd), "train_ddpm")
+        cfg["ddpm_params"]["use_checkpointing"] = False
+        tr = DDPMTrainer.from_config(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+        randomize_(tr.unet, 7100 + sd)
+        n_u = sum(p.numel() for p in tr.params)
+        initial = tuple(compute_initial_patch_size(cfg["ddpm_transformations"]))
+        plan_b = int(cfg["ddpm_batch_size"])
+        gen = torch.Generator(device=dev).manual_seed(7200 + sd)
+
+        def count(cls):
+            return sum(isinstance(m, cls) for m in tr.unet.modules())
+
+        attn, gn_u, n_res = count(AttentionBlock), count(GroupNorm), count(ResBlock)
+        log(f"[ddpm_train] {gpu}: {sd}D pixel DDPM U-Net {cfg['ddpm_params']['num_channels']} "
+            f"strides {cfg['ddpm_params']['strides']} in/out channels 1, params={n_u:,} (fp32 "
+            f"masters, bf16); {attn} attention, {gn_u} GroupNorm, {n_res} ResBlocks; schedule "
+            f"{cfg['time_scheduler_params']['schedule']} {cfg['time_scheduler_params']['beta_start']}"
+            f" -> {cfg['time_scheduler_params']['beta_end']}; loader patch {initial} -> crop "
+            f"{tr.aug_cfg.crop_to}; planner batch {plan_b}")
+        trials = []
+        with flash_capture() as flash_t:  # the attention a trial ran before running out
+            for remat in (False, True):  # the planner's batch, without and with remat
+                trials.append(_ddpm_trial(tr, torch.rand((plan_b, *initial, 1), generator=gen,
+                                                         device=dev), remat))
+            chosen = next((t for t in trials if t["fits"]), None)
+            b = plan_b // 2
+            while chosen is None and b >= 1:
+                for remat in (False, True):
+                    trials.append(_ddpm_trial(tr, torch.rand((b, *initial, 1), generator=gen,
+                                                             device=dev), remat))
+                    if trials[-1]["fits"]:
+                        chosen = trials[-1]
+                        break
+                b //= 2
+        for t in trials:
+            what = (f"fits: {t['ms']:.1f} ms, peak allocated {t['peak_gib']:.2f} GiB (reserved "
+                    f"{t['reserved_gib']:.2f})" if t["fits"] else
+                    f"out of memory asking {t['asked'] / 2**30:.2f} GiB with "
+                    f"{t['peak_gib']:.2f} GiB allocated (after {t['secs']:.1f} s)")
+            log(f"[ddpm_train] {gpu}: {sd}D batch {t['batch']} "
+                f"{'with' if t['remat'] else 'without'} use_checkpointing: {what}")
+        if chosen is None:
+            raise AssertionError(f"{sd}D DDPM: no batch fits: {trials}")
+        B, remat = chosen["batch"], chosen["remat"]
+        tr.unet.remat = "full" if remat else None
+        batch = torch.rand((B, *initial, 1), generator=gen, device=dev)
+        steps = DDPM_STEPS[sd]
+        per_step = {"flash_attn_fwd": attn, "flash_attn_bwd_dq": attn,
+                    "flash_attn_bwd_dkdv": attn,
+                    "gn_stats_fold": gn_u + (2 * n_res if remat else 0),
+                    "gn_affine_act": gn_u + (2 * n_res if remat else 0),
+                    "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u}
+        with flash_capture() as flash:
+            ms, peak, counts, losses = _timed_steps(lambda: tr.train_step(batch), 0, steps)
+            losses = [float(v) for v in losses]
+            expect = {k: v * steps for k, v in per_step.items()}
+            if counts != expect or not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{sd}D DDPM step: launches {counts} != {expect}, or "
+                                     f"losses {losses}")
+            res = []
+            busy, shares = profile_breakdown(
+                f"{sd}D DDPM step, batch {B}, remat {remat}",
+                lambda: res.append(module_bounds([tr.unet], lambda: tr.train_step(batch))),
+                time_host=False)
+            prof = profile_breakdown.last
+            bounds, gn_shapes = res[0]
+        log(f"[ddpm_train] {gpu}: {sd}D step at batch {B} (the largest that fits; "
+            f"use_checkpointing {remat}): {ms:.1f} ms a step over {steps} steps, device busy "
+            f"{busy:.1f} ms, idle share {prof['idle_share']:.4f} (profiler), peak allocated "
+            f"{peak:.2f} GiB; launches {counts}, predicted {expect}; losses {losses}")
+        for name in per_step:
+            log(f"[ddpm_train] {gpu}: {sd}D per step: {name} device ms={shares[name]:.3f} "
+                f"bound ms={bounds[name]:.3f} ({per_step[name]} launches)")
+        x_in = to_internal(torch.rand((B, *tr.image_shape), generator=gen, device=dev)
+                           .to(torch.bfloat16))
+        h_in = torch.randn((B, tr.unet.ConvND_1.Conv_0.in_channels, *tr.image_shape[:-1]),
+                           generator=gen, device=dev, dtype=torch.bfloat16).contiguous(
+                               memory_format=torch.channels_last_3d if sd == 3
+                               else torch.channels_last)
+        convs = {}
+        for name, conv, inp in (("ConvND_0 (1 -> 256)", tr.unet.ConvND_0, x_in),
+                                ("ConvND_1 (256 -> 1)", tr.unet.ConvND_1, h_in)):
+            top, total = _conv_kernels(conv, inp)
+            convs[name] = total
+            log(f"[ddpm_train] {gpu}: {sd}D {name} forward + backward at batch {B}: "
+                f"{total:.3f} device ms; kernels " + "; ".join(f"{n} {t:.3f} ms" for t, n in top))
+        del x_in, h_in
+        samples = {}
+        with flash_capture() as flash_s, gn_recorder() as gn_s, torch.no_grad(), \
+                tr.sampling_weights() as unet:
+            for n in DDPM_SAMPLE_BATCHES[sd]:
+                x = torch.randn((n, *tr.image_shape), generator=gen, device=dev)
+                t = torch.full((n,), 500, device=dev, dtype=torch.long)
+                unet(x, t)
+                _reset_counts()
+                fwd_ms = time_ms(lambda: unet(x, t), 0, 1)
+                samples[n] = {"ms": fwd_ms, "counts": _read_counts()}
+                log(f"[ddpm_train] {gpu}: {sd}D sampling forward at batch {n}: {fwd_ms:.1f} ms "
+                    f"(a 50-step DDIM trajectory ~{50 * fwd_ms / 1e3:.1f} s); launches "
+                    f"{samples[n]['counts']}")
+                if samples[n]["counts"]["flash_attn_fwd"] != attn or \
+                        samples[n]["counts"]["gn_stats_fold"] != gn_u:
+                    raise AssertionError(f"{sd}D sampling forward launches {samples[n]}")
+        out[sd] = dict(n_params=n_u, plan_batch=plan_b, trials=trials, batch=B, remat=remat,
+                       ms=ms, busy=busy, idle=prof["idle_share"], peak=peak, per_step=per_step,
+                       step={k: (shares[k], bounds[k]) for k in bounds}, samples=samples,
+                       flash=flash | flash_s, flash_trials=flash_t - flash - flash_s,
+                       gn=gn_shapes | gn_s, convs=convs, losses=losses)
+        log(f"[ddpm_train] {gpu}: {sd}D done in {time.perf_counter() - t_dim:.1f} s")
+        del tr, batch, unet, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ref_tiles(S, gen, tile=64):
+    """Index rows of the first, middle and last ``tile`` rows of S, and of
+    one seeded tile."""
+    starts = {0, (S // 2 // tile) * tile, S - tile,
+              int(torch.randint(0, S // tile, (1,), generator=gen)) * tile}
+    return torch.cat([torch.arange(s, s + tile) for s in sorted(starts)]).cuda()
+
+
+def _flash_ddpm_case(B, S, H, D, dt, gen, cpu_gen, backward, timed=True):
+    """One DDPM flash shape against the chunked plain references: the lse
+    over every query and key, o and dQ at four query tiles, dK / dV at four
+    key tiles summed over every query, delta over every row; same bits
+    twice. With ``timed``, bf16 ms and SDPA's beside them. Returns
+    ({kernel: record} in bf16, log line)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    scale = D ** -0.5
+    rows, keys = _ref_tiles(S, cpu_gen), _ref_tiles(S, cpu_gen)
+    o, lse = fa.flash_attention(q, k, v, scale)
+    o2, lse2 = fa.flash_attention(q, k, v, scale)
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    del o2, lse2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lse_ref = fa.flash_lse_plain_chunked(q, k, scale)
+    o_ref, lse_ref_r = fa.flash_attention_plain(q[:, rows], k, v, scale)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    o_ok, l_ok, err, lerr = flash_close(o[:, rows], lse, o_ref, lse_ref, dt)
+    # a dropped 32-key tile moves the lse by ~32 / S: held only where that is over LSE_TOL
+    o_cut, lse_cut = fa.flash_attention_plain(q[:, rows], k[:, FLASH_TILE:], v[:, FLASH_TILE:],
+                                              scale)
+    cut_seen = not any(flash_close(o_cut, lse_cut, o_ref, lse_ref_r, dt)[:2])
+    cut_held = FLASH_TILE / S > 2 * LSE_TOL
+    ok = o_ok and l_ok and same and (cut_seen or not cut_held)
+    fl, n, bhs = B * H * S * S * D, B * S * H * D, B * H * S
+    isz = q.element_size()
+    line = (f"B={B} S={S} H={H} D={D} {str(dt)[6:]}: fwd max|o-plain|={err:.3e} (4 query "
+            f"tiles) max|lse-plain|={lerr:.3e} (every row; mean lse {lse.mean().item():.3f}) "
+            f"bit-identical on a rerun={same} one-tile-skip caught={cut_seen}"
+            f"{'' if cut_held else ' (not held: under LSE_TOL at this length)'}; chunked "
+            f"plain reference {plain_s:.1f} s")
+    rec = {}
+    big = fl > 1e13
+    iters = (0, 1) if big else (1, 3)
+    timed = timed and dt == torch.bfloat16
+    if timed:
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), *iters)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        try:
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION]):
+                lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+                              *iters)
+        except RuntimeError as e:  # no memory-efficient backend takes the shape
+            lib = None
+            log(f"[kernels_ddpm] no library call at this shape: {str(e)[:120]}")
+        del qh, kh, vh
+        b_ = bound(4 * fl, 4 * n * isz + 4 * bhs, PEAK_BF16_FLOPS)
+        rec["flash_attn_fwd"] = dict(shape=[B, S, H, D], dtype="bf16", max_abs_err=err, ms=ms,
+                                     plain_ms=plain_s * 1e3, bound_ms=b_[0], bound_by=b_[1],
+                                     library_ms=lib)
+        line += (f" | ms={ms:.3f} bound_ms={b_[0]:.3f} ({b_[1]}) SDPA (memory-efficient) "
+                 f"ms={'no library call at this shape' if lib is None else f'{lib:.3f}'}")
+    if backward:
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse_ref, do, scale)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale)
+        dq2, delta2 = fa.flash_bwd_dq(q, k, v, o, lse_ref, do, scale)
+        dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale)
+        same_b = all(torch.equal(a, b) for a, b in ((dq, dq2), (delta, delta2), (dk, dk2),
+                                                   (dv, dv2)))
+        del dq2, delta2, dk2, dv2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, S)
+        lse_rows = lse_ref.reshape(B, H, S)[:, :, rows].reshape(B * H, len(rows))
+        r_dq, _ = fa.flash_bwd_dq_plain(q[:, rows], k, v, o[:, rows], lse_rows, do[:, rows],
+                                        scale)
+        r_dk, r_dv = fa.flash_bwd_dkdv_plain_chunked(q, k, v, do, lse_ref, r_delta, scale, keys)
+        torch.cuda.synchronize()
+        plain_b = time.perf_counter() - t0
+        res = {nm: within(g, r, *FLASH_BWD_TOL[dt])
+               for nm, g, r in (("dq", dq[:, rows], r_dq), ("dk", dk[:, keys], r_dk),
+                                ("dv", dv[:, keys], r_dv))}
+        d_ok, d_err, _ = within(delta, r_delta, 1e-5, 1e-5)
+        ok = ok and all(x[0] for x in res.values()) and d_ok and same_b
+        line += (" | bwd " + " ".join(f"max|{nm}-plain|={x[1]:.3e}" for nm, x in res.items())
+                 + f" (4 query / key tiles) max|delta-plain|={d_err:.3e} bit-identical on a "
+                 f"rerun={same_b}; chunked plain reference {plain_b:.1f} s")
+        if timed:
+            ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse_ref, do, scale), *iters)
+            ms_kv = time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale),
+                            *iters)
+            b_dq = bound(6 * fl, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
+            b_kv = bound(8 * fl, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
+            for name, t_ms, b_, e in (("flash_attn_bwd_dq", ms_dq, b_dq, res["dq"][1]),
+                                      ("flash_attn_bwd_dkdv", ms_kv, b_kv,
+                                       max(res["dk"][1], res["dv"][1]))):
+                rec[name] = dict(shape=[B, S, H, D], dtype="bf16", max_abs_err=e, ms=t_ms,
+                                 plain_ms=plain_b * 1e3, bound_ms=b_[0], bound_by=b_[1],
+                                 library_ms=None)
+            line += (f" | dq ms={ms_dq:.3f} bound_ms={b_dq[0]:.3f} | dkdv ms={ms_kv:.3f} "
+                     f"bound_ms={b_kv[0]:.3f}")
+    if not ok:
+        raise AssertionError(f"[kernels_ddpm] flash kernels disagree with their plain versions: "
+                             f"{line}")
+    return rec, line
+
+
+def _rows_max(fn, M, rows):
+    """max over row chunks [r, r + rows) of fn(slice) (a tuple of floats,
+    each maxed)."""
+    acc = None
+    for r in range(0, M, rows):
+        v = fn(slice(r, r + rows))
+        acc = v if acc is None else tuple(max(a, b) for a, b in zip(acc, v))
+    return acc
+
+
+def _gn_case(B, M, C, G, dt, gen, label):
+    """The four GroupNorm kernels at one (B, M, C, groups) against their
+    plain versions computed a chunk of rows at a time (the same math; the
+    whole fp32 copies of a (2, 2097152, 768) activation would not fit beside
+    it): 16-byte loads, same bits twice. Returns ({kernel: (ms, bound ms)}
+    in bf16, log line)."""
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+
+    x = torch.randn((B, M, C), generator=gen, device="cuda", dtype=dt) * 1.3 + 0.7
+    g = torch.randn((B, M, C), generator=gen, device="cuda", dtype=dt)
+    w = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(C, generator=gen, device="cuda")
+    rows = max(1, GN_REF_CHUNK // (B * C))
+    vec0 = [f.vector_launches for f in (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply)]
+    st, A, bb = gn.stats_fold(x, w, b, G, 1e-6)
+    same = all(torch.equal(u, v) for u, v in zip((st, A, bb), gn.stats_fold(x, w, b, G, 1e-6)))
+    st_ref = sum(gn.channel_stats_plain(x[:, r:r + rows]) for r in range(0, M, rows))
+    rA, rbb = gn.fold_affine_plain(st_ref, w, b, G, M, 1e-6)
+    srel = _err(st, st_ref) / st_ref.abs().max().item()
+    ferr = max(_err(A, rA) / rA.abs().max().item(), _err(bb, rbb) / rbb.abs().max().item())
+    ok = srel <= STATS_REL_TOL and ferr <= FOLD_REL_TOL
+    rtol, atol = AFFINE_TOL[dt]
+    aerr, xerr, prel = 0.0, 0.0, 0.0
+    for silu in (False, True):
+        y = gn.affine_act(x, A, bb, silu)
+
+        def affine_cmp(sl):
+            r = gn.affine_act_plain(x[:, sl], A, bb, silu).float()
+            d = (y[:, sl].float() - r).abs()
+            return d.max().item(), (d - (atol + rtol * r.abs())).max().item()
+
+        e, over = _rows_max(affine_cmp, M, rows)
+        aerr = max(aerr, e)
+        ok = ok and over <= 0
+        del y
+        coef, ds, db = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
+        dx = gn.gn_bwd_apply(x, g, A, bb, coef, silu)
+        again = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
+        same = same and all(torch.equal(u, v) for u, v in zip((coef, ds, db), again))
+        same = same and torch.equal(dx, gn.gn_bwd_apply(x, g, A, bb, again[0], silu))
+        sums = [gn.gn_bwd_sums_plain(x[:, r:r + rows], g[:, r:r + rows], A, bb, silu)
+                for r in range(0, M, rows)]
+        r_coef, r_ds, r_db = gn.gn_bwd_fold_plain(sum(s[0] for s in sums),
+                                                  sum(s[1] for s in sums), st, w, G, 1e-6, M)
+        rt, at = GN_BWD_TOL[dt]
+
+        def dx_cmp(sl):
+            r = gn.gn_bwd_apply_plain(x[:, sl], g[:, sl], A, bb, r_coef, silu).float()
+            d = (dx[:, sl].float() - r).abs()
+            return d.max().item(), (d - rt * r.abs()).max().item(), r.abs().max().item()
+
+        e, over, rmax = _rows_max(dx_cmp, M, rows)
+        xerr = max(xerr, e)
+        p = max(_err(t_, r_) / r_.abs().max().item()
+                for t_, r_ in ((coef, r_coef), (ds, r_ds), (db, r_db)))
+        prel = max(prel, p)
+        ok = ok and over <= at * rmax and p <= GN_PARAM_GRAD_TOL
+        del dx
+    vec = [f.vector_launches - v0 for f, v0 in zip(
+        (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply), vec0)]
+    vec_ok = vec == [2, 4, 4]
+    torch.cuda.synchronize()
+    line = (f"B={B} M={M} C={C} G={G} {str(dt)[6:]}: stats rel_err={srel:.3e} A/b rel_err="
+            f"{ferr:.3e} affine max_abs_err={aerr:.3e} bwd dx max_abs_err={xerr:.3e} "
+            f"coef/dscale/dbias rel_err={prel:.3e} 16-byte loads={vec_ok} bit-identical on a "
+            f"rerun={same}")
+    if not (ok and same and vec_ok):
+        raise AssertionError(f"[{label}] GroupNorm kernels disagree: {line}")
+    times = {}
+    if dt == torch.bfloat16:
+        bounds = gn_bounds_ms((B, C, M), x.element_size(), True)
+        times = {
+            "gn_stats_fold": time_ms(lambda: gn.stats_fold(x, w, b, G, 1e-6), 1, 3),
+            "gn_affine_act": time_ms(lambda: gn.affine_act(x, A, bb, True), 1, 3),
+            "gn_bwd_stats": time_ms(lambda: gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, True),
+                                    1, 3),
+            "gn_bwd_apply": time_ms(lambda: gn.gn_bwd_apply(x, g, A, bb, coef, True), 1, 3)}
+        times = {k: (v, bounds[k]) for k, v in times.items()}
+        line += " | ms / bound ms " + " ".join(f"{k[3:]}={v[0]:.4f}/{v[1]:.4f}"
+                                                 for k, v in times.items())
+    return times, line
+
+
+def phase_kernels_ddpm(ddpm):
+    """Every port kernel against its plain version at every flash and
+    GroupNorm shape phase ddpm_train's steps and sampling forwards met (the
+    DDPM CLIs run the same batches): bf16 and fp32, same bits twice, but no
+    fp32 flash at 262144 tokens (the parity path's scalar fp32 kernels run
+    at a fiftieth of the bf16 rate: minutes a pass there) and no fp32
+    GroupNorm over DDPM_F32_MAX elements. Returns {kernel: [{shape, ms,
+    bound_ms}]} (bf16)."""
+    gpu = card()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cpu_gen = torch.Generator().manual_seed(32)
+    out = {}
+    t0 = time.perf_counter()
+    path = set().union(*(d["flash"] for d in ddpm.values()))
+    flash = path | set().union(*(d["flash_trials"] for d in ddpm.values()))
+    shapes = sorted({s for _, s in flash}, key=lambda s: -s[0] * s[1] * s[1] * s[3])
+    for shape in shapes:
+        backward = ("bwd", shape) in flash
+        on_path = ("fwd", shape) in path
+        for dt in (torch.bfloat16, torch.float32):
+            if dt == torch.float32 and (shape[1] > 65536 or not on_path):
+                log(f"[kernels_ddpm] {gpu}: flash {shape} fp32 not checked ("
+                    + ("scalar fp32 kernels: see the fp32 ms at 32768 tokens)" if on_path else
+                       "met only by a bf16 trial that ran out of memory)"))
+                continue
+            t1 = time.perf_counter()
+            rec, line = _flash_ddpm_case(*shape, dt, gen, cpu_gen, backward, on_path)
+            log(f"[kernels_ddpm] {gpu}: flash {line} OK ({time.perf_counter() - t1:.1f} s)")
+            for name, r in rec.items():
+                out.setdefault(name, []).append(r)
+            torch.cuda.empty_cache()
+        flash_checked("fwd", [shape])
+        if backward:
+            flash_checked("bwd", [shape])
+    gn_shapes = sorted(set().union(*(d["gn"] for d in ddpm.values())),
+                       key=lambda s: -s[0] * s[1] * s[2])
+    for shape in gn_shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            if dt == torch.float32 and shape[0] * shape[1] * shape[2] > DDPM_F32_MAX:
+                log(f"[kernels_ddpm] {gpu}: groupnorm {shape} fp32 not checked (over "
+                    f"{DDPM_F32_MAX} elements)")
+                continue
+            times, line = _gn_case(*shape, dt, gen, "kernels_ddpm")
+            log(f"[kernels_ddpm] {gpu}: groupnorm {line} OK")
+            for name, (ms, b_ms) in times.items():
+                out.setdefault(name, []).append(dict(shape=list(shape), ms=ms, bound_ms=b_ms))
+            torch.cuda.empty_cache()
+    DDPM_GN_CHECKED.update(gn_shapes)
+    log(f"[kernels_ddpm] {gpu}: {len(shapes)} flash shapes and {len(gn_shapes)} GroupNorm "
+        f"shapes agree; phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+DDPM_GN_CHECKED = set()  # (B, M, C, groups) phase kernels_ddpm held
+
+
+def _ddpm_yaml(root, task, key, remat):
+    """Write ``use_checkpointing: remat`` into a dataset's ddpm_params (the
+    port's --set refuses a key the planner's dict lacks)."""
+    import yaml
+
+    path = os.path.join(root, task, "medimgen_config.yaml")
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    doc[key]["ddpm_params"]["use_checkpointing"] = bool(remat)
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f, sort_keys=False)
+
+
+def _ddpm_cli_prediction(info, steps, val_steps, samples):
+    """Launches of one DDPM CLI epoch: ``steps`` train steps, ``val_steps``
+    validation forwards and ``samples`` sampling forwards."""
+    fwd = {k: 0 for k in _counters()}
+    fwd.update(flash_attn_fwd=info["per_step"]["flash_attn_fwd"],
+               gn_stats_fold=info["per_step"]["gn_bwd_stats"],
+               gn_affine_act=info["per_step"]["gn_bwd_stats"])
+    return {k: steps * info["per_step"][k] + (val_steps + samples) * fwd[k] for k in fwd}
+
+
+def phase_ddpm_cli(ws, ddpm):
+    """medimgen_torch_train_ddpm and medimgen_torch_sample_ddpm at the
+    planner's 2D and 3D flagship widths (see the module docstring), at the
+    batch and remat phase ddpm_train chose. Returns the launches of the 2D
+    CLI's first epoch."""
+    import functools
+    from unittest import mock
+
+    import numpy as np
+
+    from medical_image_generation_tpu_torch.io import png
+    from medical_image_generation_tpu_torch.io.nifti import load_nifti
+    from medical_image_generation_tpu_torch.training import checkpoints as ckpt
+    from medical_image_generation_tpu_torch.training import sample, train_ddpm
+
+    t_phase = time.perf_counter()
+    gpu = ws["gpu"]
+    pre, res = os.environ["medimgen_preprocessed"], os.environ["medimgen_results"]
+    shutil.rmtree(res, ignore_errors=True)  # the earlier CLI phases' runs are done
+    log(f"[ddpm_cli] {gpu}: {shutil.disk_usage(pre).free / 1e9:.1f} GB free")
+    out = {}
+    for sd, task, dsid in ((2, "Task098_Synth2D", "098"), (3, "Task099_Synth", "099")):
+        info = ddpm[sd]
+        B, remat = info["batch"], info["remat"]
+        steps, val_steps = DDPM_CLI_STEPS[sd]
+        _ddpm_yaml(pre, task, f"{sd}D", remat)
+        argv = [dsid, "train-val-test", f"{sd}d", "--set", f"ddpm_batch_size={B}"]
+        first = ["--set", "n_epochs=1", "--set", f"val_plot_interval={1 if sd == 2 else 2}"]
+        loaders = functools.partial(train_ddpm.get_data_loaders, train_steps=steps,
+                                    val_steps=val_steps)
+        with mock.patch.object(train_ddpm, "get_data_loaders", loaders), \
+                gn_recorder() as gn_seen_cli:
+            _reset_counts()
+            t0 = time.perf_counter()
+            tr = _run_main(train_ddpm.run_cli, argv + first)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            counts = _read_counts()
+            st = tr.epoch_stats[0]
+            n_samples = 50 if sd == 2 else 0
+            expect = _ddpm_cli_prediction(info, steps, val_steps, n_samples)
+            saved = sorted(st["saved"]["names"])
+            log(f"[ddpm_cli] {gpu}: medimgen_torch_train_ddpm {sd}d at batch {B} "
+                f"(use_checkpointing {remat}): {st['steps']} train + {st['val_steps']} val steps, "
+                f"CLI ms a train step {st['train_s'] * 1e3 / st['steps']:.1f} (phase ddpm_train "
+                f"{info['ms']:.1f}), val {st['val_s'] * 1e3 / st['val_steps']:.1f} ms a step, "
+                f"loader wait {st['wait_s'] * 1e3 / st['steps']:.1f} ms a step; saved {saved} "
+                f"(write {st['saved']['write_s']:.1f} s); run {run_s:.1f} s; launches {counts}, "
+                f"predicted {expect}")
+            if counts != expect or st["steps"] != steps or saved != ["best_model", "last_model"]:
+                raise AssertionError(f"{sd}D DDPM CLI: launches {counts} != {expect}, or {st}")
+            if sd == 2:
+                grid = png.read_png(st["samples"])
+                log(f"[ddpm_cli] {gpu}: interval grid {os.path.basename(st['samples'])} "
+                    f"{grid.shape}: 16 samples at DDIM 50 in {st['sample_s']:.1f} s")
+                if grid.shape != (4 * 256 + 6,) * 2:
+                    raise AssertionError(f"2D DDPM interval grid {grid.shape}")
+            ckdir, run_cfg = tr.save_dict["checkpoints"], os.path.join(tr.save_path,
+                                                                        "config.yaml")
+            best = os.path.join(ckdir, "best_model.pt")
+            size = os.path.getsize(best)
+            count1 = tr.opt.count
+            del tr
+            torch.cuda.empty_cache()
+
+            if sd == 2:  # ---- -c to a second epoch
+                payload = ckpt.load_checkpoint(os.path.join(ckdir, "last_model.pt"))
+                restored = {}
+                orig_restore = train_ddpm.DDPMTrainer._restore
+
+                def checked_restore(self):
+                    orig_restore(self)
+                    restored["diff"] = _state_equal(self, payload)
+                    restored["start"] = self.start_epoch
+                    restored["loader"] = self.train_loader.state() == payload["train_loader"]
+
+                train_ddpm.DDPMTrainer._restore = checked_restore
+                try:
+                    tr = _run_main(train_ddpm.run_cli, argv + [
+                        "-c", "--set", "n_epochs=2", "--set", "val_plot_interval=3"])
+                finally:
+                    train_ddpm.DDPMTrainer._restore = orig_restore
+                log(f"[ddpm_cli] {gpu}: resume -c: start epoch {restored.get('start')} "
+                    f"(0-based), restored state equal to last_model.pt: "
+                    f"{restored.get('diff') == []}, train loader's draws restored: "
+                    f"{restored.get('loader')}; AdamW count {count1} -> {tr.opt.count}; "
+                    f"loss_dict {tr.loss_dict}")
+                if (restored.get("start") != 1 or restored.get("diff") != []
+                        or not restored.get("loader") or tr.opt.count != 2 * count1
+                        or len(tr.loss_dict["rec_loss"]) != 2):
+                    raise AssertionError(f"DDPM resume failed: {restored}, count {tr.opt.count}")
+                del tr, payload
+                torch.cuda.empty_cache()
+
+            # ---- medimgen_torch_sample_ddpm, read back
+            smp = os.path.join(ws["root"], f"ddpm_samples_{sd}d")
+            n = 4 if sd == 2 else 1
+            ddim = DDPM_CLI_DDIM if sd == 2 else 2
+            t0 = time.perf_counter()
+            _run_main(sample.main_ddpm, [run_cfg, best, "-n", str(n), "--num_inference_steps",
+                                         str(ddim), "-o", smp])
+            names = sorted(os.listdir(smp))
+            if sd == 2:
+                imgs = [png.read_png(os.path.join(smp, f)) for f in names]
+                ok = (names == [f"ddpm_sample_{i:03d}.png" for i in range(4)]
+                      + ["ddpm_sample_grid.png"]
+                      and all(i.shape == (256, 256) for i in imgs[:4])
+                      and imgs[4].shape == (256, 4 * 256 + 6))
+                shapes = [i.shape for i in imgs]
+            else:
+                vol = load_nifti(os.path.join(smp, names[0])).data
+                ok = (names == ["ddpm_sample_000.nii.gz"] and vol.shape == (128, 128, 128)
+                      and bool(np.isfinite(vol).all()) and vol.min() >= 0 and vol.max() <= 1)
+                shapes = [vol.shape]
+            log(f"[ddpm_cli] {gpu}: medimgen_torch_sample_ddpm {sd}d, {n} samples, {ddim} DDIM "
+                f"steps from best_model.pt ({size / 1e9:.2f} GB): {names} {shapes} ok={ok} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            if not ok:
+                raise AssertionError(f"{sd}D DDPM sampling CLI wrote {names} {shapes}")
+        out[sd] = counts
+        missing = gn_seen_cli - DDPM_GN_CHECKED
+        if missing:
+            raise AssertionError(f"[ddpm_cli] GroupNorm shapes phase kernels_ddpm did not "
+                                 f"check: {sorted(missing)}")
+        shutil.rmtree(os.path.join(res, task), ignore_errors=True)
+    log(f"[ddpm_cli] {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2843,22 +3557,49 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+
+    def done(name):
+        log(f"[env] phase {name} done at {time.perf_counter() - t0:.1f} s")
+
+    install_flash_recorder()
     phase_build()
     rec = phase_kernels()
+    flash_checked("fwd", FLASH_SHAPES)
     rec.update(phase_kernels_bwd())
+    flash_checked("bwd", FLASH_SHAPES)
     rec_2d, worst_2d = phase_kernels_2d()
-    phase_parity()
-    phase_parity_train()
+    flash_checked("fwd", FLASH_SHAPES_2D + FLASH_FWD_SHAPES_2D)
+    flash_checked("bwd", FLASH_SHAPES_2D)
+    done("kernels_2d")
+    with flash_capture() as parity_shapes:  # kernels held to the CPU's plain versions
+        phase_parity()
+        phase_parity_train()
+    FLASH_CHECKED.update(parity_shapes)
     phase_slice()
     counts, per_step, train_ms = phase_train()
-    phase_ae_parity()
+    done("train")
+    with flash_capture() as parity_shapes:
+        phase_ae_parity()
+    FLASH_CHECKED.update(parity_shapes)
     ae, ae_per = phase_ae_train()
     t2d = phase_train_2d()
+    done("train_2d")
+    ddpm = phase_ddpm_train()
+    done("ddpm_train")
+    rec_ddpm = phase_kernels_ddpm(ddpm)
+    done("kernels_ddpm")
     with cli_workspace() as ws:
         phase_ae_cli(ws, ae_per)
+        done("ae_cli")
         cli_counts, eval3d = phase_cli(ws, counts, train_ms)
+        done("cli")
         eval2d = phase_cli_2d(ws)
+        done("cli_2d")
         plan = phase_plan(ws)
+        done("plan")
+        ddpm_cli = phase_ddpm_cli(ws, ddpm)
+        done("ddpm_cli")
+    check_flash_listed()
     log(f"[env] total {time.perf_counter() - t0:.1f} s")
     print(card())
     src = "medical_image_generation_tpu_torch/csrc/"
@@ -2888,7 +3629,17 @@ def main() -> int:
                         "shapes_2d": [{k: r[k] for k in ("shape", "ms", "bound_ms")}
                                       for r in rec_2d.get(name, [])],
                         "launches_plan": {rung: plan[rung][name] for rung in REMAT_RUNGS},
-                        "worst_ms_over_bound_2d": worst_2d.get(name)})
+                        "worst_ms_over_bound_2d": worst_2d.get(name),
+                        "launches_ddpm": {"step_2d": ddpm[2]["per_step"][name],
+                                          "step_3d": ddpm[3]["per_step"][name],
+                                          "sample_2d": ddpm[2]["samples"][16]["counts"][name],
+                                          "sample_3d": ddpm[3]["samples"][1]["counts"][name],
+                                          "cli_epoch_2d": ddpm_cli[2][name],
+                                          "cli_epoch_3d": ddpm_cli[3][name]},
+                        "step_ms_ddpm": {"2d": ddpm[2]["step"][name],
+                                         "3d": ddpm[3]["step"][name]},
+                        "shapes_ddpm": [{k: r[k] for k in ("shape", "ms", "bound_ms")}
+                                        for r in rec_ddpm.get(name, [])]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

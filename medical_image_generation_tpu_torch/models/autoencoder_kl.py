@@ -66,14 +66,14 @@ def _save_convolutions():
     return checkpoint.create_selective_checkpoint_contexts([torch.ops.aten.convolution.default])
 
 
-def remat_call(block: nn.Module, h, remat: Optional[str]):
-    """``block(h)``, rematerialised in the backward under ``remat`` ("acts",
-    "full", or None for no remat) when autograd records the call. The
-    blocks draw no random numbers, so no RNG state is stashed."""
+def remat_call(block: nn.Module, h, remat: Optional[str], *args):
+    """``block(h, *args)``, rematerialised in the backward under ``remat``
+    ("acts", "full", or None for no remat) when autograd records the call.
+    The blocks draw no random numbers, so no RNG state is stashed."""
     if remat is None or not torch.is_grad_enabled():
-        return block(h)
+        return block(h, *args)
     context = _save_convolutions if remat == "acts" else checkpoint.noop_context_fn
-    return checkpoint.checkpoint(block, h, use_reentrant=False, preserve_rng_state=False,
+    return checkpoint.checkpoint(block, h, *args, use_reentrant=False, preserve_rng_state=False,
                                  context_fn=context)
 
 

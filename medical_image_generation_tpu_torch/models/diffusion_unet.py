@@ -9,6 +9,15 @@ Submodule names follow the flax tree (``Dense_0``, ``Embed_0``,
 ``ConvND_0``, ``ResBlock_i``, ``AttentionBlock_k``, ``Downsample_k``,
 ``Upsample_k``, ``GroupNorm_0``, ``ConvND_1``).
 
+``use_checkpointing`` (JAX :133, :156, :178, ``nn.remat(ResBlock)``)
+rematerialises every ResBlock in the backward pass: each runs under a
+non-reentrant ``torch.utils.checkpoint`` with no policy
+(``autoencoder_kl.remat_call`` with ``"full"``), so only the block's inputs
+are kept across the forward and its GroupNorm forward kernels run again in
+the backward. Attention blocks are not rematerialised, as in JAX. The flag
+changes no parameter name and no result; under ``no_grad`` (sampling) it
+does nothing.
+
 Not ported yet: cross-attention conditioning (``SpatialTransformer``),
 ControlNet residual injection, and ``DiffusionEncoder``.
 """
@@ -21,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from medical_image_generation_tpu_torch.models.autoencoder_kl import remat_call
 from medical_image_generation_tpu_torch.models.blocks import (
     AttentionBlock,
     ConvND,
@@ -47,8 +57,8 @@ class DiffusionUNet(nn.Module):
                  num_head_channels=(0, 512, 768), num_res_blocks=2, norm_num_groups=32,
                  strides=((1, 1, 1), (2, 2, 2), (2, 2, 2)),
                  kernel_sizes=((3, 3, 3),) * 3, paddings=((1, 1, 1),) * 3,
-                 num_class_embeds: Optional[int] = None, dtype=torch.float32, param_dtype=None,
-                 device=None):
+                 num_class_embeds: Optional[int] = None, use_checkpointing: bool = False,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         n = len(num_channels)
         nrb = per_level(num_res_blocks, n)
@@ -56,6 +66,7 @@ class DiffusionUNet(nn.Module):
         self.num_channels = tuple(num_channels)
         self.attention_levels = tuple(attention_levels)
         self.nrb = nrb
+        self.remat = "full" if use_checkpointing else None  # remat_call's policy
         sd, G = spatial_dims, norm_num_groups
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         ted = num_channels[0] * 4
@@ -133,6 +144,7 @@ class DiffusionUNet(nn.Module):
             kernel_sizes=tuple(tuple(k) for k in params["kernel_sizes"]),
             paddings=tuple(tuple(p) for p in params["paddings"]),
             num_class_embeds=params.get("num_class_embeds"),
+            use_checkpointing=bool(params.get("use_checkpointing", False)),
             dtype=dtype,
             param_dtype=param_dtype,
             device=device,
@@ -145,13 +157,16 @@ class DiffusionUNet(nn.Module):
             temb = temb + self.Embed_0(class_labels)
         temb = temb.to(self.dtype)
 
+        def res_block(i, h):
+            return remat_call(getattr(self, f"ResBlock_{i}"), h, self.remat, temb)
+
         n = len(self.num_channels)
         h = self.ConvND_0(to_internal(x.to(self.dtype).contiguous()))
         rb, ab = 0, 0
         skips = [h]
         for level in range(n):
             for _ in range(self.nrb[level]):
-                h = getattr(self, f"ResBlock_{rb}")(h, temb)
+                h = res_block(rb, h)
                 rb += 1
                 if self.attention_levels[level]:
                     h = getattr(self, f"AttentionBlock_{ab}")(h)
@@ -161,15 +176,15 @@ class DiffusionUNet(nn.Module):
                 h = getattr(self, f"Downsample_{level}")(h)
                 skips.append(h)
 
-        h = getattr(self, f"ResBlock_{rb}")(h, temb)
+        h = res_block(rb, h)
         h = getattr(self, f"AttentionBlock_{ab}")(h)
-        h = getattr(self, f"ResBlock_{rb + 1}")(h, temb)
+        h = res_block(rb + 1, h)
         rb, ab = rb + 2, ab + 1
 
         for i, level in enumerate(reversed(range(n))):
             for _ in range(self.nrb[level] + 1):
                 h = torch.cat([h, skips.pop()], dim=1)
-                h = getattr(self, f"ResBlock_{rb}")(h, temb)
+                h = res_block(rb, h)
                 rb += 1
                 if self.attention_levels[level]:
                     h = getattr(self, f"AttentionBlock_{ab}")(h)

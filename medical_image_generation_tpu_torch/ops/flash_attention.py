@@ -14,6 +14,11 @@ projection) as long as the head and head-dim axes are packed (strides D and
 1). It is one autograd Function on every device: the forward saves
 q, k, v, o and lse, and the backward is ``flash_attention_bwd``.
 
+The plain versions also take a subset of query rows as they are (q may
+have fewer rows than k and v). ``flash_lse_plain_chunked`` and
+``flash_bwd_dkdv_plain_chunked`` compute the same math a chunk of query rows
+at a time, for sequences whose S x S matrix cannot be held.
+
 CPU tensors go to the plain versions; CUDA tensors launch the kernels or
 raise. Launch counters: ``flash_attention.launches`` (forward),
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkdv.launches`` (the two backward
@@ -86,6 +91,44 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     in turn: returns (dq, dk, dv) in BSHD, q's dtype."""
     dq, delta = flash_bwd_dq_plain(q, k, v, o, lse, do, scale)
     return (dq, *flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale))
+
+
+def flash_lse_plain_chunked(q, k, scale: float, chunk: int = 4096):
+    """The row logsumexp of ``flash_attention_plain`` over every key, fp32
+    (B*H, S), from ``chunk`` query rows at a time: the S x S logits never
+    exist whole (at 262144 tokens they would take 275 GB in fp32)."""
+    B, S, H, _ = q.shape
+    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        for h in range(H):
+            kf = k[b, :, h].float()
+            for i in range(0, S, chunk):
+                logits = (q[b, i:i + chunk, h].float() @ kf.T) * scale
+                lse[b * H + h, i:i + chunk] = torch.logsumexp(logits, dim=-1)
+    return lse
+
+
+def _rows(lse, B: int, H: int, idx):
+    """The (B*H, len(idx)) columns ``idx`` of a (B*H, S) row statistic."""
+    return lse.reshape(B, H, -1)[:, :, idx].reshape(B * H, len(idx))
+
+
+def flash_bwd_dkdv_plain_chunked(q, k, v, do, lse, delta, scale: float, keys,
+                                 chunk: int = 4096):
+    """``flash_bwd_dkdv_plain`` at the key rows ``keys`` (an index tensor):
+    (dk, dv) of shape (B, len(keys), H, D) in q's dtype, summed in fp32 over
+    every query, ``chunk`` query rows at a time."""
+    B, S, H, D = q.shape
+    ks, vs = k[:, keys], v[:, keys]
+    dk = torch.zeros((B, H, len(keys), D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for i in range(0, S, chunk):
+        rows = torch.arange(i, min(i + chunk, S), device=q.device)
+        p, ds = _bwd_scores_plain(q[:, i:i + chunk], ks, vs, do[:, i:i + chunk],
+                                  _rows(lse, B, H, rows), _rows(delta, B, H, rows), scale)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, do[:, i:i + chunk].float().permute(0, 2, 1, 3))
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, q[:, i:i + chunk].float().permute(0, 2, 1, 3))
+    return _bshd(dk, q.dtype), _bshd(dv, q.dtype)
 
 
 def _check(q, k, v):

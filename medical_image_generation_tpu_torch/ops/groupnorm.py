@@ -257,16 +257,19 @@ def _grad_z_plain(x2, g2, A, b, silu: bool):
     return gf * sig * (1.0 + z * (1.0 - sig))
 
 
-def gn_bwd_stats_plain(x2, g2, A, b, stats, weight, num_groups: int, eps: float, silu: bool):
-    """Per-channel t1 = sum gz, t2 = sum gz*x folded at (B, C) size into the
-    per-channel coefficients coef = [P, Q] (fp32 (B, 2, C)) of
-    dx = gz*A + x*P + Q, plus dscale and dbias (fp32 (C,))."""
-    B, M, C = x2.shape
-    G, Cg = num_groups, C // num_groups
+def gn_bwd_sums_plain(x2, g2, A, b, silu: bool):
+    """Per-channel t1 = sum gz and t2 = sum gz*x over the rows, fp32 (B, C)
+    each."""
     gz = _grad_z_plain(x2, g2, A, b, silu)
-    t1 = gz.sum(dim=1)
-    t2 = (gz * x2.float()).sum(dim=1)
-    n = float(M * Cg)
+    return gz.sum(dim=1), (gz * x2.float()).sum(dim=1)
+
+
+def gn_bwd_fold_plain(t1, t2, stats, weight, num_groups: int, eps: float, n_spatial: int):
+    """The fold of ``gn_bwd_stats_plain`` from the per-channel sums of
+    ``gn_bwd_sums_plain`` over ``n_spatial`` rows: (coef, dscale, dbias)."""
+    B, C = t1.shape
+    G, Cg = num_groups, C // num_groups
+    n = float(n_spatial * Cg)
     grp = stats.reshape(B, 2, G, Cg).sum(dim=-1) / n
     mean, meansq = grp[:, 0], grp[:, 1]
     rinv = torch.rsqrt((meansq - mean.square()).clamp(min=0.0) + eps)  # (B, G)
@@ -280,6 +283,14 @@ def gn_bwd_stats_plain(x2, g2, A, b, stats, weight, num_groups: int, eps: float,
     Q = (-rinv * S1 + mean * rinv ** 2 * S2h) / n
     coef = torch.stack([P.repeat_interleave(Cg, dim=1), Q.repeat_interleave(Cg, dim=1)], dim=1)
     return coef, (u2 * rinv_c).sum(0), t1.sum(0)
+
+
+def gn_bwd_stats_plain(x2, g2, A, b, stats, weight, num_groups: int, eps: float, silu: bool):
+    """Per-channel t1 = sum gz, t2 = sum gz*x folded at (B, C) size into the
+    per-channel coefficients coef = [P, Q] (fp32 (B, 2, C)) of
+    dx = gz*A + x*P + Q, plus dscale and dbias (fp32 (C,))."""
+    t1, t2 = gn_bwd_sums_plain(x2, g2, A, b, silu)
+    return gn_bwd_fold_plain(t1, t2, stats, weight, num_groups, eps, x2.shape[1])
 
 
 def gn_bwd_stats(x2, g2, A, b, stats, weight, num_groups: int, eps: float, silu: bool):

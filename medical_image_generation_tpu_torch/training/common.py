@@ -32,22 +32,46 @@ optax's semantics, written with ``torch._foreach_*`` ops:
   (JAX ``:140-153``);
 * ``save_last_best``: the last / best checkpoint cadence (JAX ``:178-211``);
 * ``batch_to_device`` / ``timed_batches``: a loader batch on the device,
-  and the epoch loop's batches with the host seconds of waiting and copying.
+  and the epoch loop's batches with the host seconds of waiting and copying;
+* ``TrainDraws`` and ``DiffusionTrainer``: what the two diffusion trainers
+  share (the LDM's ``training/train_ldm.py`` and the pixel-space DDPM's
+  ``training/train_ddpm.py``): the optimizer and EMA, the step around the
+  U-Net, the sampling weights, the last / best payload and its resume, the
+  epoch loop, and the training CLIs' common arguments.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import math
+import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from medical_image_generation_tpu_torch._device import resolve_device
+from medical_image_generation_tpu_torch.config.run import create_save_path_dict
+from medical_image_generation_tpu_torch.data.augment import (
+    AugmentConfig,
+    AugmentDraws,
+    augment_batch,
+    check_ported,
+    make_draws,
+)
 from medical_image_generation_tpu_torch.data.loader import unpack_batch
+from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
-from medical_image_generation_tpu_torch.utils.profiling import maybe_progress
+from medical_image_generation_tpu_torch.training import checkpoints as ckpt
+from medical_image_generation_tpu_torch.training import plots
+from medical_image_generation_tpu_torch.utils.profiling import (
+    StepTimer,
+    maybe_progress,
+    profile_trace,
+)
 
 
 def make_lr_schedule(base_lr: float, scheduler: Optional[str], params: Optional[Dict],
@@ -286,8 +310,6 @@ def save_last_best(trainer, epoch: int, val_loss: float,
     ``trainer.best_val`` only advances when a best save happens, so a later
     candidate competes against the last SAVED best. Returns the names
     written."""
-    from medical_image_generation_tpu_torch.training import checkpoints as ckpt
-
     improved = val_loss < trainer.best_val
     interval = max(1, int(trainer.config.get("checkpoint_interval", 1)))
     best_interval = max(1, int(trainer.config.get("best_checkpoint_interval", 1)))
@@ -334,3 +356,376 @@ def timed_batches(loader, device: torch.device, stats: Dict[str, float],
         stats["wait_s"] += t_copy - t_wait
         stats["copy_s"] += time.perf_counter() - t_copy
         yield out
+
+
+class TrainDraws(NamedTuple):
+    """Every random number of one diffusion train step. ``eps``: the KL-VAE
+    posterior's noise (None for the VQ latent and the pixel-space DDPM);
+    ``drop``: per-sample bool label-dropout coins, or None without class
+    conditioning."""
+
+    augment: AugmentDraws
+    eps: Optional[torch.Tensor]
+    t: torch.Tensor      # (B,) int64 timesteps
+    noise: torch.Tensor  # diffusion noise, shaped like what the U-Net sees
+    drop: Optional[torch.Tensor] = None
+
+
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+class DiffusionTrainer:
+    """The body the LDM and the pixel-space DDPM trainers share (JAX
+    ``train_ldm.py`` / ``train_ddpm.py``: the same step, loop, payload and
+    resume around a U-Net). A subclass says what the U-Net sees:
+
+    * ``noise_shape(batch)``: the shape of the diffusion noise of a batch;
+    * ``_clean(imgs, draws)``: the clean target of a (cropped, augmented)
+      batch, fp32, under ``no_grad`` (the LDM's scaled latent, the DDPM's
+      images);
+    * ``sample_images(n, sampler=..., generator=...)``: images in [0, 1];
+    * optionally ``_prepare(train_loader)`` before the epochs (the LDM's
+      latent probe), ``_host_state`` / ``load_payload`` for more state,
+      ``_after_samples(val_loader, stats)`` after the interval samples.
+
+    ``posterior_eps`` says whether a step draws posterior noise, and
+    ``samples_3d`` how many volumes the interval samples take in 3D (16
+    images in 2D)."""
+
+    posterior_eps = False
+    samples_3d = 1
+
+    def __init__(self, config: dict, unet: torch.nn.Module, spatial_dims: int,
+                 device: str | torch.device = "cuda", seed: int = 0,
+                 steps_per_epoch: int = 250, timer_name: str = "train"):
+        self.device = resolve_device(device)
+        self.config = config
+        self.seed = seed
+        self.unet = unet.train()
+        self.spatial_dims = spatial_dims
+        self.schedule = NoiseSchedule.from_config(config["time_scheduler_params"],
+                                                  device=self.device)
+        self.class_cond = config.get("class_conditioning") or None
+        if self.class_cond:
+            self.num_classes = int(self.class_cond["num_classes"])
+            self.cfg_dropout = float(self.class_cond.get("dropout_prob", 0.1))
+        self.ema_decay = config.get("ema_decay")
+        self.clip = float(config.get("grad_clip_max_norm", 1.0))
+        self.aug_cfg = AugmentConfig.from_transformations(
+            config.get("ddpm_transformations", {}), spatial_dims=spatial_dims)
+        check_ported(self.aug_cfg, spatial_dims)
+        self.params = [p for p in self.unet.parameters() if p.requires_grad]
+        self.param_names = [n for n, p in self.unet.named_parameters() if p.requires_grad]
+        self.grad_accum = int(config.get("grad_accumulate_step", 1))
+        self.opt = AdamW(
+            self.params,
+            make_lr_schedule(float(config.get("ddpm_learning_rate", 2e-5)),
+                             config.get("lr_scheduler"), config.get("lr_scheduler_params"),
+                             steps_per_epoch),
+            clip=self.clip, weight_decay=1e-2, mu_dtype=mu_dtype_from_config(config))
+        if self.grad_accum > 1:
+            self.opt = MultiSteps(self.opt, self.grad_accum)
+        self.ema = ([p.detach().clone() for p in self.params] if self.ema_decay else None)
+        self.host_generator = torch.Generator().manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.step = 0  # microsteps taken (the JAX TrainState.step)
+        # the epoch loop's state
+        self.n_epochs = int(config.get("n_epochs", 100))
+        self.loss_dict: Dict[str, list] = {"rec_loss": [], "val_rec_loss": []}
+        self.start_epoch = 0
+        self.best_val = float("inf")
+        self.save_dict: Optional[Dict[str, str]] = None
+        self.save_path: Optional[str] = None
+        self.train_loader = None  # set by train(); its state goes into last/best
+        self.timer = StepTimer(timer_name)
+        self.epoch_stats: list = []  # one dict of host-side seconds an epoch
+
+    # ------------------------------------------------------------------ steps
+
+    def _final_spatial(self, batch):
+        crop = self.aug_cfg.crop_to
+        return tuple(crop) if crop is not None else tuple(batch.shape[1:-1])
+
+    def noise_shape(self, batch):
+        raise NotImplementedError
+
+    def _clean(self, imgs, draws: TrainDraws):
+        raise NotImplementedError
+
+    def make_draws(self, batch, labels=None, generator: Optional[torch.Generator] = None,
+                   host_generator: Optional[torch.Generator] = None) -> TrainDraws:
+        B = batch.shape[0]
+        shape = self.noise_shape(batch)
+        gen = generator or self.generator
+        host = host_generator or self.host_generator
+        return TrainDraws(
+            augment=make_draws(self.aug_cfg, B, batch.shape[-1], batch.dim() - 2, host),
+            eps=(torch.randn(shape, device=self.device, generator=gen)
+                 if self.posterior_eps else None),
+            t=torch.randint(0, self.schedule.num_train_timesteps, (B,), generator=host),
+            noise=torch.randn(shape, device=self.device, generator=gen),
+            drop=(torch.rand((B,), generator=host) < self.cfg_dropout
+                  if labels is not None and self.class_cond else None))
+
+    def _noised(self, imgs, draws: TrainDraws):
+        with torch.no_grad():
+            z = self._clean(imgs, draws)
+        t = draws.t.to(self.device)
+        noise = draws.noise.to(self.device)
+        return (self.schedule.add_noise(z, noise, t),
+                self.schedule.training_target(z, noise, t), t)
+
+    def train_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
+                   draws: Optional[TrainDraws] = None) -> torch.Tensor:
+        """One optimizer step on a (B, *spatial_in, C) batch in [0, 1];
+        returns the loss (fp32 device scalar)."""
+        batch = batch.to(self.device)
+        if draws is None:
+            draws = self.make_draws(batch, labels, generator)
+        imgs = augment_batch(batch, draws.augment, self.aug_cfg)
+        noisy, target, t = self._noised(imgs, draws)
+        labels_in = None
+        if labels is not None and self.class_cond:
+            labels_in = labels.to(self.device)
+            if draws.drop is not None:
+                labels_in = torch.where(draws.drop.to(self.device),
+                                        torch.full_like(labels_in, self.num_classes), labels_in)
+        for p in self.params:
+            p.grad = None
+        pred = self.unet(noisy, t, class_labels=labels_in)
+        loss = torch.mean((pred.float() - target) ** 2)
+        loss.backward()
+        synced = self.opt.step([p.grad for p in self.params])
+        if self.ema is not None and synced:
+            ema_update(self.ema, self.params, float(self.ema_decay))
+        self.step += 1
+        return loss.detach()
+
+    @torch.no_grad()
+    def val_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
+                 draws: Optional[TrainDraws] = None,
+                 host_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Loss on a final-size batch: no augmentation, no label dropout."""
+        batch = batch.to(self.device)
+        if draws is None:
+            draws = self.make_draws(batch, None, generator, host_generator)
+        noisy, target, t = self._noised(batch, draws)
+        lab = labels.to(self.device) if labels is not None and self.class_cond else None
+        pred = self.unet(noisy, t, class_labels=lab)
+        return torch.mean((pred.float() - target) ** 2)
+
+    # ---------------------------------------------------------------- sampling
+
+    @contextlib.contextmanager
+    def sampling_weights(self):
+        """The U-Net in eval mode with the EMA weights swapped in when EMA
+        is on (the JAX ``_sampling_params``); the live params and train mode
+        come back on exit. The swap moves tensor handles, not data."""
+        swap = self.ema is not None
+        if swap:
+            for i, p in enumerate(self.params):
+                p.data, self.ema[i] = self.ema[i], p.data
+        self.unet.eval()
+        try:
+            yield self.unet
+        finally:
+            self.unet.train()
+            if swap:
+                for i, p in enumerate(self.params):
+                    p.data, self.ema[i] = self.ema[i], p.data
+
+    def sample_images(self, n_samples: int, sampler: str = "ddim",
+                      num_inference_steps: Optional[int] = None,
+                      generator: Optional[torch.Generator] = None) -> np.ndarray:
+        raise NotImplementedError
+
+    # ------------------------------------------------------------ checkpoint
+
+    def _host_state(self) -> Dict[str, Any]:
+        """The sampler's part of a payload: ``unet`` (the live params) and
+        ``ema_unet`` when EMA is on, every tensor copied to the CPU."""
+        out = {"unet": {k: v.detach().cpu() for k, v in self.unet.state_dict().items()}}
+        if self.ema is not None:
+            out["ema_unet"] = {n: e.cpu() for n, e in zip(self.param_names, self.ema)}
+        return out
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the sampler's part of a payload (``_host_state``) as a
+        ``.pt``."""
+        torch.save(self._host_state(), path)
+
+    def checkpoint_payload(self, epoch: int, val_loss: float) -> Dict:
+        """The last/best payload: ``epoch``, ``_host_state``, ``opt_state``,
+        ``step``, ``validation_loss``, the generator states and, during
+        ``train``, the train loader's state."""
+        opt = self.opt.state()
+        opt_state = {k: ({n: t.detach().cpu() for n, t in zip(self.param_names, v)}
+                         if isinstance(v, list) else v) for k, v in opt.items()}
+        out = {"epoch": int(epoch), **self._host_state(), "opt_state": opt_state,
+               "step": int(self.step), "validation_loss": float(val_loss),
+               "generators": {"host": self.host_generator.get_state(),
+                              "device": self.generator.get_state()}}
+        if self.train_loader is not None:
+            out["train_loader"] = self.train_loader.state()
+        return out
+
+    @torch.no_grad()
+    def load_payload(self, payload: Dict) -> None:
+        """Restore params, EMA (when both the run and the payload have it,
+        as the JAX ``_restore``), optimizer state, step and generator states
+        from a last/best payload."""
+        opt = {k: ([v[n] for n in self.param_names] if isinstance(v, dict) else v)
+               for k, v in payload["opt_state"].items()}
+        if ("acc" in opt) != (self.grad_accum > 1):
+            raise ValueError("the checkpoint was written with gradient accumulation "
+                             f"{'on' if 'acc' in opt else 'off'}; this run has "
+                             f"grad_accumulate_step={self.grad_accum}")
+        self.unet.load_state_dict(payload["unet"])
+        if self.ema is not None and "ema_unet" in payload:
+            torch._foreach_copy_(self.ema, [payload["ema_unet"][n].to(self.device)
+                                            for n in self.param_names])
+        self.opt.load_state(opt)
+        self.step = int(payload["step"])
+        self.host_generator.set_state(payload["generators"]["host"])
+        self.generator.set_state(payload["generators"]["device"])
+
+    def _restore(self) -> None:
+        """Resume from ``load_model_path``: the state, the train loader's
+        draws (which the JAX loops restart), ``start_epoch = epoch + 1``,
+        ``best_val`` (the saved epoch's validation loss, as the JAX loops
+        set it) and the loss history."""
+        path = self.config["load_model_path"]
+        if not os.path.exists(path):
+            print(f"No checkpoint at {path}; training from scratch")
+            return
+        payload = ckpt.load_checkpoint(path)
+        self.load_payload(payload)
+        if "train_loader" in payload:
+            self.train_loader.load_state(payload["train_loader"])
+        self.start_epoch = int(payload["epoch"]) + 1
+        self.best_val = float(payload["validation_loss"])
+        prior = ckpt.load_loss_dict(self.save_path)
+        if prior:
+            self.loss_dict = prior
+        print(f"Resumed from {path} at epoch {self.start_epoch}")
+
+    # -------------------------------------------------------------- main loop
+
+    def _prepare(self, train_loader) -> None:
+        """Called once before the epochs (and before a resume) with the
+        train loader: the LDM probes its latent on the first batch."""
+
+    def _after_samples(self, val_loader, stats: Dict) -> None:
+        """Called after each epoch's interval samples."""
+
+    def train(self, train_loader, val_loader) -> None:
+        if self.save_dict is None:
+            self.save_dict, self.save_path = create_save_path_dict(self.config)
+        with profile_trace(self.config.get("profile_dir")):
+            self._train_impl(train_loader, val_loader)
+
+    def _train_impl(self, train_loader, val_loader) -> None:
+        self.train_loader = train_loader
+        self._prepare(train_loader)
+        print(f"Diffusion U-Net parameters: {sum(p.numel() for p in self.params):,}")
+        if self.config.get("load_model_path"):
+            self._restore()
+
+        interval = int(self.config.get("val_plot_interval", 10))
+        show_bar = bool(self.config.get("progress_bar"))
+        for epoch in range(self.start_epoch, self.n_epochs):
+            t0 = time.perf_counter()
+            stats = {"epoch": epoch, "wait_s": 0.0, "copy_s": 0.0}
+            losses = []
+            self.timer.start()
+            for imgs, labels in timed_batches(train_loader, self.device, stats, show_bar,
+                                              f"Epoch {epoch + 1}"):
+                losses.append(self.train_step(imgs, labels))
+                self.timer.tick()
+            train_loss = float(torch.stack(losses).mean())  # the epoch's one sync
+            stats.update(train_s=time.perf_counter() - t0, steps=len(losses))
+
+            t1 = time.perf_counter()
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.seed + 10_000_000 + epoch)
+            host = torch.Generator().manual_seed(self.seed + 10_000_000 + epoch)
+            val_losses = []
+            for batch in val_loader:
+                imgs, labels = batch_to_device(batch, self.device)
+                val_losses.append(self.val_step(imgs, labels, generator=gen,
+                                                host_generator=host))
+            val_loss = float(torch.stack(val_losses).mean())
+            stats.update(val_s=time.perf_counter() - t1, val_steps=len(val_losses))
+
+            self.loss_dict["rec_loss"].append(train_loss)
+            self.loss_dict["val_rec_loss"].append(val_loss)
+            print(
+                f"Epoch {epoch + 1}/{self.n_epochs} | loss {train_loss:.4f} | "
+                f"val {val_loss:.4f} | {time.perf_counter() - t0:.1f}s | {self.timer.report()}"
+            )
+
+            t2 = time.perf_counter()
+            stats["saved"] = self._save_epoch_artifacts(epoch, val_loss)
+            stats["save_s"] = time.perf_counter() - t2
+
+            if (epoch + 1) % interval == 0:
+                t3 = time.perf_counter()
+                n = 16 if self.spatial_dims == 2 else self.samples_3d
+                gen = torch.Generator(device=self.device).manual_seed(
+                    self.seed + 20_000_000 + epoch)
+                images = self.sample_images(n, sampler="ddim", generator=gen)
+                stats["samples"] = plots.save_samples(images, self.save_dict["plots"], epoch,
+                                                      self.spatial_dims)
+                stats["sample_s"] = time.perf_counter() - t3
+                self._after_samples(val_loader, stats)
+            self.epoch_stats.append(stats)
+
+    def _save_epoch_artifacts(self, epoch, val_loss):
+        """loss.png (when matplotlib is there), loss_dict.pkl, then last /
+        best. Returns the checkpoint names written, the seconds of the
+        payload's copy to the host and of the writes."""
+        plots.save_main_losses(
+            self.loss_dict["rec_loss"], self.loss_dict["val_rec_loss"],
+            os.path.join(self.save_dict["plots"], "loss.png"), title="Diffusion MSE",
+        )
+        ckpt.save_loss_dict(self.save_path, self.loss_dict)
+        record = {"payload_s": 0.0}
+
+        def payload():
+            t = time.perf_counter()
+            out = self.checkpoint_payload(epoch, val_loss)
+            record["payload_s"] = time.perf_counter() - t
+            return out
+
+        t = time.perf_counter()
+        record["names"] = save_last_best(self, epoch, val_loss, payload)
+        record["write_s"] = time.perf_counter() - t - record["payload_s"]
+        return record
+
+
+def train_cli_parser(description: str) -> argparse.ArgumentParser:
+    """The arguments the diffusion training CLIs share (the JAX
+    ``parse_arguments``, plus the port's ``--device`` and ``--dtype``)."""
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("dataset_id", type=str)
+    parser.add_argument("splitting", choices=["train-val-test", "5-fold"])
+    parser.add_argument("model_type", choices=["2d", "3d"])
+    parser.add_argument("-f", "--fold", type=int, choices=range(6), default=None)
+    parser.add_argument("-p", "--progress_bar", action="store_true")
+    parser.add_argument("-c", "--continue_training", action="store_true")
+    parser.add_argument(
+        "--set", dest="overrides", action="append", default=None, metavar="KEY=VALUE",
+        help="Override any config field, e.g. --set n_epochs=50 "
+             "--set vae_params.num_res_blocks=3",
+    )
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
+                        help="compute dtype of the networks (fp32 master params)")
+    return parser
+
+
+def parse_train_args(parser: argparse.ArgumentParser, argv: Optional[Sequence[str]] = None):
+    args = parser.parse_args(argv)
+    if args.splitting == "5-fold" and args.fold is None:
+        parser.error("--fold is required when --splitting is '5-fold'")
+    return args

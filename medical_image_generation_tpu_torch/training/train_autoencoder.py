@@ -49,7 +49,6 @@ Not ported, and refused before the first step: the augmentations
 
 from __future__ import annotations
 
-import argparse
 import math
 import os
 import time
@@ -438,30 +437,11 @@ class AutoEncoderTrainer:
 
 # --------------------------------------------------------------------- CLI
 
-_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-
-
 def parse_arguments(argv: Optional[Sequence[str]] = None):
-    parser = argparse.ArgumentParser(
-        description="Train an Autoencoder Model to reconstruct images (PyTorch port).")
-    parser.add_argument("dataset_id", type=str)
-    parser.add_argument("splitting", choices=["train-val-test", "5-fold"])
-    parser.add_argument("model_type", choices=["2d", "3d"])
-    parser.add_argument("-f", "--fold", type=int, choices=range(6), default=None)
+    parser = common.train_cli_parser(
+        "Train an Autoencoder Model to reconstruct images (PyTorch port).")
     parser.add_argument("-l", "--latent_space_type", default="vae", choices=["vae", "vq"])
-    parser.add_argument("-p", "--progress_bar", action="store_true")
-    parser.add_argument("-c", "--continue_training", action="store_true")
-    parser.add_argument(
-        "--set", dest="overrides", action="append", default=None, metavar="KEY=VALUE",
-        help="Override any config field, e.g. --set n_epochs=50 "
-             "--set vae_params.num_res_blocks=3",
-    )
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16",
-                        help="compute dtype of the networks (fp32 master params)")
-    args = parser.parse_args(argv)
-    if args.splitting == "5-fold" and args.fold is None:
-        parser.error("--fold is required when --splitting is '5-fold'")
+    args = common.parse_train_args(parser, argv)
     if args.splitting == "train-val-test" and args.fold is not None:
         parser.error("--fold should not be provided with 'train-val-test'")
     return args
@@ -485,7 +465,7 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> AutoEncoderTrainer:
         raise ValueError(f"--set latent_space_type={config.get('latent_space_type')!r} "
                          f"disagrees with -l {args.latent_space_type}")
     trainer = AutoEncoderTrainer.from_config(
-        config, args.latent_space_type, device=device, dtype=_DTYPES[args.dtype], seed=0,
+        config, args.latent_space_type, device=device, dtype=common.DTYPES[args.dtype], seed=0,
         steps_per_epoch=int(config.get("steps_per_epoch") or 250))
     print_configuration(config, config["results_path"], "train", model="autoencoder")
     train_loader, val_loader = get_data_loaders(

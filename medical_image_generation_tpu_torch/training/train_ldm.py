@@ -4,8 +4,11 @@ Port of ``LDMTrainer`` (``medical_image_generation_tpu/training/
 train_ldm.py``): ``probe_latent`` (:163-176), the train step
 (``_make_train_step``, :224-258), the validation step (:260-280), the
 epoch loop (``train`` / ``_train_impl``, :444-514), the epoch artifacts and
-resume (:516-568) and the CLI (:574-627), with the JAX trainer's names. One
-``train_step`` runs, in order:
+resume (:516-568) and the CLI (:574-627), with the JAX trainer's names. The
+step, the loop, the payload and the resume are ``common.DiffusionTrainer``'s,
+which the pixel-space DDPM (``training/train_ddpm.py``) shares; this module
+adds the frozen autoencoder, the latent probe and scale, the decoded samples
+and the generative eval. One ``train_step`` runs, in order:
 
 * device augmentation of the loader's (possibly enlarged) patch, cropped
   back to the final size (``data/augment.py``);
@@ -67,11 +70,9 @@ Not ported, and refused before the first step: the augmentations that
 
 from __future__ import annotations
 
-import argparse
-import contextlib
 import os
 import time
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -79,21 +80,12 @@ import torch
 from medical_image_generation_tpu_torch._device import resolve_device
 from medical_image_generation_tpu_torch.config.run import (
     apply_overrides,
-    create_save_path_dict,
     filter_config_by_mode,
     get_config_for_current_task,
     print_configuration,
 )
-from medical_image_generation_tpu_torch.data.augment import (
-    AugmentConfig,
-    AugmentDraws,
-    augment_batch,
-    center_crop_batch,
-    check_ported,
-    make_draws,
-)
+from medical_image_generation_tpu_torch.data.augment import center_crop_batch
 from medical_image_generation_tpu_torch.data.loader import get_data_loaders, unpack_batch
-from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
 from medical_image_generation_tpu_torch.eval.features import FeatureExtractor
 from medical_image_generation_tpu_torch.eval.fid import fid_from_features
 from medical_image_generation_tpu_torch.eval.mmd import mmd_from_features
@@ -103,80 +95,33 @@ from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUN
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
 from medical_image_generation_tpu_torch.planning.planner import compute_output_size
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
-from medical_image_generation_tpu_torch.training import common, plots
+from medical_image_generation_tpu_torch.training import common
+from medical_image_generation_tpu_torch.training.common import TrainDraws  # noqa: F401
 from medical_image_generation_tpu_torch.training.sample import LDMSampler
-from medical_image_generation_tpu_torch.utils.profiling import StepTimer, profile_trace
 
 
-class TrainDraws(NamedTuple):
-    """Every random number of one train step. ``drop``: per-sample bool
-    label-dropout coins, or None without class conditioning."""
-
-    augment: AugmentDraws
-    eps: Optional[torch.Tensor]  # posterior noise, latent-shaped (None: vq)
-    t: torch.Tensor      # (B,) int64 timesteps
-    noise: torch.Tensor  # diffusion noise, latent-shaped
-    drop: Optional[torch.Tensor] = None
-
-
-class LDMTrainer:
+class LDMTrainer(common.DiffusionTrainer):
     """Stage-2 latent diffusion trainer over a frozen KL-VAE (or VQ-VAE, with
     ``latent_space_type="vq"``), held as ``vae``. Build with
     ``from_config``."""
 
+    samples_3d = 2
+
     def __init__(self, config: dict, unet: DiffusionUNet, vae: AutoencoderKL | VQVAE,
                  device: str | torch.device = "cuda", seed: int = 0,
                  steps_per_epoch: int = 250, latent_space_type: str = "vae"):
-        self.device = resolve_device(device)
-        self.config = config
-        self.seed = seed
-        self.unet = unet.train()
+        self.vae_params = common.generator_params(config, latent_space_type)
+        super().__init__(config, unet, self.vae_params["spatial_dims"], device, seed,
+                         steps_per_epoch, "ldm_train")
         self.vae = vae.eval().requires_grad_(False)
         self.latent_space_type = latent_space_type
-        self.vae_params = common.generator_params(config, latent_space_type)
-        self.spatial_dims = self.vae_params["spatial_dims"]
+        self.posterior_eps = latent_space_type == "vae"
         if latent_space_type == "vq":
             codebook = self.vae.quantizer.codebook
             self.codebook_min = float(codebook.min())
             self.codebook_max = float(codebook.max())
-        self.schedule = NoiseSchedule.from_config(config["time_scheduler_params"],
-                                                  device=self.device)
-        self.class_cond = config.get("class_conditioning") or None
-        if self.class_cond:
-            self.num_classes = int(self.class_cond["num_classes"])
-            self.cfg_dropout = float(self.class_cond.get("dropout_prob", 0.1))
-        self.ema_decay = config.get("ema_decay")
-        self.clip = float(config.get("grad_clip_max_norm", 1.0))
-        self.aug_cfg = AugmentConfig.from_transformations(
-            config.get("ddpm_transformations", {}), spatial_dims=self.spatial_dims)
-        check_ported(self.aug_cfg, self.spatial_dims)
-        self.params = [p for p in self.unet.parameters() if p.requires_grad]
-        self.param_names = [n for n, p in self.unet.named_parameters() if p.requires_grad]
-        self.grad_accum = int(config.get("grad_accumulate_step", 1))
-        self.opt = common.AdamW(
-            self.params,
-            common.make_lr_schedule(float(config.get("ddpm_learning_rate", 2e-5)),
-                                    config.get("lr_scheduler"),
-                                    config.get("lr_scheduler_params"), steps_per_epoch),
-            clip=self.clip, weight_decay=1e-2, mu_dtype=common.mu_dtype_from_config(config))
-        if self.grad_accum > 1:
-            self.opt = common.MultiSteps(self.opt, self.grad_accum)
-        self.ema = ([p.detach().clone() for p in self.params] if self.ema_decay else None)
         self.scale_factor = 1.0
         self.latent_shape = None
-        self.host_generator = torch.Generator().manual_seed(seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self.step = 0  # microsteps taken (the JAX TrainState.step)
-        # the epoch loop's state (JAX train_ldm.py:106-111)
-        self.n_epochs = int(config.get("n_epochs", 100))
-        self.loss_dict: Dict[str, list] = {"rec_loss": [], "val_rec_loss": []}
-        self.start_epoch = 0
-        self.best_val = float("inf")
-        self.save_dict: Optional[Dict[str, str]] = None
-        self.save_path: Optional[str] = None
-        self.train_loader = None  # set by train(); its state goes into last/best
-        self.timer = StepTimer("ldm_train")
-        self.epoch_stats: list = []  # one dict of host-side seconds an epoch
 
     @staticmethod
     def from_config(config: dict, vae_state, unet_state=None,
@@ -204,10 +149,6 @@ class LDMTrainer:
         return LDMTrainer(config, unet, vae, dev, seed, steps_per_epoch, latent_space_type)
 
     # ----------------------------------------------------------------- latent
-
-    def _final_spatial(self, batch):
-        crop = self.aug_cfg.crop_to
-        return tuple(crop) if crop is not None else tuple(batch.shape[1:-1])
 
     def latent_shape_of(self, batch):
         """(B, *latent spatial, latent_channels) of a loader batch."""
@@ -252,89 +193,13 @@ class LDMTrainer:
 
     # ------------------------------------------------------------------ steps
 
-    def make_draws(self, batch, labels=None, generator: Optional[torch.Generator] = None,
-                   host_generator: Optional[torch.Generator] = None) -> TrainDraws:
-        B = batch.shape[0]
-        lat = self.latent_shape_of(batch)
-        gen = generator or self.generator
-        host = host_generator or self.host_generator
-        return TrainDraws(
-            augment=make_draws(self.aug_cfg, B, batch.shape[-1], batch.dim() - 2, host),
-            eps=(torch.randn(lat, device=self.device, generator=gen)
-                 if self.latent_space_type == "vae" else None),
-            t=torch.randint(0, self.schedule.num_train_timesteps, (B,), generator=host),
-            noise=torch.randn(lat, device=self.device, generator=gen),
-            drop=(torch.rand((B,), generator=host) < self.cfg_dropout
-                  if labels is not None and self.class_cond else None))
+    noise_shape = latent_shape_of
 
-    def _noised(self, imgs, draws: TrainDraws):
-        with torch.no_grad():
-            eps = None if draws.eps is None else draws.eps.to(self.device)
-            z = self._scale(self._encode(imgs, eps)).float()
-        t = draws.t.to(self.device)
-        noise = draws.noise.to(self.device)
-        return (self.schedule.add_noise(z, noise, t),
-                self.schedule.training_target(z, noise, t), t)
-
-    def train_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
-                   draws: Optional[TrainDraws] = None) -> torch.Tensor:
-        """One optimizer step on a (B, *spatial_in, C) batch in [0, 1];
-        returns the loss (fp32 device scalar)."""
-        batch = batch.to(self.device)
-        if draws is None:
-            draws = self.make_draws(batch, labels, generator)
-        imgs = augment_batch(batch, draws.augment, self.aug_cfg)
-        noisy, target, t = self._noised(imgs, draws)
-        labels_in = None
-        if labels is not None and self.class_cond:
-            labels_in = labels.to(self.device)
-            if draws.drop is not None:
-                labels_in = torch.where(draws.drop.to(self.device),
-                                        torch.full_like(labels_in, self.num_classes), labels_in)
-        for p in self.params:
-            p.grad = None
-        pred = self.unet(noisy, t, class_labels=labels_in)
-        loss = torch.mean((pred.float() - target) ** 2)
-        loss.backward()
-        synced = self.opt.step([p.grad for p in self.params])
-        if self.ema is not None and synced:
-            common.ema_update(self.ema, self.params, float(self.ema_decay))
-        self.step += 1
-        return loss.detach()
-
-    @torch.no_grad()
-    def val_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
-                 draws: Optional[TrainDraws] = None,
-                 host_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Loss on a final-size batch: no augmentation, no label dropout."""
-        batch = batch.to(self.device)
-        if draws is None:
-            draws = self.make_draws(batch, None, generator, host_generator)
-        noisy, target, t = self._noised(batch, draws)
-        lab = labels.to(self.device) if labels is not None and self.class_cond else None
-        pred = self.unet(noisy, t, class_labels=lab)
-        return torch.mean((pred.float() - target) ** 2)
+    def _clean(self, imgs, draws):
+        eps = None if draws.eps is None else draws.eps.to(self.device)
+        return self._scale(self._encode(imgs, eps)).float()
 
     # ---------------------------------------------------------------- sampling
-
-    @contextlib.contextmanager
-    def sampling_weights(self):
-        """The U-Net in eval mode with the EMA weights swapped in when EMA
-        is on (the JAX ``_sampling_params``, train_ldm.py:284-287); the live
-        params and train mode come back on exit. The swap moves tensor
-        handles, not data."""
-        swap = self.ema is not None
-        if swap:
-            for i, p in enumerate(self.params):
-                p.data, self.ema[i] = self.ema[i], p.data
-        self.unet.eval()
-        try:
-            yield self.unet
-        finally:
-            self.unet.train()
-            if swap:
-                for i, p in enumerate(self.params):
-                    p.data, self.ema[i] = self.ema[i], p.data
 
     def sample_images(self, n_samples: int, sampler: str = "ddim",
                       num_inference_steps: Optional[int] = None,
@@ -423,201 +288,45 @@ class LDMTrainer:
     def _host_state(self):
         """The sampler's part of a payload: ``unet`` (the live params),
         ``ema_unet`` when EMA is on, ``vae`` (``vq``), ``scale_factor``,
-        ``latent_shape``; every tensor copied to the CPU."""
+        ``latent_shape``; every tensor copied to the CPU. ``save_checkpoint``
+        writes it as the ``.pt`` that ``training.sample.load_torch_checkpoint``
+        reads (``medimgen_torch_sample_ldm`` samples ``unet``, as the JAX
+        sampling CLI samples ``params``)."""
         if self.latent_shape is None:
             raise RuntimeError("call probe_latent first: the checkpoint needs the latent shape")
-        out = {"unet": {k: v.detach().cpu() for k, v in self.unet.state_dict().items()}}
-        if self.ema is not None:
-            out["ema_unet"] = {n: e.cpu() for n, e in zip(self.param_names, self.ema)}
+        out = super()._host_state()
         out[self.latent_space_type] = {k: v.cpu() for k, v in self.vae.state_dict().items()}
         out.update(scale_factor=float(self.scale_factor),
                    latent_shape=[int(v) for v in self.latent_shape])
         return out
 
-    def save_checkpoint(self, path: str) -> None:
-        """Write the ``.pt`` that ``training.sample.load_torch_checkpoint``
-        reads: ``unet`` (the live params, which ``medimgen_torch_sample_ldm``
-        samples, as the JAX sampling CLI samples ``params``), ``ema_unet``
-        when EMA is on, ``vae`` (``vq``), ``scale_factor``, ``latent_shape``."""
-        torch.save(self._host_state(), path)
-
-    def checkpoint_payload(self, epoch: int, val_loss: float) -> Dict:
-        """The last/best payload (JAX train_ldm.py:522-534 plus ``vae``,
-        the generator states and, during ``train``, the train loader's
-        state)."""
-        opt = self.opt.state()
-        opt_state = {k: ({n: t.detach().cpu() for n, t in zip(self.param_names, v)}
-                         if isinstance(v, list) else v) for k, v in opt.items()}
-        out = {"epoch": int(epoch), **self._host_state(), "opt_state": opt_state,
-               "step": int(self.step), "validation_loss": float(val_loss),
-               "generators": {"host": self.host_generator.get_state(),
-                              "device": self.generator.get_state()}}
-        if self.train_loader is not None:
-            out["train_loader"] = self.train_loader.state()
-        return out
-
     @torch.no_grad()
     def load_payload(self, payload: Dict) -> None:
-        """Restore params, EMA (when both the run and the payload have it,
-        as the JAX ``_restore``), optimizer state, step, scale factor and
-        generator states from a last/best payload."""
-        opt = {k: ([v[n] for n in self.param_names] if isinstance(v, dict) else v)
-               for k, v in payload["opt_state"].items()}
-        if ("acc" in opt) != (self.grad_accum > 1):
-            raise ValueError("the checkpoint was written with gradient accumulation "
-                             f"{'on' if 'acc' in opt else 'off'}; this run has "
-                             f"grad_accumulate_step={self.grad_accum}")
-        self.unet.load_state_dict(payload["unet"])
-        if self.ema is not None and "ema_unet" in payload:
-            torch._foreach_copy_(self.ema, [payload["ema_unet"][n].to(self.device)
-                                            for n in self.param_names])
-        self.opt.load_state(opt)
-        self.step = int(payload["step"])
+        """The shared state, and the scale factor."""
+        super().load_payload(payload)
         self.scale_factor = float(payload["scale_factor"])
-        self.host_generator.set_state(payload["generators"]["host"])
-        self.generator.set_state(payload["generators"]["device"])
-
-    def _restore(self) -> None:
-        """Resume from ``load_model_path`` (JAX train_ldm.py:536-568):
-        the state, the train loader's draws (which the JAX loop restarts),
-        ``start_epoch = epoch + 1``, ``best_val`` (the saved
-        epoch's validation loss, as the JAX loop sets it) and the loss
-        history."""
-        path = self.config["load_model_path"]
-        if not os.path.exists(path):
-            print(f"No checkpoint at {path}; training from scratch")
-            return
-        payload = ckpt.load_checkpoint(path)
-        self.load_payload(payload)
-        if "train_loader" in payload:  # after the probe, which moved the loader
-            self.train_loader.load_state(payload["train_loader"])
-        self.start_epoch = int(payload["epoch"]) + 1
-        self.best_val = float(payload["validation_loss"])
-        prior = ckpt.load_loss_dict(self.save_path)
-        if prior:
-            self.loss_dict = prior
-        print(f"Resumed from {path} at epoch {self.start_epoch}")
 
     # -------------------------------------------------------------- main loop
 
-    def train(self, train_loader, val_loader) -> None:
-        if self.save_dict is None:
-            self.save_dict, self.save_path = create_save_path_dict(self.config)
-        with profile_trace(self.config.get("profile_dir")):
-            self._train_impl(train_loader, val_loader)
-
-    def _train_impl(self, train_loader, val_loader) -> None:
-        self.train_loader = train_loader
+    def _prepare(self, train_loader) -> None:
         first = common.batch_to_device(next(iter(train_loader)), self.device)[0]
         scale, shape = self.probe_latent(first)
         print(f"Scaling factor set to {scale}")
         print(f"Latent shape: {shape}")
-        del first
-        print(f"Diffusion U-Net parameters: {sum(p.numel() for p in self.params):,}")
-        if self.config.get("load_model_path"):
-            self._restore()
 
-        interval = int(self.config.get("val_plot_interval", 10))
-        show_bar = bool(self.config.get("progress_bar"))
-        for epoch in range(self.start_epoch, self.n_epochs):
-            t0 = time.perf_counter()
-            stats = {"epoch": epoch, "wait_s": 0.0, "copy_s": 0.0}
-            losses = []
-            self.timer.start()
-            for imgs, labels in common.timed_batches(train_loader, self.device, stats,
-                                                     show_bar, f"Epoch {epoch + 1}"):
-                losses.append(self.train_step(imgs, labels))
-                self.timer.tick()
-            train_loss = float(torch.stack(losses).mean())  # the epoch's one sync
-            stats.update(train_s=time.perf_counter() - t0, steps=len(losses))
-
-            t1 = time.perf_counter()
-            gen = torch.Generator(device=self.device).manual_seed(
-                self.seed + 10_000_000 + epoch)
-            host = torch.Generator().manual_seed(self.seed + 10_000_000 + epoch)
-            val_losses = []
-            for batch in val_loader:
-                imgs, labels = common.batch_to_device(batch, self.device)
-                val_losses.append(self.val_step(imgs, labels, generator=gen,
-                                                host_generator=host))
-            val_loss = float(torch.stack(val_losses).mean())
-            stats.update(val_s=time.perf_counter() - t1, val_steps=len(val_losses))
-
-            self.loss_dict["rec_loss"].append(train_loss)
-            self.loss_dict["val_rec_loss"].append(val_loss)
-            print(
-                f"Epoch {epoch + 1}/{self.n_epochs} | loss {train_loss:.4f} | "
-                f"val {val_loss:.4f} | {time.perf_counter() - t0:.1f}s | {self.timer.report()}"
-            )
-
-            t2 = time.perf_counter()
-            stats["saved"] = self._save_epoch_artifacts(epoch, val_loss)
-            stats["save_s"] = time.perf_counter() - t2
-
-            if (epoch + 1) % interval == 0:
-                t3 = time.perf_counter()
-                n = 16 if self.spatial_dims == 2 else 2
-                gen = torch.Generator(device=self.device).manual_seed(
-                    self.seed + 20_000_000 + epoch)
-                images = self.sample_images(n, sampler="ddim", generator=gen)
-                stats["samples"] = plots.save_samples(images, self.save_dict["plots"], epoch,
-                                                      self.spatial_dims)
-                stats["sample_s"] = time.perf_counter() - t3
-                if self.config.get("run_generation_eval", self.spatial_dims == 2):
-                    t4 = time.perf_counter()
-                    stats["eval"] = self.evaluate_generation(val_loader)
-                    stats["eval_s"] = time.perf_counter() - t4
-            self.epoch_stats.append(stats)
-
-    def _save_epoch_artifacts(self, epoch, val_loss):
-        """loss.png (when matplotlib is there), loss_dict.pkl, then last /
-        best. Returns the checkpoint names written, the seconds of the
-        payload's copy to the host and of the writes."""
-        plots.save_main_losses(
-            self.loss_dict["rec_loss"], self.loss_dict["val_rec_loss"],
-            os.path.join(self.save_dict["plots"], "loss.png"), title="Diffusion MSE",
-        )
-        ckpt.save_loss_dict(self.save_path, self.loss_dict)
-        record = {"payload_s": 0.0}
-
-        def payload():
+    def _after_samples(self, val_loader, stats) -> None:
+        if self.config.get("run_generation_eval", self.spatial_dims == 2):
             t = time.perf_counter()
-            out = self.checkpoint_payload(epoch, val_loss)
-            record["payload_s"] = time.perf_counter() - t
-            return out
-
-        t = time.perf_counter()
-        record["names"] = common.save_last_best(self, epoch, val_loss, payload)
-        record["write_s"] = time.perf_counter() - t - record["payload_s"]
-        return record
+            stats["eval"] = self.evaluate_generation(val_loader)
+            stats["eval_s"] = time.perf_counter() - t
 
 
 # --------------------------------------------------------------------- CLI
 
-_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-
-
 def parse_arguments(argv: Optional[Sequence[str]] = None):
-    parser = argparse.ArgumentParser(description="Train a Latent Diffusion Model (PyTorch port).")
-    parser.add_argument("dataset_id", type=str)
-    parser.add_argument("splitting", choices=["train-val-test", "5-fold"])
-    parser.add_argument("model_type", choices=["2d", "3d"])
-    parser.add_argument("-f", "--fold", type=int, choices=range(6), default=None)
+    parser = common.train_cli_parser("Train a Latent Diffusion Model (PyTorch port).")
     parser.add_argument("-l", "--latent_space_type", default="vae", choices=["vae", "vq"])
-    parser.add_argument("-p", "--progress_bar", action="store_true")
-    parser.add_argument("-c", "--continue_training", action="store_true")
-    parser.add_argument(
-        "--set", dest="overrides", action="append", default=None, metavar="KEY=VALUE",
-        help="Override any config field, e.g. --set n_epochs=50 "
-             "--set vae_params.num_res_blocks=3",
-    )
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16",
-                        help="compute dtype of the U-Net and the frozen VAE (fp32 master params)")
-    args = parser.parse_args(argv)
-    if args.splitting == "5-fold" and args.fold is None:
-        parser.error("--fold is required when --splitting is '5-fold'")
-    return args
+    return common.parse_train_args(parser, argv)
 
 
 def run_cli(argv: Optional[Sequence[str]] = None) -> LDMTrainer:
@@ -659,7 +368,7 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> LDMTrainer:
         args.model_type, config["ddpm_transformations"], args.fold,
     )
     trainer = LDMTrainer.from_config(config, ae[key], device=device,
-                                     dtype=_DTYPES[args.dtype], seed=0,
+                                     dtype=common.DTYPES[args.dtype], seed=0,
                                      steps_per_epoch=len(train_loader),
                                      latent_space_type=key)
     del ae

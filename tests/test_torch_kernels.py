@@ -404,3 +404,66 @@ def test_group_norm_under_remat_on_gpu(cuda, policy):
     y1, g1, n1 = run(policy)
     assert (n0, n1) == (0, 2)
     assert torch.equal(y0, y1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+# ------------------------------------------- the pixel-space DDPM's lengths
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk", [(2, 300, 2, 16, 64), (1, 257, 1, 24, 100),
+                                           (1, 128, 1, 8, 128)])
+def test_chunked_flash_references_equal_the_plain_versions(B, S, H, D, chunk):
+    """CPU: the chunked plain references (the lse over every key a chunk of
+    query rows at a time; dK / dV at some key rows summed over every query a
+    chunk at a time) and the plain versions at a subset of query rows equal
+    the whole plain versions, to fp32 summation order."""
+    q, k, v, do = (torch.from_numpy(nd((B, S, H, D), s)) for s in range(4))
+    scale = D ** -0.5
+    o, lse = tfa.flash_attention_plain(q, k, v, scale)
+    torch.testing.assert_close(tfa.flash_lse_plain_chunked(q, k, scale, chunk), lse,
+                               rtol=0, atol=1e-6)
+    rows = torch.tensor([0, 5, S // 2, S - 1])
+    o_r, lse_r = tfa.flash_attention_plain(q[:, rows], k, v, scale)
+    torch.testing.assert_close(o_r, o[:, rows], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse_r, lse.reshape(B, H, S)[:, :, rows].reshape(B * H, 4),
+                               rtol=0, atol=1e-6)
+    dq, delta = tfa.flash_bwd_dq_plain(q, k, v, o, lse, do, scale)
+    dk, dv = tfa.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale)
+    lse_rows = lse.reshape(B, H, S)[:, :, rows].reshape(B * H, 4)
+    dq_r, delta_r = tfa.flash_bwd_dq_plain(q[:, rows], k, v, o[:, rows], lse_rows, do[:, rows],
+                                           scale)
+    torch.testing.assert_close(dq_r, dq[:, rows], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(delta_r, delta.reshape(B, H, S)[:, :, rows].reshape(B * H, 4))
+    keys = torch.tensor([1, S // 3, S - 2])
+    dk_c, dv_c = tfa.flash_bwd_dkdv_plain_chunked(q, k, v, do, lse, delta, scale, keys, chunk)
+    torch.testing.assert_close(dk_c, dk[:, keys], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dv_c, dv[:, keys], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,D", [(1, 32768, 1, 768), (1, 16384, 1, 512)])
+def test_flash_kernels_at_ddpm_lengths_match_the_chunked_references_on_gpu(cuda, B, S, H, D):
+    """bf16 at two of the pixel-space DDPM's attention lengths (3D level 2,
+    2D level 1): the lse over every row against the chunked reference, o and
+    dQ at three query tiles, dK / dV at three key tiles summed over every
+    query, delta over every row; the tolerances above."""
+    q, k, v, do = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, torch.bfloat16)
+                   for s in range(4))
+    scale = D ** -0.5
+    rows = torch.cat([torch.arange(s, s + 64) for s in (0, S // 2, S - 64)]).to(cuda)
+    o, lse = tfa.flash_attention(q, k, v, scale)
+    lse_ref = tfa.flash_lse_plain_chunked(q, k, scale)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-4)
+    o_ref, _ = tfa.flash_attention_plain(q[:, rows], k, v, scale)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(o[:, rows].float(), o_ref.float(), rtol=rtol, atol=atol)
+    dq, delta = tfa.flash_bwd_dq(q, k, v, o, lse_ref, do, scale)
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale)
+    r_delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, S)
+    _close(delta, r_delta, 1e-5, 1e-5)
+    lse_rows = lse_ref.reshape(B, H, S)[:, :, rows].reshape(B * H, len(rows))
+    r_dq, _ = tfa.flash_bwd_dq_plain(q[:, rows], k, v, o[:, rows], lse_rows, do[:, rows], scale)
+    r_dk, r_dv = tfa.flash_bwd_dkdv_plain_chunked(q, k, v, do, lse_ref, r_delta, scale, rows)
+    rt, at = FLASH_BWD_TOL[torch.bfloat16]
+    _close(dq[:, rows], r_dq, rt, at)
+    _close(dk[:, rows], r_dk, rt, at)
+    _close(dv[:, rows], r_dv, rt, at)

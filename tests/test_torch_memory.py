@@ -13,7 +13,10 @@ draws (rtol 1e-4, the tolerance of ``tests/test_torch_train_ae.py``); and
 one tiny epoch of
 ``medimgen_torch_train_autoencoder`` with ``use_checkpointing: true``
 under each policy, for ``-l vae`` and ``-l vq``, equal to the epoch
-without it."""
+without it. The diffusion U-Net's ``use_checkpointing`` (the JAX
+``nn.remat(ResBlock)``): ``from_config`` reads it, every ResBlock and no
+attention block runs under ``checkpoint``, the outputs and gradients equal
+no remat, and autograd keeps fewer bytes across the forward."""
 
 import copy
 import math
@@ -29,7 +32,8 @@ from medical_image_generation_tpu.planning import memory as jmemory
 from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
 from medical_image_generation_tpu_torch.models import autoencoder_kl
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
-from medical_image_generation_tpu_torch.models.blocks import GroupNorm, ResBlock
+from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm, ResBlock
+from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
 from medical_image_generation_tpu_torch.ops import groupnorm as tgn
 from medical_image_generation_tpu_torch.planning import memory as tmemory
@@ -297,3 +301,101 @@ def test_ae_cli_trains_with_use_checkpointing(ae_env, monkeypatch, tmp_path, lat
             np.testing.assert_allclose(got_l[k], v, rtol=1e-5, err_msg=f"{rung} {k}")
         for a, b in zip(got_p, base_p):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------------------------------- the U-Net's remat
+
+
+def _unet_pair():
+    """The tiny 3D U-Net without and with use_checkpointing, same weights
+    (every layer seeded, the zero-initialised output conv too)."""
+    _, ddpm_p, _ = flagship_configs(tiny=True)
+    torch.manual_seed(0)
+    base = DiffusionUNet.from_config(ddpm_p, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        for p in base.parameters():
+            p.copy_(torch.randn(p.shape) / math.sqrt(p[0].numel() if p.dim() > 1 else 50.0))
+    m = DiffusionUNet.from_config(dict(ddpm_p, use_checkpointing=True), dtype=torch.float32,
+                                  device="cpu")
+    m.load_state_dict(base.state_dict())
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 16, 16, 16, ddpm_p["in_channels"]), generator=gen)
+    return base, m, x, torch.tensor([5, 901])
+
+
+def _recording_checkpoint(monkeypatch):
+    """Patch the checkpoint ``remat_call`` takes: record each checkpointed
+    block and its inputs, then checkpoint as before."""
+    seen = []
+    orig = autoencoder_kl.checkpoint.checkpoint
+
+    def rec(fn, *args, **kw):
+        seen.append((fn, args))
+        return orig(fn, *args, **kw)
+
+    monkeypatch.setattr(autoencoder_kl.checkpoint, "checkpoint", rec)
+    return seen
+
+
+def test_unet_use_checkpointing_reaches_every_resblock(monkeypatch):
+    """``from_config`` reads ``use_checkpointing``; with it every ResBlock
+    (and no attention block) runs under a non-reentrant checkpoint with no
+    policy, each rematerialised ResBlock runs its two GroupNorm forwards
+    again in the backward, the state_dict keys do not change, and under
+    ``no_grad`` nothing is checkpointed."""
+    base, m, x, t = _unet_pair()
+    assert base.remat is None and m.remat == "full"
+    assert list(m.state_dict()) == list(base.state_dict())
+    seen = _recording_checkpoint(monkeypatch)
+    with torch.no_grad():
+        m(x, t)
+    assert seen == []
+    resblocks = [b for b in m.modules() if isinstance(b, ResBlock)]
+    n_gn = sum(isinstance(c, GroupNorm) for c in m.modules())
+    counts = _count_gn(monkeypatch)
+    out = m(x, t)
+    assert [fn for fn, _ in seen] == resblocks
+    assert not any(isinstance(fn, AttentionBlock) for fn, _ in seen)
+    assert counts == {"stats_fold": n_gn, "affine_act": n_gn}
+    out.square().mean().backward()
+    assert counts == {"stats_fold": n_gn + 2 * len(resblocks),
+                      "affine_act": n_gn + 2 * len(resblocks)}
+    del seen[:]
+    base(x, t)  # under autograd, where remat_call would checkpoint
+    assert seen == []
+
+
+def test_unet_remat_matches_no_remat_and_keeps_fewer_bytes(monkeypatch):
+    """fp32 on the CPU: outputs and every parameter's gradient equal without
+    and with remat (rtol 1e-5 of each element and of the tensor's largest),
+    and the bytes autograd keeps across the forward (tensors packed for the
+    backward outside the checkpoints, plus the checkpointed blocks' inputs,
+    each storage once) are fewer with it."""
+    base, m, x, t = _unet_pair()
+    seen = _recording_checkpoint(monkeypatch)
+
+    def run(model):
+        kept = {}
+
+        def pack(tensor):
+            kept[(tensor.untyped_storage().data_ptr(), tensor.untyped_storage().nbytes())] = 1
+            return tensor
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda tensor: tensor):
+            out = model(x, t)
+        for _, args in seen:
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    kept[(a.untyped_storage().data_ptr(), a.untyped_storage().nbytes())] = 1
+        loss = out.square().mean()
+        return out, torch.autograd.grad(loss, list(model.parameters())), sum(n for _, n in kept)
+
+    out0, g0, kept0 = run(base)
+    out1, g1, kept1 = run(m)
+    np.testing.assert_allclose(out1.detach().numpy(), out0.detach().numpy(), rtol=1e-5,
+                               atol=1e-5 * float(out0.detach().abs().max()))
+    for (name, _), a, b in zip(base.named_parameters(), g1, g0):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()) + 1e-30, err_msg=name)
+    assert len(seen) == sum(isinstance(b, ResBlock) for b in m.modules())
+    assert kept1 < 0.8 * kept0, (kept1, kept0)
