@@ -189,6 +189,30 @@ Phases (any failure raises and exits non-zero):
                    epoch of 2 + 1 steps, then the sampling CLI writing one
                    .nii.gz at 2 DDIM steps, read back. Launches held to the
                    prediction; every GroupNorm shape held by phase 17.
+19. aug_cond     -- (inside the CLI workspace, after phase 9) the modules of
+                   slice 12 at the 3D flagship's width, bf16, seeded weights:
+                   the AE step with the adversarial loss under aug_preset
+                   nnunet with gaussian_noise, gaussian_blur, low_resolution
+                   and elastic on and the KL-VAE's transposed-conv upsample
+                   (batch 2 of the (310, 315, 309) initial patch: rotation
+                   about all three axes onto 128^3), 2 + 10 steps; the LDM
+                   step of the conditioned U-Net (a SpatialTransformer at each
+                   of the 11 attention sites, 528,892,424 params) under the
+                   same augmentations (batch 2 of (183, 183, 183): scaling
+                   resampled in 3D), 2 + 10 steps. For each: ms a step, peak
+                   memory, launches held to the prediction (two flash calls
+                   a transformer layer), idle share and each kernel's device
+                   ms beside its summed bound (profiler), every GroupNorm
+                   shape held by phases 2-3, and augment_batch alone with one
+                   transform's coin forced on at a time; for the AE batch its
+                   bytes, one copy to the card and the loader's batches/s at
+                   that patch on phase 9's dataset beside the step rate. Then
+                   the tiny config CPU vs GPU (fp32): a DiffusionEncoder
+                   forward and backward and a conditioned U-Net forward with
+                   ControlNet residuals; both once at flagship width (timed,
+                   launches held); and a context of another length than the
+                   token grid refused on the card (NotImplementedError, no
+                   plain attention).
 Every flash forward and backward of every phase is recorded, and the run
 fails at the end if one ran at a shape no kernel phase (or the CPU-vs-GPU
 parity phases) held against its plain version.
@@ -201,7 +225,9 @@ adversarial loss, one 2D eval and the 3D eval call, ``launches_plan`` one
 a 2D and a 3D DDPM step, one 2D (batch 16) and one 3D (batch 1) sampling
 forward and each DDPM CLI's first epoch, ``step_ms_ddpm`` each kernel's
 device ms / bound a DDPM step, ``shapes_ddpm`` (shape, ms, bound_ms) at
-phase 17's shapes) and the device record; the card's name and power limit are printed before them.
+phase 17's shapes, ``launches_aug_cond`` an AE step and a conditioned LDM step of
+phase 19, ``step_ms_aug_cond`` their device ms / bound) and the device record; the
+card's name and power limit are printed before them.
 """
 
 from __future__ import annotations
@@ -262,7 +288,11 @@ GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship paths, batch 
     # first ResBlock of a level normalises the previous level's channels
     (262144, 32, 16), (32768, 64, 16), (262144, 128, 16), (2097152, 64, 16),
     # the discriminator's instance norms: one channel a group, 32^3 and 31^3 rows
-    (32768, 128, 128), (29791, 256, 256)]
+    (32768, 128, 128), (29791, 256, 256),
+    # the U-Net's other widths (the up path's concatenations, the levels' first
+    # blocks), which phase aug_cond's LDM step checks against this list
+    (32768, 512, 32), (4096, 256, 32), (4096, 768, 32), (4096, 1024, 32),
+    (512, 512, 32), (512, 1280, 32)]
 FLASH_SHAPES = [(2, 4096, 1, 512), (2, 512, 1, 768), (2, 1000, 3, 96)]  # (B, S, H, D)
 FLAGSHIP_FLASH = FLASH_SHAPES[:2]  # the U-Net's two attention sites
 FLASH_TILE = 32  # keys a tile of the forward kernel, queries a tile of the dK/dV kernel
@@ -297,11 +327,12 @@ def bound(flops, nbytes, peak_flops):
 def randomize_(model, seed):
     """Seeded random values in every parameter, including zero-initialised
     layers: fan-in scaled normals for weights, small normals for biases,
-    GroupNorm scale 1 + 0.1 n."""
+    GroupNorm and LayerNorm scale 1 + 0.1 n."""
     from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+    from medical_image_generation_tpu_torch.models.diffusion_unet import LayerNorm
 
     gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
-    gn = {id(m.weight) for m in model.modules() if isinstance(m, GroupNorm)}
+    gn = {id(m.weight) for m in model.modules() if isinstance(m, (GroupNorm, LayerNorm))}
     with torch.no_grad():
         for p in model.parameters():
             n = torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32)
@@ -2941,17 +2972,21 @@ def module_bounds(nets, fn):
     backward kernel's once a module that ran under autograd) and the
     GroupNorm (B, M, C, groups) it met."""
     from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.models.diffusion_unet import CrossAttention
 
     seen, grads = [], {}
 
     def hook(mod, args):
         x = args[0]
-        seen.append((mod, tuple(x.shape), x.element_size()))
+        # attention as (B, C, tokens...): a CrossAttention's x is (B, S, C)
+        shape = (x.shape[0], x.shape[2], x.shape[1]) if isinstance(mod, CrossAttention) \
+            else tuple(x.shape)
+        seen.append((mod, shape, x.element_size()))
         if torch.is_grad_enabled() and x.requires_grad:
-            grads[id(mod)] = (mod, tuple(x.shape), x.element_size())
+            grads[id(mod)] = (mod, shape, x.element_size())
 
     handles = [m.register_forward_pre_hook(hook) for net in nets for m in net.modules()
-               if isinstance(m, (GroupNorm, AttentionBlock))]
+               if isinstance(m, (GroupNorm, AttentionBlock, CrossAttention))]
     try:
         fn()
         torch.cuda.synchronize()
@@ -3550,6 +3585,434 @@ def phase_ddpm_cli(ws, ddpm):
     return out
 
 
+AUG_ALL = dict(aug_preset="nnunet", gaussian_noise=True, gaussian_blur=True,
+               low_resolution=True, elastic=True)
+AUG_COND_STEPS = (2, 10)  # warm-up and timed steps of each of the phase's two trainers
+AUG_COND_LOADER_STEPS = 16  # batches of the loader alone at the nnunet AE patch
+COND_UNET_PARAMS = 528_892_424  # the flagship U-Net with a SpatialTransformer at each site
+
+
+def aug_cond_config(tiny):
+    """The planner's config with the nnunet preset and the four optional
+    augmentations on for both stages, the KL-VAE's transposed-conv
+    upsample, and the U-Net's ``with_conditioning`` (keys a user writes into
+    medimgen_config.yaml)."""
+    cfg = _train_config(tiny=tiny)
+    for key in ("ae_transformations", "ddpm_transformations"):
+        cfg[key] = dict(cfg[key], **AUG_ALL)
+    cfg["vae_params"] = dict(cfg["vae_params"], use_convtranspose=True)
+    cfg["ddpm_params"] = dict(cfg["ddpm_params"], with_conditioning=True)
+    return cfg
+
+
+def _forced(draws, coin):
+    """``draws`` with every coin off but ``coin`` (its channel coins on)."""
+    off = {k: torch.zeros_like(v) for k, v in draws._asdict().items()
+           if k.endswith("_on") and v is not None}
+    off["flips"] = torch.zeros_like(draws.flips)
+    if coin == "rotate+scale":
+        off.update(rot_on=torch.ones_like(draws.rot_on), scale_on=torch.ones_like(draws.scale_on))
+    elif coin == "mirror":
+        off["flips"] = torch.ones_like(draws.flips)
+    elif coin != "crop only":
+        off[f"{coin}_on"] = torch.ones_like(off[f"{coin}_on"])
+        if coin == "lowres":
+            off["lowres_chan_on"] = torch.ones_like(draws.lowres_chan_on)
+    return draws._replace(**off)
+
+
+AUG_COINS = ["crop only", "rotate+scale", "mirror", "noise", "elastic", "blur", "lowres",
+             "bright", "contrast", "gamma"]
+
+
+def _aug_alone(label, batch, draws, cfg, gpu):
+    """ms a batch of augment_batch with each transform's coin forced on, one
+    at a time (CUDA events, median of 5)."""
+    from medical_image_generation_tpu_torch.data.augment import augment_batch
+
+    times = {c: time_ms(lambda c=c: augment_batch(batch, _forced(draws, c), cfg), 1, 5)
+             for c in AUG_COINS}
+    log(f"[aug_cond] {gpu}: {label} augmentation alone, ms a batch of "
+        f"{tuple(batch.shape)} with one coin forced on: "
+        + "; ".join(f"{k}={v:.3f}" for k, v in times.items()))
+    return times
+
+
+def cond_per_step(unet, encoder):
+    """Launches of each port kernel a conditioned LDM step makes: two flash
+    calls a transformer layer (self-attention, then attention to the
+    missing context, its own tokens) forward and backward, every GroupNorm
+    of the U-Net (its transformers' too) forward and backward, and the
+    frozen encoder's GroupNorms forward."""
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.models.diffusion_unet import CrossAttention
+
+    def n(mod, cls):
+        return sum(isinstance(m, cls) for m in mod.modules())
+
+    fl = n(unet, CrossAttention) + n(unet, AttentionBlock)
+    gn_u, gn_e = n(unet, GroupNorm), n(encoder, GroupNorm)
+    return {"flash_attn_fwd": fl + n(encoder, AttentionBlock), "flash_attn_bwd_dq": fl,
+            "flash_attn_bwd_dkdv": fl, "gn_stats_fold": gn_u + gn_e,
+            "gn_affine_act": gn_u + gn_e, "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u}
+
+
+def phase_aug_cond(ws):
+    """The nnunet preset with every optional augmentation, the transposed-
+    conv KL-VAE, and the conditioned U-Net at the 3D flagship's width (see
+    the module docstring). Returns {"ae": ..., "ldm": ...} records."""
+    try:
+        return _aug_cond(ws)
+    finally:
+        torch.cuda.empty_cache()
+
+
+def _aug_cond(ws):
+    from medical_image_generation_tpu_torch.data import loader as loader_mod
+    from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
+    from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
+    from medical_image_generation_tpu_torch.models.diffusion_unet import SpatialTransformer
+    from medical_image_generation_tpu_torch.training.train_autoencoder import (
+        METRICS,
+        AutoEncoderTrainer,
+    )
+    from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    dev, gpu = torch.device("cuda"), ws["gpu"]
+    cfg = aug_cond_config(tiny=False)
+    warmup, steps = AUG_COND_STEPS
+    out = {}
+
+    # ---- the AE step: nnunet + every augmentation, transposed-conv decoder
+    tr = AutoEncoderTrainer.from_config(cfg, "vae", device=dev, dtype=torch.bfloat16, seed=3)
+    randomize_(tr.model, 6321)
+    randomize_(tr.discriminator, 6322)
+    initial = tuple(compute_initial_patch_size(cfg["ae_transformations"]))
+    B = int(cfg["ae_batch_size"])
+    ups = [m for m in tr.model.decoder.modules() if hasattr(m, "ConvTranspose_0")]
+    log(f"[aug_cond] {gpu}: AE under aug_preset nnunet with noise, elastic, blur and low "
+        f"resolution: initial patch {initial} -> crop {tr.aug_cfg.crop_to}, rot_3d "
+        f"{tr.aug_cfg.rot_3d} (+-{tr.aug_cfg.rot_range:.4f} rad), scale "
+        f"{tr.aug_cfg.scale_range}, mirror axes {tr.aug_cfg.mirror_axes}; decoder "
+        f"upsamples by transposed conv: {len(ups)}; batch {B}")
+    if initial != (310, 315, 309) or not tr.aug_cfg.rot_3d or len(ups) != 2:
+        raise AssertionError(f"not the nnunet AE config: patch {initial}, rot_3d "
+                             f"{tr.aug_cfg.rot_3d}, {len(ups)} transposed-conv upsamples")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    batch = torch.rand((B, *initial, 1), generator=gen, device=dev)
+    batch_bytes = batch.numel() * batch.element_size()
+    per_step = ae_per_step(tr, True)
+    ms_step, peak, counts, ms = _timed_steps(lambda: tr.train_step(batch, True), warmup, steps)
+    expect = {k: v * steps for k, v in per_step.items()}
+    losses = {k: [float(m[k]) for m in ms] for k in METRICS}
+    log(f"[aug_cond] {gpu}: AE step with the adversarial loss: {ms_step:.3f} ms per step = "
+        f"{1e3 / ms_step:.3f} steps/s; peak memory {peak:.2f} GiB; losses (first, last) "
+        f"{({k: (round(v[0], 5), round(v[-1], 5)) for k, v in losses.items()})}; launches "
+        f"per step predicted {per_step}, {steps} steps counted {counts}")
+    with torch.no_grad():
+        imgs = batch[:, :128, :128, :128].contiguous()
+        recon = tr.model(imgs, torch.zeros(tr.latent_shape_of(imgs), device=dev))[0]
+    if recon.shape != (B, 128, 128, 128, 1):
+        raise AssertionError(f"transposed-conv decoder gave {tuple(recon.shape)}")
+    del recon, imgs
+    if counts != expect or not all(math.isfinite(v) for vs in losses.values() for v in vs):
+        raise AssertionError(f"AE launches {counts} != {expect}, or non-finite losses")
+    bounds, shapes = gn_seen([tr.model, tr.discriminator], lambda: tr.train_step(batch, True))
+    missing = {s[1:] for s in shapes} - set(GN_SHAPES)
+    if missing:
+        raise AssertionError(f"[aug_cond] AE GroupNorm shapes not held by the kernel phases: "
+                             f"{sorted(missing)}")
+    busy, shares = profile_breakdown("aug_cond AE step", lambda: tr.train_step(batch, True))
+    prof = profile_breakdown.last
+    log(f"[aug_cond] {gpu}: AE step device busy {busy:.3f} ms, idle share "
+        f"{prof['idle_share']:.3f} (profiler); per step device ms / summed bound: "
+        + "; ".join(f"{k} {shares[k]:.4f} / {bounds[k]:.4f}" for k in bounds if per_step[k]))
+    draws = tr.make_draws(batch)
+    aug = _aug_alone("AE", batch, draws.augment, tr.aug_cfg, gpu)
+    del tr, draws
+    torch.cuda.empty_cache()
+
+    # the host side of that batch: one copy to the card, and the loader alone
+    copies = _copy_times((B, *initial, 1))
+    tl, _ = loader_mod.get_data_loaders(cfg, "099", "train-val-test", B, "3d",
+                                        cfg["ae_transformations"],
+                                        train_steps=AUG_COND_LOADER_STEPS)
+    t0 = time.perf_counter()
+    n_b = sum(1 for _ in tl)
+    load_s = time.perf_counter() - t0
+    rate = n_b / load_s
+    bound_by = "the loader" if rate < 1e3 / ms_step else "the step"
+    log(f"[aug_cond] {gpu}: one AE batch (2, *{initial}, 1) float32 = {batch_bytes} bytes "
+        f"({batch_bytes / 1e6:.1f} MB); to the card host ms / device ms: pageable "
+        f"{copies['pageable'][0]:.3f} / {copies['pageable'][1]:.3f}, pinned + non_blocking "
+        f"{copies['pinned'][0]:.3f} / {copies['pinned'][1]:.3f}; the loader alone "
+        f"({tl.num_threads} threads, {n_b} batches): {rate:.2f} batches/s against "
+        f"{1e3 / ms_step:.3f} steps/s: {bound_by} bounds the AE CLI at this patch")
+    out["ae"] = dict(ms_step=ms_step, busy_ms=busy, idle_share=prof["idle_share"],
+                     peak_gb=peak, counts=counts, per_step=per_step, aug_ms=aug,
+                     batch_bytes=batch_bytes, loader_batches_s=rate, copies=copies,
+                     step={k: (shares[k], bounds[k]) for k in bounds})
+
+    # ---- the conditioned LDM step, the same augmentations
+    vae_f32 = AutoencoderKL.from_config(cfg["vae_params"], dtype=torch.float32, device=dev)
+    randomize_(vae_f32, 6331)
+    tr = LDMTrainer.from_config(cfg, vae_f32.state_dict(), device=dev, dtype=torch.bfloat16,
+                                seed=4)
+    del vae_f32
+    randomize_(tr.unet, 6332)
+    n_params = sum(p.numel() for p in tr.params)
+    sts = [m for m in tr.unet.modules() if isinstance(m, SpatialTransformer)]
+    initial = tuple(compute_initial_patch_size(cfg["ddpm_transformations"]))
+    batch = torch.rand((2, *initial, 1), generator=gen, device=dev)
+    _, latent_shape = tr.probe_latent(batch)
+    heads = sorted({b.TransformerBlock_0.CrossAttention_0.num_heads for b in sts})
+    log(f"[aug_cond] {gpu}: conditioned U-Net params={n_params:,} ({len(sts)} "
+        f"SpatialTransformers, heads {heads}); "
+        f"batch {tuple(batch.shape)} -> crop {tr.aug_cfg.crop_to} (rot_3d "
+        f"{tr.aug_cfg.rot_3d}, rotation {tr.aug_cfg.rotation}) -> latent {latent_shape}")
+    if n_params != COND_UNET_PARAMS or len(sts) != 11 or initial != (183, 183, 183):
+        raise AssertionError(f"not the conditioned flagship: params {n_params}, {len(sts)} "
+                             f"transformers, patch {initial}")
+    per_step = cond_per_step(tr.unet, tr.vae.encoder)
+    ms_step, peak, counts, losses = _timed_steps(lambda: tr.train_step(batch), warmup, steps)
+    losses = [float(v) for v in losses]
+    expect = {k: v * steps for k, v in per_step.items()}
+    log(f"[aug_cond] {gpu}: conditioned LDM step: {ms_step:.3f} ms per step = "
+        f"{1e3 / ms_step:.3f} steps/s; peak memory {peak:.2f} GiB; losses "
+        f"{['%.5f' % v for v in losses]}; launches per step predicted {per_step}, {steps} "
+        f"steps counted {counts}")
+    if counts != expect or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"conditioned LDM launches {counts} != {expect}, or non-finite "
+                             f"losses {losses}")
+    bounds, shapes = module_bounds([tr.unet, tr.vae.encoder], lambda: tr.train_step(batch))
+    missing = {s[1:] for s in shapes} - set(GN_SHAPES)
+    if missing:
+        raise AssertionError(f"[aug_cond] LDM GroupNorm shapes not held by the kernel phases: "
+                             f"{sorted(missing)}")
+    busy, shares = profile_breakdown("aug_cond conditioned LDM step",
+                                     lambda: tr.train_step(batch))
+    prof = profile_breakdown.last
+    for name, b_ms in bounds.items():
+        log(f"[aug_cond] {gpu}: conditioned LDM per step: {name} device ms={shares[name]:.4f} "
+            f"bound ms (summed over the step's {per_step[name]} launches)={b_ms:.4f} ratio="
+            f"{shares[name] / b_ms:.2f}")
+    log(f"[aug_cond] {gpu}: conditioned LDM step device busy {busy:.3f} ms, idle share "
+        f"{prof['idle_share']:.3f}, host enqueue {prof['host_ms']:.3f} ms (profiler)")
+    draws = tr.make_draws(batch)
+    aug = _aug_alone("LDM", batch, draws.augment, tr.aug_cfg, gpu)
+    out["ldm"] = dict(ms_step=ms_step, busy_ms=busy, idle_share=prof["idle_share"],
+                      peak_gb=peak, counts=counts, per_step=per_step, aug_ms=aug,
+                      n_params=n_params, step={k: (shares[k], bounds[k]) for k in bounds})
+    del tr, draws, batch
+    torch.cuda.empty_cache()
+
+    # ---- the card against the CPU, and the flagship-width calls
+    with flash_capture() as parity_shapes:  # held against the CPU's plain versions
+        out["parity"] = _cond_parity(gpu)
+    FLASH_CHECKED.update(parity_shapes)
+    _cond_flagship(gpu)
+    _cond_context_refused(gpu)
+    return out
+
+
+def _cond_parity(gpu):
+    """The tiny config (fp32, TF32 off) on the CPU (plain versions) and on
+    the card (kernels): a DiffusionEncoder forward and backward, and a
+    conditioned U-Net forward with ControlNet residuals."""
+    from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
+    from medical_image_generation_tpu_torch.planning.planner import (
+        compute_output_size,
+        flagship_configs,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        vae_p, ddpm_p, image = flagship_configs(tiny=True)
+        latent = compute_output_size(image, vae_p["downsample_parameters"])
+        g = torch.Generator().manual_seed(41)
+        x = torch.randn((2, *latent, ddpm_p["in_channels"]), generator=g)
+        t = torch.tensor([17, 901])
+        errs, launches = {}, {}
+        # the encoder: logits and every gradient
+        enc = _encoder_of(ddpm_p, 3, device="cpu")
+        randomize_(enc, 42)
+        enc_g = copy.deepcopy(enc).cuda()
+        cot = torch.randn((2, 3), generator=g)
+        res = {}
+        for name, net, dv in (("cpu", enc, "cpu"), ("gpu", enc_g, "cuda")):
+            xi = x.detach().to(dv, copy=True).requires_grad_()
+            _reset_counts()
+            logits = net(xi, t.to(dv))
+            (logits * cot.to(dv)).sum().backward()
+            torch.cuda.synchronize()
+            launches[f"encoder_{name}"] = _read_counts()
+            res[name] = [logits.detach().cpu(), xi.grad.cpu()] + [
+                p.grad.cpu() for p in net.parameters()]
+        errs["encoder"] = max(_err(a, b) / max(b.abs().max().item(), 1e-30)
+                              for a, b in zip(res["gpu"], res["cpu"]))
+        # the conditioned U-Net forward with ControlNet residuals
+        cfg = dict(ddpm_p, with_conditioning=True)
+        unet = DiffusionUNet.from_config(cfg, dtype=torch.float32, device="cpu").eval()
+        randomize_(unet, 43)
+        unet_g = copy.deepcopy(unet).cuda()
+        # the residuals' shapes: one per collected skip (ConvND_0, each down
+        # ResBlock / transformer, each Downsample) and the mid block's output
+        shapes = _skip_shapes(latent, cfg, 2)
+        down = [torch.randn(s, generator=g) * 0.5 for s in shapes[0]]
+        mid = torch.randn(shapes[1], generator=g) * 0.5
+        with torch.no_grad():
+            ref = unet(x, t, down_block_additional_residuals=down,
+                       mid_block_additional_residual=mid)
+            plain = unet(x, t)
+            _reset_counts()
+            got = unet_g(x.cuda(), t.cuda(),
+                         down_block_additional_residuals=[r.cuda() for r in down],
+                         mid_block_additional_residual=mid.cuda())
+            torch.cuda.synchronize()
+        launches["unet_gpu"] = _read_counts()
+        errs["unet_controlnet"] = _err(got.cpu(), ref) / max(1.0, ref.abs().max().item())
+        moved = _err(plain, ref)
+        tol = 1e-4  # fp32 everywhere (TF32 off); summation order only
+        log(f"[aug_cond] {gpu}: tiny fp32, CPU plain vs GPU kernels: DiffusionEncoder forward "
+            f"+ backward max err / max|ref| {errs['encoder']:.3e}, conditioned U-Net forward "
+            f"with ControlNet residuals {errs['unet_controlnet']:.3e} (tol {tol:g}; the "
+            f"residuals move the output by {moved:.3e}); GPU launches {launches}")
+        if not (errs["encoder"] <= PARITY_GRAD_TOL and errs["unet_controlnet"] <= tol
+                and moved > 1e-2):
+            raise AssertionError("tiny encoder / ControlNet CPU-GPU parity failed")
+        if not (launches["encoder_gpu"]["flash_attn_bwd_dkdv"] > 0
+                and launches["unet_gpu"]["flash_attn_fwd"] > 0):
+            raise AssertionError(f"the flash kernels did not run: {launches}")
+        return errs
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def _encoder_of(ddpm_p, num_classes, **kw):
+    """A DiffusionEncoder of the U-Net's geometry (ddpm_params)."""
+    from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionEncoder
+
+    return DiffusionEncoder(
+        ddpm_p["spatial_dims"], ddpm_p["in_channels"], num_classes, ddpm_p["num_channels"],
+        ddpm_p["attention_levels"], ddpm_p["num_head_channels"],
+        ddpm_p.get("num_res_blocks", 2), ddpm_p.get("norm_num_groups", 32), ddpm_p["strides"],
+        ddpm_p["kernel_sizes"], ddpm_p["paddings"], **kw)
+
+
+def _skip_shapes(latent, ddpm_p, batch):
+    """Public shapes of the U-Net's collected skips, and of its mid block."""
+    spatial, chs = list(latent), ddpm_p["num_channels"]
+    nrb = ddpm_p.get("num_res_blocks", 2)
+    out = [(batch, *spatial, chs[0])]
+    for level, ch in enumerate(chs):
+        out += [(batch, *spatial, ch)] * (nrb if isinstance(nrb, int) else nrb[level])
+        if level != len(chs) - 1:
+            spatial = [s // st for s, st in zip(spatial, ddpm_p["strides"][level + 1])]
+            out.append((batch, *spatial, ch))
+    return out, (batch, *spatial, chs[-1])
+
+
+def _cond_flagship(gpu):
+    """At the flagship's width, bf16, batch 2: one DiffusionEncoder forward
+    and backward and one conditioned U-Net forward with ControlNet
+    residuals, timed, finite, launches as the code predicts."""
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.models.diffusion_unet import (
+        CrossAttention,
+        DiffusionUNet,
+    )
+    from medical_image_generation_tpu_torch.planning.planner import flagship_configs
+
+    dev = torch.device("cuda")
+    _, ddpm_p, _ = flagship_configs()
+    latent = (32, 32, 32)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    x = torch.randn((2, *latent, ddpm_p["in_channels"]), generator=gen, device=dev)
+    t = torch.tensor([17, 901], device=dev)
+
+    def n(mod, cls):
+        return sum(isinstance(m, cls) for m in mod.modules())
+
+    enc = _encoder_of(ddpm_p, 2, dtype=torch.bfloat16, param_dtype=torch.float32, device=dev)
+    randomize_(enc, 45)
+
+    def enc_step():
+        for p in enc.parameters():
+            p.grad = None
+        enc(x, t).float().square().sum().backward()
+
+    enc_ms = time_ms(enc_step, 1, 3)
+    _reset_counts()
+    shapes = gn_seen([enc], enc_step)[1]
+    enc_counts = _read_counts()
+    a_e, g_e = n(enc, AttentionBlock), n(enc, GroupNorm)
+    enc_expect = {"flash_attn_fwd": a_e, "flash_attn_bwd_dq": a_e, "flash_attn_bwd_dkdv": a_e,
+                  "gn_stats_fold": g_e, "gn_affine_act": g_e, "gn_bwd_stats": g_e,
+                  "gn_bwd_apply": g_e}
+    finite = all(torch.isfinite(p.grad).all() for p in enc.parameters())
+    del enc
+    unet = DiffusionUNet.from_config(dict(ddpm_p, with_conditioning=True), dtype=torch.bfloat16,
+                                     device=dev).eval()
+    randomize_(unet, 46)
+    res_shapes = _skip_shapes(latent, ddpm_p, 2)
+    down = [torch.randn(s, generator=gen, device=dev) * 0.5 for s in res_shapes[0]]
+    mid = torch.randn(res_shapes[1], generator=gen, device=dev) * 0.5
+    with torch.no_grad():
+        fwd = lambda: unet(x, t, down_block_additional_residuals=down,  # noqa: E731
+                           mid_block_additional_residual=mid)
+        u_ms = time_ms(fwd, 1, 3)
+        _reset_counts()
+        shapes |= gn_seen([unet], fwd)[1]
+        u_counts = _read_counts()
+        y = fwd()
+    c_u, g_u = n(unet, CrossAttention), n(unet, GroupNorm)
+    u_expect = {k: 0 for k in u_counts}
+    u_expect.update(flash_attn_fwd=c_u, gn_stats_fold=g_u, gn_affine_act=g_u)
+    ok = finite and bool(torch.isfinite(y).all()) and y.shape == (2, *latent, 8)
+    log(f"[aug_cond] {gpu}: flagship width bf16 batch 2: DiffusionEncoder forward + backward "
+        f"{enc_ms:.3f} ms (launches {enc_counts}, predicted {enc_expect}); conditioned U-Net "
+        f"forward with ControlNet residuals {u_ms:.3f} ms (launches {u_counts}, predicted "
+        f"{u_expect}); finite and shaped: {ok}")
+    del unet, down, mid, y
+    if enc_counts != enc_expect or u_counts != u_expect or not ok:
+        raise AssertionError("flagship-width encoder / ControlNet calls failed")
+    missing = {s[1:] for s in shapes} - set(GN_SHAPES)
+    if missing:
+        raise AssertionError(f"[aug_cond] encoder / U-Net GroupNorm shapes not held by the "
+                             f"kernel phases: {sorted(missing)}")
+
+
+def _cond_context_refused(gpu):
+    """A transformer's attention to a context of another length than its
+    token grid raises NotImplementedError on the card (before any launch),
+    and no plain attention runs in its place."""
+    from medical_image_generation_tpu_torch.models.diffusion_unet import CrossAttention
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
+    att = CrossAttention(16, 2, context_dim=12, device="cuda")
+    x = torch.randn((2, 64, 16), device="cuda")
+    ctx = torch.randn((2, 7, 12), device="cuda")
+    calls = []
+    orig = fa.flash_attention_plain
+    fa.flash_attention_plain = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    _reset_counts()
+    try:
+        att(x, ctx)
+    except NotImplementedError as e:
+        log(f"[aug_cond] {gpu}: a context of 7 tokens against a 64-token grid on the card "
+            f"raised NotImplementedError ({e}); plain attention calls {len(calls)}, flash "
+            f"launches {_read_counts()['flash_attn_fwd']}")
+        if calls:
+            raise AssertionError("the plain attention ran on the card")
+    else:
+        raise AssertionError("a context of another length ran on the card")
+    finally:
+        fa.flash_attention_plain = orig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3591,6 +4054,8 @@ def main() -> int:
     with cli_workspace() as ws:
         phase_ae_cli(ws, ae_per)
         done("ae_cli")
+        aug_cond = phase_aug_cond(ws)
+        done("aug_cond")
         cli_counts, eval3d = phase_cli(ws, counts, train_ms)
         done("cli")
         eval2d = phase_cli_2d(ws)
@@ -3639,7 +4104,11 @@ def main() -> int:
                         "step_ms_ddpm": {"2d": ddpm[2]["step"][name],
                                          "3d": ddpm[3]["step"][name]},
                         "shapes_ddpm": [{k: r[k] for k in ("shape", "ms", "bound_ms")}
-                                        for r in rec_ddpm.get(name, [])]})
+                                        for r in rec_ddpm.get(name, [])],
+                        "launches_aug_cond": {"ae_step": aug_cond["ae"]["per_step"][name],
+                                              "ldm_step": aug_cond["ldm"]["per_step"][name]},
+                        "step_ms_aug_cond": {"ae": aug_cond["ae"]["step"][name],
+                                             "ldm": aug_cond["ldm"]["step"][name]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

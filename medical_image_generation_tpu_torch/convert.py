@@ -5,8 +5,12 @@ mechanical: the path ``A/B/leaf`` becomes ``A.B.<leaf>`` and each leaf is
 re-laid-out for PyTorch:
 
 * conv ``kernel`` (*spatial, in, out)  -> ``weight`` (out, in, *spatial)
+* ``ConvTranspose_k`` ``kernel`` (*spatial, in, out) -> ``weight`` (in, out,
+  *spatial) flipped along every spatial axis: flax correlates the
+  zero-stuffed input with the kernel as it is, ``ConvTranspose{2,3}d`` with
+  the flipped kernel
 * Dense ``kernel`` (in, out)            -> ``weight`` (out, in)
-* GroupNorm ``scale``                   -> ``weight``
+* GroupNorm / LayerNorm ``scale``       -> ``weight``
 * Embed ``embedding``                   -> ``weight``
 * ``bias``                              -> ``bias``
 * VQ ``codebook``                       -> ``codebook`` (unchanged)
@@ -45,8 +49,12 @@ def migrate_groupnorm_params(tree):
     return rec(tree), n
 
 
-def _leaf(name: str, value) -> tuple:
+def _leaf(name: str, value, module: str = "") -> tuple:
     a = np.asarray(value, dtype=np.float32)
+    if name == "kernel" and module.startswith("ConvTranspose"):
+        nd = a.ndim - 2
+        return "weight", np.flip(np.transpose(a, (nd, nd + 1, *range(nd))),
+                                 axis=tuple(range(2, a.ndim)))
     if name == "kernel":
         if a.ndim == 2:
             return "weight", a.T
@@ -66,7 +74,7 @@ def flax_to_state_dict(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
         if isinstance(v, Mapping):
             out.update(flax_to_state_dict(v, f"{prefix}{k}."))
         else:
-            name, a = _leaf(k, v)
+            name, a = _leaf(k, v, prefix.rstrip(".").rsplit(".", 1)[-1])
             # C-contiguous and writeable (a copy only where the input is not)
             out[f"{prefix}{name}"] = torch.from_numpy(np.require(a, requirements=["C", "W"]))
     return out
@@ -74,7 +82,14 @@ def flax_to_state_dict(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def unet_from_flax(params) -> Dict[str, torch.Tensor]:
     """State dict of ``models.diffusion_unet.DiffusionUNet`` from the flax
-    ``DiffusionUNet`` params (legacy GroupNorm nesting migrated)."""
+    ``DiffusionUNet`` params (legacy GroupNorm nesting migrated). Under
+    ``with_conditioning`` the tree holds ``SpatialTransformer_k`` in place of
+    ``AttentionBlock_k``, each with ``GroupNorm_0``, the ``ConvND_0`` /
+    ``ConvND_1`` projections and ``TransformerBlock_j`` (``LayerNorm_0-2``,
+    ``CrossAttention_0-1`` with bias-free ``Dense_0-2`` and ``Dense_3``,
+    the GEGLU ``Dense_0-1``): the same mechanical mapping. The flax
+    ``DiffusionEncoder`` tree maps the same way onto
+    ``models.diffusion_unet.DiffusionEncoder``."""
     return flax_to_state_dict(migrate_groupnorm_params(dict(params))[0])
 
 

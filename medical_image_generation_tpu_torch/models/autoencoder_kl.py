@@ -170,9 +170,9 @@ class Decoder(nn.Module):
                     self.plan.append(f"AttentionBlock_{ab}")
                     ab += 1
             if level != len(channels) - 1:
-                stride = upsample_parameters[level][0]
+                stride, kernel, pad = upsample_parameters[level]
                 setattr(self, f"Upsample_{level}",
-                        Upsample(ch, stride, sd, use_convtranspose, **kw))
+                        Upsample(ch, stride, sd, use_convtranspose, kernel, pad, **kw))
                 self.plan.append(f"Upsample_{level}")
         self.GroupNorm_0 = GroupNorm(channels[-1], G, 1e-6, device)
         self.ConvND_1 = ConvND(channels[-1], out_channels, 3, 1, 1, sd, **kw)

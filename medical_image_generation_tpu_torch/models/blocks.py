@@ -20,8 +20,8 @@ compute the same math:
 * the virtual-concat pair path of ``ConvND`` / ``GroupNorm`` / ``ResBlock``
   (``blocks.py:60-94``, ``:127-184``): the U-Net up path concatenates
   (``torch.cat``) and runs one ResBlock on the result;
-* the subpixel / transposed-conv form of ``Upsample`` (``:294-402``): here it
-  is nearest x stride followed by the 3^n conv.
+* the subpixel / transposed-conv form of the nearest + conv ``Upsample``
+  (``:294-402``): here it is nearest x stride followed by the 3^n conv.
 """
 
 from __future__ import annotations
@@ -52,8 +52,9 @@ class Linear(nn.Linear):
     in ``dtype``."""
 
     def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
-                 param_dtype=None, device=None):
-        super().__init__(in_features, out_features, dtype=param_dtype or dtype, device=device)
+                 param_dtype=None, device=None, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias, dtype=param_dtype or dtype,
+                         device=device)
         self.compute_dtype = dtype
 
     def forward(self, x):
@@ -179,24 +180,50 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest-neighbour upsample by per-axis stride, then a SAME 3^n conv.
+    """Nearest-neighbour upsample by per-axis stride, then a SAME 3^n conv;
+    or, with ``use_convtranspose``, a learned transposed conv
+    (``ConvTranspose_0``) of the level's kernel size and padding.
 
-    The JAX module executes this pair as a subpixel-decomposed transposed
-    conv (``upsample_subpixel``), a TPU strategy that is equal in real
-    arithmetic to the two steps written here. The learned transposed-conv
-    variant (``use_convtranspose``) is not ported yet."""
+    The JAX module executes the nearest + conv pair as a subpixel-decomposed
+    transposed conv (``upsample_subpixel``), a TPU strategy that is equal in
+    real arithmetic to the two steps written here.
+
+    The transposed conv (JAX ``blocks.py:425-433``, flax ``nn.ConvTranspose``
+    with ``transpose_kernel=False``) correlates the zero-stuffed input with
+    the kernel as it is. Here it is ``ConvTranspose{2,3}d`` on the kernel
+    flipped along every spatial axis with its channel axes swapped (the
+    converter re-lays the flax kernel so), with padding p and output padding
+    s - 1: that pads the zero-stuffed input by k - 1 - p low and k - 1 - p +
+    s - 1 high, so a level gives s * n voxels, as the reference (MONAI's
+    transposed-conv ``Upsample``) does. The JAX module passes the padding
+    pair (p, p) to flax, which pads the stuffed input by p on each side and
+    gives s * n - s + 1 voxels (2n - 1 at k 3, s 2, p 1); the port's first
+    s * n - s + 1 outputs an axis are those voxels."""
 
     def __init__(self, channels: int, stride, spatial_dims: int = 3,
-                 use_convtranspose: bool = False, dtype=torch.float32, param_dtype=None,
-                 device=None):
+                 use_convtranspose: bool = False, kernel_size=3, padding=1,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        if use_convtranspose:
-            raise NotImplementedError("use_convtranspose=True is not ported yet")
         self.stride = _per_axis(stride, spatial_dims)
-        self.ConvND_0 = ConvND(channels, channels, 3, 1, 1, spatial_dims, dtype=dtype,
-                               param_dtype=param_dtype, device=device)
+        self.dtype = dtype
+        if use_convtranspose:
+            conv = nn.ConvTranspose3d if spatial_dims == 3 else nn.ConvTranspose2d
+            self.ConvTranspose_0 = conv(
+                channels, channels, _per_axis(kernel_size, spatial_dims), stride=self.stride,
+                padding=_per_axis(padding, spatial_dims),
+                output_padding=tuple(s - 1 for s in self.stride),
+                dtype=param_dtype or dtype, device=device)
+        else:
+            self.ConvND_0 = ConvND(channels, channels, 3, 1, 1, spatial_dims, dtype=dtype,
+                                   param_dtype=param_dtype, device=device)
 
     def forward(self, x):
+        if hasattr(self, "ConvTranspose_0"):
+            c = self.ConvTranspose_0
+            fn = F.conv_transpose3d if x.dim() == 5 else F.conv_transpose2d
+            y = fn(x, _cast(c.weight, self.dtype), _cast(c.bias, self.dtype), c.stride,
+                   c.padding, c.output_padding)
+            return y.contiguous(memory_format=channels_last_format(y))
         if any(s > 1 for s in self.stride):
             x = F.interpolate(x, scale_factor=self.stride, mode="nearest")
             x = x.contiguous(memory_format=channels_last_format(x))

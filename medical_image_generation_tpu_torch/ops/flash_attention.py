@@ -15,7 +15,10 @@ projection) as long as the head and head-dim axes are packed (strides D and
 q, k, v, o and lse, and the backward is ``flash_attention_bwd``.
 
 The plain versions also take a subset of query rows as they are (q may
-have fewer rows than k and v). ``flash_lse_plain_chunked`` and
+have fewer rows than k and v), so on the CPU ``flash_attention`` takes k and
+v of another sequence length than q (a cross-attention context); on the
+card, where the kernels take one length for q, k and v, that raises
+``NotImplementedError``. ``flash_lse_plain_chunked`` and
 ``flash_bwd_dkdv_plain_chunked`` compute the same math a chunk of query rows
 at a time, for sequences whose S x S matrix cannot be held.
 
@@ -132,10 +135,16 @@ def flash_bwd_dkdv_plain_chunked(q, k, v, do, lse, delta, scale: float, keys,
 
 
 def _check(q, k, v):
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q/k/v must share one BSHD shape, got {q.shape}, {k.shape}, {v.shape}")
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or (q.shape[0], *q.shape[2:]) != (k.shape[0], *k.shape[2:])):
+        raise ValueError(f"q/k/v must be BSHD with one B, H and D (and k, v one shape), got "
+                         f"{q.shape}, {k.shape}, {v.shape}")
     if not (q.device == k.device == v.device) or not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q/k/v must share device and dtype")
+    if q.shape[1] != k.shape[1] and q.device.type != "cpu":
+        raise NotImplementedError(
+            f"the flash kernels take one sequence length for q, k and v; keys and values of "
+            f"{k.shape[1]} tokens against {q.shape[1]} queries run only on the CPU")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got {q.dtype}")
     if q.device.type not in ("cpu", "cuda"):

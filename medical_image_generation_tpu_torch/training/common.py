@@ -58,7 +58,6 @@ from medical_image_generation_tpu_torch.data.augment import (
     AugmentConfig,
     AugmentDraws,
     augment_batch,
-    check_ported,
     make_draws,
 )
 from medical_image_generation_tpu_torch.data.loader import unpack_batch
@@ -413,7 +412,6 @@ class DiffusionTrainer:
         self.clip = float(config.get("grad_clip_max_norm", 1.0))
         self.aug_cfg = AugmentConfig.from_transformations(
             config.get("ddpm_transformations", {}), spatial_dims=spatial_dims)
-        check_ported(self.aug_cfg, spatial_dims)
         self.params = [p for p in self.unet.parameters() if p.requires_grad]
         self.param_names = [n for n, p in self.unet.named_parameters() if p.requires_grad]
         self.grad_accum = int(config.get("grad_accumulate_step", 1))
@@ -459,7 +457,8 @@ class DiffusionTrainer:
         gen = generator or self.generator
         host = host_generator or self.host_generator
         return TrainDraws(
-            augment=make_draws(self.aug_cfg, B, batch.shape[-1], batch.dim() - 2, host),
+            augment=make_draws(self.aug_cfg, B, batch.shape[-1], batch.dim() - 2, host, gen,
+                               tuple(batch.shape[1:-1])),
             eps=(torch.randn(shape, device=self.device, generator=gen)
                  if self.posterior_eps else None),
             t=torch.randint(0, self.schedule.num_train_timesteps, (B,), generator=host),

@@ -68,7 +68,6 @@ from medical_image_generation_tpu_torch.data.augment import (
     AugmentConfig,
     AugmentDraws,
     augment_batch,
-    check_ported,
     make_draws,
 )
 from medical_image_generation_tpu_torch.data.loader import get_data_loaders
@@ -129,7 +128,6 @@ class AutoEncoderTrainer:
         self.clip = float(config.get("grad_clip_max_norm", 1.0))
         self.aug_cfg = AugmentConfig.from_transformations(
             config.get("ae_transformations", {}), spatial_dims=self.spatial_dims)
-        check_ported(self.aug_cfg, self.spatial_dims)
 
         self.g_names = [n for n, p in model.named_parameters() if p.requires_grad]
         self.g_params = [p for p in model.parameters() if p.requires_grad]
@@ -199,12 +197,12 @@ class AutoEncoderTrainer:
     def make_draws(self, batch, generator: Optional[torch.Generator] = None,
                    host_generator: Optional[torch.Generator] = None) -> AEDraws:
         host = host_generator or self.host_generator
+        gen = generator or self.generator
         eps = None
         if self.latent_space_type == "vae":
-            eps = torch.randn(self.latent_shape_of(batch), device=self.device,
-                              generator=generator or self.generator)
+            eps = torch.randn(self.latent_shape_of(batch), device=self.device, generator=gen)
         return AEDraws(make_draws(self.aug_cfg, batch.shape[0], batch.shape[-1],
-                                  batch.dim() - 2, host), eps)
+                                  batch.dim() - 2, host, gen, tuple(batch.shape[1:-1])), eps)
 
     def _g_loss(self, imgs, eps, adv_on: bool):
         if self.latent_space_type == "vae":

@@ -32,7 +32,7 @@ from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer, Tr
 from test_torch_augment import AUG_TOL, jax_draws
 from test_torch_autoencoder import OUT_TOL, grad_close
 from test_torch_train_ae import check_first_adam_update, check_mu, jax_and_port, jax_mu
-from torch_parity import nd, rand_params, tiny_unet_pair, tiny_vae_pair
+from torch_parity import init_shapes, nd, rand_params, tiny_unet_pair, tiny_vae_pair
 
 LR = 2e-5
 
@@ -126,7 +126,7 @@ def test_2d_discriminator_matches_jax():
     p = dict(config_2d()["discriminator_params"], num_channels=8)
     jm = jdisc.PatchDiscriminator.from_config(p, dtype=jnp.float32)
     x = np.random.default_rng(209).uniform(0, 1, (2, 32, 32, 1)).astype(np.float32)
-    params = rand_params(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 210)
+    params = rand_params(init_shapes(jm, jax.random.PRNGKey(0), jnp.asarray(x)), 210)
     tm = tdisc.PatchDiscriminator.from_config(p, dtype=torch.float32, device="cpu")
     tm.load_state_dict(convert.vae_from_flax(params))
 

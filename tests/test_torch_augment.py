@@ -24,8 +24,10 @@ from medical_image_generation_tpu_torch.planning import planner as tplanner
 AUG_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def jax_draws(rng, batch: int, channels: int, cfg) -> taug.AugmentDraws:
-    """The draws ``_augment_one`` makes from ``rng`` (augment.py:369-510)."""
+def jax_draws(rng, batch: int, channels: int, cfg, n_spatial: int = 3) -> taug.AugmentDraws:
+    """The draws ``_augment_one`` makes from ``rng`` (augment.py:369-510),
+    those of the optional transforms where ``cfg`` switches them on (the
+    noise field at ``cfg.crop_to``)."""
     keys = [jax.random.split(k, 22) for k in jax.random.split(rng, batch)]
 
     def stack(fn):
@@ -37,7 +39,30 @@ def jax_draws(rng, batch: int, channels: int, cfg) -> taug.AugmentDraws:
     rr = float(cfg.rot_range)
     n_axes = len(cfg.mirror_axes) if cfg.mirror_axes is not None else 1
     rot = cfg.rotation and cfg.rot_range > 0
-    return taug.AugmentDraws(
+    extra = {}
+    if cfg.rot_3d and n_spatial == 3 and not cfg.dummy_2d:
+        extra.update(angles3=stack(lambda k: u(k[20], 3, lo=-rr, hi=rr)))
+    if cfg.gaussian_noise:
+        extra.update(noise_on=stack(lambda k: u(k[5]) < jaug.P_NOISE),
+                     noise_var=stack(lambda k: u(k[6], hi=0.1)),
+                     noise=stack(lambda k: jax.random.normal(k[7], (*cfg.crop_to, channels))))
+    if cfg.elastic:
+        extra.update(elastic_on=stack(lambda k: u(k[16]) < jaug.P_ELASTIC),
+                     elastic_mag=stack(lambda k: u(jax.random.split(k[17])[0],
+                                                   hi=jaug.ELASTIC_MAX_FRAC)),
+                     elastic_field=stack(lambda k: jax.random.normal(
+                         jax.random.split(k[17])[1], (2, 4, 4), jnp.float32)))
+    if cfg.gaussian_blur:
+        extra.update(blur_on=stack(lambda k: u(k[8]) < jaug.P_BLUR),
+                     blur_sigma=stack(lambda k: u(k[9], lo=0.5, hi=1.0)))
+    if cfg.low_resolution:
+        extra.update(lowres_on=stack(lambda k: u(k[18]) < jaug.P_LOWRES),
+                     lowres_scale=stack(lambda k: u(jax.random.split(k[19])[0], channels,
+                                                    lo=jaug.LOWRES_SCALE[0],
+                                                    hi=jaug.LOWRES_SCALE[1])),
+                     lowres_chan_on=stack(lambda k: u(jax.random.split(k[19])[1],
+                                                      channels) < 0.5))
+    return taug.AugmentDraws(**extra,
         rot_on=stack(lambda k: u(k[0]) < jaug.P_ROT if rot else jnp.array(False)),
         scale_on=stack(lambda k: u(k[1]) < jaug.P_SCALE if cfg.scaling else jnp.array(False)),
         angle=stack(lambda k: u(k[2], lo=-rr, hi=rr)),
@@ -128,16 +153,151 @@ def test_config_and_geometry_copies_equal_jax():
     assert tpatches.spatial_aug_params(nn) == jpatches.spatial_aug_params(nn)
 
 
-def test_unported_transforms_raise_and_draws_have_the_jax_distributions():
+ALL_ON = dict(gaussian_noise=True, gaussian_blur=True, low_resolution=True, elastic=True)
+
+
+def test_draws_have_the_jax_distributions_and_bad_presets_raise():
+    """``make_draws`` with every transform on: the coins' rates, the value
+    ranges, the fields' shapes and devices (the scalars from the host
+    generator, the fields from ``field_generator``); the draws of a
+    transform left off are None. An unknown ``aug_preset`` still raises."""
     x = torch.rand((2, 8, 10, 10, 1))
     cfg = taug.AugmentConfig(crop_to=(8, 8, 8))
     d = taug.make_draws(cfg, 2, 1, 3, torch.Generator().manual_seed(0))
     assert d.bright.shape == (2, 1) and d.flips.shape == (2, 1)
+    assert d.noise is None and d.angles3 is None and d.lowres_scale is None
     assert taug.augment_batch(x, d, cfg).shape == (2, 8, 8, 8, 1)
-    for bad in (dict(gaussian_noise=True), dict(gaussian_blur=True), dict(elastic=True),
-                dict(low_resolution=True), dict(rot_3d=True)):
-        with pytest.raises(NotImplementedError):
-            taug.augment_batch(x, d, replace(cfg, **bad))
-    many = taug.make_draws(cfg, 20000, 1, 3, torch.Generator().manual_seed(1))
-    assert abs(many.scale_on.float().mean().item() - taug.P_SCALE) < 0.02
-    assert 0.9 <= many.scale.min().item() and many.scale.max().item() <= 1.1
+    on = replace(cfg, rot_3d=True, **ALL_ON)
+    host, field = torch.Generator().manual_seed(1), torch.Generator().manual_seed(2)
+    many = taug.make_draws(on, 20000, 2, 3, host, field)
+    for coin, p in (("scale_on", taug.P_SCALE), ("noise_on", taug.P_NOISE),
+                    ("elastic_on", taug.P_ELASTIC), ("blur_on", taug.P_BLUR),
+                    ("lowres_on", taug.P_LOWRES), ("lowres_chan_on", 0.5)):
+        assert abs(getattr(many, coin).float().mean().item() - p) < 0.02, coin
+    for name, (lo, hi) in (("scale", (0.9, 1.1)), ("noise_var", (0.0, 0.1)),
+                           ("elastic_mag", (0.0, taug.ELASTIC_MAX_FRAC)),
+                           ("blur_sigma", (0.5, 1.0)), ("lowres_scale", taug.LOWRES_SCALE),
+                           ("angles3", (-on.rot_range, on.rot_range))):
+        v = getattr(many, name)
+        assert lo <= v.min().item() and v.max().item() <= hi, name
+        assert abs(v.mean().item() - (lo + hi) / 2) < 0.02 * (hi - lo), name
+    assert many.noise.shape == (20000, 8, 8, 8, 2) and many.lowres_scale.shape == (20000, 2)
+    assert many.elastic_field.shape == (20000, 2, 4, 4) and many.angles3.shape == (20000, 3)
+    for field_draw in (many.noise, many.elastic_field):
+        assert abs(field_draw.mean().item()) < 0.01 and abs(field_draw.std().item() - 1) < 0.01
+    # the fields come from field_generator alone: the host draws do not move
+    again = taug.make_draws(on, 20000, 2, 3, torch.Generator().manual_seed(1),
+                            torch.Generator().manual_seed(3))
+    assert torch.equal(again.noise_var, many.noise_var)
+    assert not torch.equal(again.noise, many.noise)
+    assert taug.augment_batch(x, taug.make_draws(on, 2, 1, 3, host, field), on).shape == \
+        (2, 8, 8, 8, 1)
+    with pytest.raises(ValueError, match="crop_to"):
+        taug.make_draws(replace(on, crop_to=None), 2, 1, 3, host)
+    bogus = dict(_flagship_transformations()["ae_transformations"], aug_preset="bogus")
+    with pytest.raises(ValueError, match="aug_preset"):
+        taug.AugmentConfig.from_transformations(bogus, spatial_dims=3)
+
+
+def _u(key, *shape, lo=0.0, hi=1.0):
+    return np.array(jax.random.uniform(key, shape, minval=lo, maxval=hi))
+
+
+@pytest.mark.parametrize("transform", ["rot_3d", "elastic", "blur", "lowres", "lowres_dummy_2d"])
+def test_new_transforms_match_their_jax_functions(transform):
+    """Each optional transform against its JAX private function on the same
+    draws: ``_rotate_scale_3d`` (an enlarged input onto a smaller grid),
+    ``_elastic_plane``, ``_blur5``, ``_simulate_lowres`` with and without
+    ``dummy_2d`` (z left alone)."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(0, 1, (11, 14, 13, 2)).astype(np.float32)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    key = jax.random.PRNGKey(11)  # low resolution: channel 1 on, channel 0 off
+    if transform == "rot_3d":
+        angles = _u(key, 3, lo=-0.52, hi=0.52)
+        ref = jaug._rotate_scale_3d(xj, jnp.asarray(angles), jnp.float32(1.13), (8, 9, 10))
+        got = taug._rotate_scale_3d(xt, torch.from_numpy(angles), float(np.float32(1.13)),
+                                    (8, 9, 10))
+    elif transform == "elastic":
+        k_mag, k_field = jax.random.split(key)
+        mag = _u(k_mag, hi=jaug.ELASTIC_MAX_FRAC)
+        field = np.array(jax.random.normal(k_field, (2, 4, 4), jnp.float32))
+        ref = jaug._elastic_plane(xj, key)
+        got = taug._elastic_plane(xt, float(mag), torch.from_numpy(field))
+    elif transform == "blur":
+        sigma = _u(key, lo=0.5, hi=1.0)
+        ref = jaug._blur5(xj, jnp.asarray(sigma))
+        got = taug._blur5(xt, float(sigma))
+    else:
+        k_s, k_on = jax.random.split(key)
+        dummy = transform == "lowres_dummy_2d"
+        ref = jaug._simulate_lowres(xj, key, dummy)
+        got = taug._simulate_lowres(xt, torch.from_numpy(_u(k_s, 2, lo=0.5, hi=1.0)),
+                                    torch.from_numpy(_u(k_on, 2) < 0.5), dummy)
+    assert got.shape == ref.shape
+    assert not np.allclose(np.asarray(ref), x[tuple(slice(n) for n in ref.shape)])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **AUG_TOL)
+
+
+@pytest.mark.parametrize("hw", [(13, 29), (32, 7)])
+def test_elastic_upsample_matches_jax_image_resize(hw):
+    """The coarse field's bilinear upsample against ``jax.image.resize``
+    itself, at H != W, the edge rows and columns included."""
+    field = np.random.default_rng(9).standard_normal((4, 4)).astype(np.float32)
+    ref = np.asarray(jax.image.resize(jnp.asarray(field), hw, "bilinear"))
+    got = taug.resize_bilinear(torch.from_numpy(field), hw).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[[0, -1]], ref[[0, -1]], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[:, [0, -1]], ref[:, [0, -1]], rtol=1e-6, atol=1e-6)
+
+
+def test_lowres_rounds_half_to_even_as_jnp_round():
+    """At scale 0.5 every source position (j + 0.5) / s - 0.5 = 2j + 0.5 is
+    an exact half: ``jnp.round`` and the port both round it to even."""
+    x = np.random.default_rng(10).uniform(0, 1, (9, 6)).astype(np.float32)
+    for ax in (0, 1):
+        ref = np.asarray(jaug._axis_lowres(jnp.asarray(x), jnp.float32(0.5), ax))
+        np.testing.assert_array_equal(taug._axis_lowres(torch.from_numpy(x), 0.5, ax).numpy(),
+                                      ref)
+    assert torch.round(torch.tensor([0.5, 1.5, 2.5])).tolist() == [0.0, 2.0, 2.0]
+
+
+NNUNET_BATCH = 8
+
+
+def _nnunet(spatial_dims):
+    patch = [12, 14, 13] if spatial_dims == 3 else [20, 18]
+    t = dict(_flagship_transformations()["ae_transformations"], aug_preset="nnunet",
+             patch_size=patch, **ALL_ON)
+    j = jaug.AugmentConfig.from_transformations(t, spatial_dims=spatial_dims)
+    return t, j, taug.AugmentConfig.from_transformations(t, spatial_dims=spatial_dims)
+
+
+def _all_coins_on(d, batch):
+    coins = [d.rot_on, d.scale_on, d.noise_on, d.elastic_on, d.blur_on, d.bright_on,
+             d.contrast_on, d.gamma_on, d.lowres_on & d.lowres_chan_on.any(-1)]
+    return all(bool(c[:batch].any()) for c in coins)
+
+
+# seeds at which, over a batch of 8, every coin (rotation, scale, noise,
+# elastic, blur, low resolution with a channel on, brightness, contrast,
+# gamma) is on for at least one sample
+@pytest.mark.parametrize("spatial_dims,seed", [(3, 6), (2, 7)])
+def test_nnunet_augment_batch_with_every_transform_matches_jax(spatial_dims, seed):
+    """The whole ``augment_batch`` under the nnunet preset with noise,
+    elastic, blur and low resolution on (3D: rotation about all three axes
+    from the enlarged initial patch; 2D: in-plane), against the JAX
+    ``augment_batch`` fed the same keys."""
+    t, jcfg, tcfg = _nnunet(spatial_dims)
+    assert jcfg.rot_3d == (spatial_dims == 3) and {f: getattr(tcfg, f) for f in jcfg._fields} \
+        == jcfg._asdict()
+    B, C = NNUNET_BATCH, 2
+    initial = tpatches.compute_initial_patch_size(t)[-spatial_dims:]
+    x = np.random.default_rng(seed).uniform(0, 1, (B, *initial, C)).astype(np.float32)
+    rng = jax.random.PRNGKey(200 + seed)
+    draws = jax_draws(rng, B, C, jcfg, spatial_dims)
+    assert _all_coins_on(draws, B)
+    ref = np.asarray(jaug.augment_batch(jnp.asarray(x), rng, jcfg))
+    got = taug.augment_batch(torch.from_numpy(x), draws, tcfg).numpy()
+    assert got.shape == ref.shape == (B, *t["patch_size"], C)
+    np.testing.assert_allclose(got, ref, **AUG_TOL)

@@ -25,7 +25,7 @@ from medical_image_generation_tpu_torch.models.blocks import ResBlock
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
 from medical_image_generation_tpu_torch.planning.planner import flagship_configs
 from medical_image_generation_tpu_torch.training import common as tcommon
-from torch_parity import nd, rand_params, tiny_vae_pair
+from torch_parity import init_shapes, nd, rand_params, tiny_vae_pair
 
 # fp32 on both sides: convolutions and reductions summed in another order
 OUT_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -50,7 +50,7 @@ def disc_pair(num_channels=8, seed=0):
     p = {"spatial_dims": 3, "in_channels": 1, "out_channels": 1,
          "num_channels": num_channels, "num_layers_d": 3}
     jm = jdisc.PatchDiscriminator.from_config(p, dtype=jnp.float32)
-    params = rand_params(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 32, 1)))["params"],
+    params = rand_params(init_shapes(jm, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 32, 1))),
                          seed)
     tm = tdisc.PatchDiscriminator.from_config(p, dtype=torch.float32, device="cpu")
     tm.load_state_dict(convert.vae_from_flax(params))
@@ -71,7 +71,7 @@ def vq_pair(seed=5):
     """(flax VQVAE, flax params, port VQVAE, vae_params) of the tiny config."""
     vae_p, _, image = flagship_configs(tiny=True)
     jm = JVQVAE.from_config(vae_p, dtype=jnp.float32)
-    params = rand_params(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, *image, 1)))["params"],
+    params = rand_params(init_shapes(jm, jax.random.PRNGKey(0), jnp.zeros((1, *image, 1))),
                          seed)
     tm = VQVAE.from_config(vae_p, dtype=torch.float32, device="cpu")
     tm.load_state_dict(convert.vae_from_flax(params))

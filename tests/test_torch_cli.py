@@ -406,18 +406,22 @@ def test_cli_trains_resumes_bit_for_bit_and_continues(cli_env, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,err", [
-    (["--set", "ddpm_transformations.gaussian_noise=true"], NotImplementedError),
-    (["--set", "ddpm_transformations.gaussian_blur=true"], NotImplementedError),
-    (["--set", "ddpm_transformations.elastic=true"], NotImplementedError),
+    (["--set", "ddpm_transformations.aug_preset=bogus"], (ValueError, "aug_preset")),
+    (["--set", "ddpm_params.with_conditioning=true"], (KeyError, "with_conditioning")),
+    (["--set", "vae_params.use_convtranspose=true"], (RuntimeError, "ConvTranspose_0")),
     (["--set", "vae_params.num_res_blockz=2"], KeyError),
     (["--set", "latent_space_type=vq"], ValueError),
 ])
 def test_cli_refuses_before_the_first_step(cli_env, monkeypatch, extra, err):
-    """What the port cannot do, or a config that disagrees with itself,
-    raises at start-up: no train step runs and no checkpoint is written."""
+    """A config that disagrees with itself raises at start-up: no train
+    step runs and no checkpoint is written. An unknown augmentation preset;
+    ``with_conditioning``, which the planner's ddpm_params lacks (``--set``
+    changes only keys the YAML holds: write it there first); a transposed-
+    conv decoder that the autoencoder's checkpoint was not trained with."""
     monkeypatch.setattr(LDMTrainer, "train_step",
                         lambda *a, **k: pytest.fail("a train step ran"))
-    with pytest.raises(err):
+    err, match = err if isinstance(err, tuple) else (err, None)
+    with pytest.raises(err, match=match):
         train_ldm.run_cli(cli_env + extra)
     assert not os.path.exists(os.path.join(os.environ["medimgen_results"], "Task099_Synth",
                                            "3d", "ldm", "checkpoints", "last_model.pt"))

@@ -174,7 +174,7 @@ def test_vq_autoencoder_then_ldm_vq(ae_env, tmp_path):
 @pytest.mark.parametrize("extra,err", [
     (["--set", "vae_params.use_checkpointing=true", "--set", "vae_params.remat_policy=bogus"],
      ValueError),
-    (["--set", "ae_transformations.elastic=true"], NotImplementedError),
+    (["--set", "ae_transformations.aug_preset=bogus"], ValueError),
     (["--set", "latent_space_type=vq"], ValueError),
     (["--set", "vae_params.num_res_blockz=2"], KeyError),
 ])

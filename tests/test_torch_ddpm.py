@@ -38,7 +38,7 @@ from medical_image_generation_tpu_torch.training import train_ddpm
 from medical_image_generation_tpu_torch.training.common import TrainDraws
 from medical_image_generation_tpu_torch.training.train_ddpm import DDPMTrainer
 from test_torch_augment import jax_draws
-from torch_parity import rand_params
+from torch_parity import init_shapes, rand_params
 
 LR = 2e-5
 # fp32 on the CPU, as tests/test_torch_sampling.py holds the LDM sampler: a
@@ -64,8 +64,9 @@ def _pair(cfg, tmp_path, seed):
     jcfg = dict(cfg, results_path=str(tmp_path / "jax_run"))
     jt = JDDPMTrainer(jcfg, dtype=jnp.float32, mesh=get_mesh(n_devices=1))
     kw = {"class_labels": jnp.zeros((1,), jnp.int32)} if jt.class_cond else {}
-    params = rand_params(jt.unet.init(jax.random.PRNGKey(0), jnp.zeros((1,) + jt.image_shape),
-                                      jnp.zeros((1,), jnp.int32), **kw)["params"], seed)
+    params = rand_params(init_shapes(jt.unet, jax.random.PRNGKey(0),
+                                     jnp.zeros((1,) + jt.image_shape),
+                                     jnp.zeros((1,), jnp.int32), **kw), seed)
     unet_params, _ = tsample.ddpm_unet_params(cfg)
     unet = DiffusionUNet.from_config(unet_params, dtype=torch.float32, device="cpu")
     unet.load_state_dict(convert.unet_from_flax(params))

@@ -23,7 +23,7 @@ from medical_image_generation_tpu_torch.eval import features as tfeat
 from medical_image_generation_tpu_torch.eval import fid as tfid
 from medical_image_generation_tpu_torch.eval import mmd as tmmd
 from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer
-from torch_parity import rand_params
+from torch_parity import init_shapes, rand_params
 
 jssim = importlib.import_module("medical_image_generation_tpu.eval.ssim")
 tssim = importlib.import_module("medical_image_generation_tpu_torch.eval.ssim")
@@ -105,7 +105,7 @@ def _jax_features(sd, frozen, seed):
     jm = jfeat.ResNet50Features(spatial_dims=sd, stages=stages, frozen_bn=frozen,
                                 dtype=jnp.float32)
     x0 = jnp.zeros((1,) + (16,) * sd + ((3,) if sd == 2 else (1,)))
-    params = rand_params(jm.init(jax.random.PRNGKey(0), x0)["params"], seed)
+    params = rand_params(init_shapes(jm, jax.random.PRNGKey(0), x0), seed)
 
     def fix(path, v):
         return np.abs(v) + 0.5 if path[-1].key == "var" else v

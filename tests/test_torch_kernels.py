@@ -467,3 +467,18 @@ def test_flash_kernels_at_ddpm_lengths_match_the_chunked_references_on_gpu(cuda,
     _close(dq[:, rows], r_dq, rt, at)
     _close(dk[:, rows], r_dk, rt, at)
     _close(dv[:, rows], r_dv, rt, at)
+
+
+@pytest.mark.cuda
+def test_flash_refuses_keys_of_another_length_on_gpu(cuda, monkeypatch):
+    """k / v of 7 tokens against 64 queries (a cross-attention context) raise
+    NotImplementedError on the card, before any launch; the plain version,
+    which takes them on the CPU, does not run in the kernels' place."""
+    q = torch.randn((2, 64, 2, 8), device=cuda)
+    k, v = (torch.randn((2, 7, 2, 8), device=cuda) for _ in range(2))
+    monkeypatch.setattr(tfa, "flash_attention_plain",
+                        lambda *a, **kw: pytest.fail("the plain attention ran on the card"))
+    before = tfa.flash_attention.launches
+    with pytest.raises(NotImplementedError, match="one sequence length"):
+        tfa.flash_attention(q, k, v, 8 ** -0.5)
+    assert tfa.flash_attention.launches == before

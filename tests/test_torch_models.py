@@ -15,7 +15,15 @@ from medical_image_generation_tpu_torch.models import blocks as tblocks
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
 from medical_image_generation_tpu_torch.planning.planner import flagship_configs
-from torch_parity import internal, nd, public, rand_params, tiny_unet_pair, tiny_vae_pair
+from torch_parity import (
+    init_shapes,
+    internal,
+    nd,
+    public,
+    rand_params,
+    tiny_unet_pair,
+    tiny_vae_pair,
+)
 
 # fp32 on the CPU, summation order only (convs, matmuls and GroupNorm sums
 # reduce in another order than XLA)
@@ -36,7 +44,7 @@ def test_resblock_matches_flax(cin, cout, temb, skip):
     jmod = jblocks.ResBlock(cout, 4, 1e-6, 3, dtype=jnp.float32)
     args = [jnp.asarray(x), None if t is None else jnp.asarray(t),
             None if s is None else jnp.asarray(s)]
-    params = rand_params(jmod.init(jax.random.PRNGKey(0), *args)["params"], 3)
+    params = rand_params(init_shapes(jmod, jax.random.PRNGKey(0), *args), 3)
     ref = np.asarray(jmod.apply({"params": params}, *args))
     tmod = _load(tblocks.ResBlock(cin + skip, cout, 4, 1e-6, 3, 12 if temb else None), params)
     h = internal(x) if s is None else torch.cat([internal(x), internal(s)], dim=1)
@@ -49,7 +57,7 @@ def test_resblock_matches_flax(cin, cout, temb, skip):
 def test_attention_block_matches_flax(head_ch):
     x = nd((2, 4, 4, 2, 16), 4)
     jmod = jblocks.AttentionBlock(head_ch, 4, dtype=jnp.float32)
-    params = rand_params(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 5)
+    params = rand_params(init_shapes(jmod, jax.random.PRNGKey(0), jnp.asarray(x)), 5)
     ref = np.asarray(jmod.apply({"params": params}, jnp.asarray(x)))
     tmod = _load(tblocks.AttentionBlock(16, head_ch, 4), params)
     with torch.no_grad():
@@ -118,22 +126,24 @@ def test_flagship_unet_geometry():
 
 
 @pytest.mark.parametrize("extra", [{}, {"cross_attention_dim": 32, "transformer_num_layers": 2}])
-def test_unet_from_config_raises_on_with_conditioning(extra):
+def test_unet_from_config_with_conditioning_builds_the_flax_tree(extra):
     """Under with_conditioning the JAX U-Net puts a SpatialTransformer at
-    every attention site; the port has none, so from_config raises rather
-    than build another network. Without it, the two transformer options
-    change nothing: the port's parameters match the flax tree's."""
+    every attention site, and so does the port: with and without it, the
+    port's parameters are the flax tree's (the trainers initialise flax
+    without a context, so ``cross_attention_dim`` sizes nothing in either
+    package; ``transformer_num_layers`` stacks TransformerBlocks)."""
     _, ddpm_p, _ = flagship_configs(tiny=True)
-    with pytest.raises(NotImplementedError, match="with_conditioning"):
-        DiffusionUNet.from_config(dict(ddpm_p, with_conditioning=True, **extra),
-                                  dtype=torch.float32, device="cpu")
-    cfg = dict(ddpm_p, with_conditioning=False, **extra)
-    tm = DiffusionUNet.from_config(cfg, dtype=torch.float32, device="meta")
-    jm = JDiffusionUNet.from_config(cfg, dtype=jnp.float32)
     x = jnp.zeros((1, 16, 16, 16, ddpm_p["in_channels"]))
-    tree = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x,
-                                          jnp.zeros((1,), jnp.int32))["params"])
-    ref = convert.unet_from_flax(jax.tree_util.tree_map(
-        lambda a: np.zeros(a.shape, np.float32), tree))
-    assert {k: tuple(v.shape) for k, v in ref.items()} == \
-        {k: tuple(v.shape) for k, v in tm.state_dict().items()}
+    for cond in (True, False):
+        cfg = dict(ddpm_p, with_conditioning=cond, **extra)
+        tm = DiffusionUNet.from_config(cfg, dtype=torch.float32, device="meta")
+        jm = JDiffusionUNet.from_config(cfg, dtype=jnp.float32)
+        tree = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x,
+                                              jnp.zeros((1,), jnp.int32))["params"])
+        ref = convert.unet_from_flax(jax.tree_util.tree_map(
+            lambda a: np.zeros(a.shape, np.float32), tree))
+        assert {k: tuple(v.shape) for k, v in ref.items()} == \
+            {k: tuple(v.shape) for k, v in tm.state_dict().items()}
+        layers = {k.split(".")[1] for k in ref if k.startswith("SpatialTransformer_0.")
+                  and k.split(".")[1].startswith("TransformerBlock_")}
+        assert len(layers) == (extra.get("transformer_num_layers", 1) if cond else 0)

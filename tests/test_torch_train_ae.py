@@ -37,7 +37,7 @@ from medical_image_generation_tpu_torch.training.train_autoencoder import (
 )
 from test_torch_augment import jax_draws
 from test_torch_training import _config
-from torch_parity import rand_params
+from torch_parity import init_shapes, rand_params
 
 LR = 5e-5
 
@@ -62,14 +62,14 @@ def jax_and_port(cfg, latent, seed):
     k0, k1 = jax.random.PRNGKey(0), jax.random.PRNGKey(1)
     if latent == "vae":
         jm = JAutoencoderKL.from_config(cfg["vae_params"], dtype=jnp.float32)
-        gp = rand_params(jm.init({"params": k0}, x0, k1)["params"], seed)
+        gp = rand_params(init_shapes(jm, {"params": k0}, x0, k1), seed)
         g_sd = convert.vae_from_flax(gp)
     else:
         jm = JVQVAE.from_config(cfg["vae_params"], dtype=jnp.float32)
-        gp = rand_params(jm.init({"params": k0}, x0)["params"], seed)
+        gp = rand_params(init_shapes(jm, {"params": k0}, x0), seed)
         g_sd = convert.vae_from_flax(gp)
     jd = JDisc.from_config(cfg["discriminator_params"], dtype=jnp.float32)
-    dp = rand_params(jd.init(k1, x0)["params"], seed + 1)
+    dp = rand_params(init_shapes(jd, k1, x0), seed + 1)
     jp = JPerceptual.from_config(cfg["perceptual_params"], dtype=jnp.float32)
 
     tr = object.__new__(jtrain_ae.AutoEncoderTrainer)
@@ -177,6 +177,47 @@ def test_train_step_matches_jax_make_train_step(latent, adv_on):
     else:
         assert all(torch.equal(d_new[n], d_old[n]) for n in d_old)
         assert port.d_opt.count == 0 == int(d_state.opt_state[1][0].count)
+
+
+def test_nnunet_train_step_with_every_augmentation_matches_jax():
+    """One KL-VAE step with the adversarial loss under the nnunet preset
+    with noise, elastic, blur and low resolution on (rotation about all three
+    axes from the (79, 80, 78) initial patch), against the JAX step fed the
+    same keys: a key at which the 3D rotation, noise, elastic, blur and low
+    resolution each run on one of the two samples. The losses, and the
+    generator's and the discriminator's params and first moments as the
+    test above holds them."""
+    from test_torch_augment import ALL_ON
+
+    cfg = ae_config()
+    cfg["ae_transformations"] = dict(cfg["ae_transformations"], aug_preset="nnunet", **ALL_ON)
+    tr, g_state, d_state, port = jax_and_port(cfg, "vae", seed=131)
+    initial = compute_initial_patch_size(cfg["ae_transformations"])
+    assert tuple(initial) == (79, 80, 78) and tr.aug_cfg.rot_3d
+    x = np.random.default_rng(132).uniform(0, 1, (2, *initial, 1)).astype(np.float32)
+    rng = jax.random.PRNGKey(222)
+    aug_rng, samp_rng, _ = jax.random.split(rng, 3)
+    d = jax_draws(aug_rng, 2, 1, tr.aug_cfg)
+    assert all(bool(c.any()) for c in (d.rot_on, d.noise_on, d.elastic_on, d.blur_on,
+                                        d.lowres_on & d.lowres_chan_on[:, 0]))
+    eps = torch.from_numpy(np.array(jax.random.normal(samp_rng, (2, 16, 16, 16, 4),
+                                                      jnp.float32)))
+    g_old = {n: p.detach().clone() for n, p in port.model.named_parameters()}
+    d_old = {n: p.detach().clone() for n, p in port.discriminator.named_parameters()}
+    g_state, d_state, jm = tr._make_train_step(True)(g_state, d_state, jnp.asarray(x), rng)
+    m = port.train_step(torch.from_numpy(x), True, draws=AEDraws(d, eps))
+    for k in ("rec", "perc", "reg", "gen_adv", "disc"):
+        np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-4, atol=1e-9, err_msg=k)
+    g_ref = convert.flax_to_state_dict(jax.tree_util.tree_map(np.asarray, g_state.params))
+    g_new = {n: p.detach() for n, p in port.model.named_parameters()}
+    g_mu = jax_mu(g_state)
+    check_first_adam_update(g_old, g_new, g_ref, g_mu, port.g_names, "generator")
+    check_mu(port.g_opt, port.g_names, g_mu, "generator", 1e-3)
+    d_ref = convert.flax_to_state_dict(jax.tree_util.tree_map(np.asarray, d_state.params))
+    d_new = {n: p.detach() for n, p in port.discriminator.named_parameters()}
+    d_mu = jax_mu(d_state)
+    check_first_adam_update(d_old, d_new, d_ref, d_mu, port.d_names, "discriminator")
+    check_mu(port.d_opt, port.d_names, d_mu, "discriminator", 5e-3)
 
 
 def test_adapt_kl_loss_weight_matches_jax(monkeypatch):
