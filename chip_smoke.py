@@ -213,6 +213,30 @@ Phases (any failure raises and exits non-zero):
                    launches held); and a context of another length than the
                    token grid refused on the card (NotImplementedError, no
                    plain attention).
+20. dist         -- (after phase 17) (a) the ring attention's per-step block
+                   math (ops/ring_attention.py ring_forward / ring_backward,
+                   the path's functions, with the n blocks rotated in this
+                   process) at (1, 262144, 1, 512), n = 4 (the 3D pixel
+                   DDPM's attention as 4 ranks would hold it) and (2, 32768,
+                   1, 768), n = 2, bf16, against the whole-sequence flash
+                   kernels on the same input at RING_TOL / RING_BWD_TOL, with
+                   n^2 launches of each flash kernel and the ms of both in
+                   turns; each block shape, and each whole shape no earlier
+                   phase held, against the chunked plain versions; (b) python
+                   -m torch.distributed.run --nproc_per_node=1 of
+                   bench/dist_steps.py: 3 flagship 3D LDM steps (U-Net
+                   [256,512,768], batch 2 of (128, 143, 143), bf16, seeded
+                   weights) through maybe_initialize_distributed and NCCL,
+                   against the same steps run twice in this process without a
+                   process group: losses, gradient norms and parameter sums
+                   within twice the spread of those two runs (at least 2^-20
+                   of the value), launches equal; (c) with two cards, 2 NCCL
+                   ranks: data = 2 (a row a rank) against the one-process
+                   steps (losses, gradient norms, parameter sums within the
+                   spread and DIST_DP_RTOL / DIST_DP_SUM_RTOL), every rank's
+                   parameter sums equal, and the ring at (1, 262144, 1, 512)
+                   over model = 2 against the whole-sequence kernels; with one
+                   card it says so.
 Every flash forward and backward of every phase is recorded, and the run
 fails at the end if one ran at a shape no kernel phase (or the CPU-vs-GPU
 parity phases) held against its plain version.
@@ -226,7 +250,9 @@ a 2D and a 3D DDPM step, one 2D (batch 16) and one 3D (batch 1) sampling
 forward and each DDPM CLI's first epoch, ``step_ms_ddpm`` each kernel's
 device ms / bound a DDPM step, ``shapes_ddpm`` (shape, ms, bound_ms) at
 phase 17's shapes, ``launches_aug_cond`` an AE step and a conditioned LDM step of
-phase 19, ``step_ms_aug_cond`` their device ms / bound) and the device record; the
+phase 19, ``step_ms_aug_cond`` their device ms / bound, ``launches_ring`` phase 20's
+in-process rings, ``launches_dist_step`` a torchrun LDM step) and the device
+record; the
 card's name and power limit are printed before them.
 """
 
@@ -244,6 +270,8 @@ import sys
 import time
 
 import torch
+
+from medical_image_generation_tpu_torch.bench import kernel_counters, randomize_
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12    # H100 SXM fp32 (non-tensor) rate
@@ -322,26 +350,6 @@ def time_ms(fn, warmup=3, iters=10):
 def bound(flops, nbytes, peak_flops):
     """(least ms for the work on this card, "operations" or "bytes")."""
     return max((flops / peak_flops * 1e3, "operations"), (nbytes / PEAK_BYTES * 1e3, "bytes"))
-
-
-def randomize_(model, seed):
-    """Seeded random values in every parameter, including zero-initialised
-    layers: fan-in scaled normals for weights, small normals for biases,
-    GroupNorm and LayerNorm scale 1 + 0.1 n."""
-    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
-    from medical_image_generation_tpu_torch.models.diffusion_unet import LayerNorm
-
-    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
-    gn = {id(m.weight) for m in model.modules() if isinstance(m, (GroupNorm, LayerNorm))}
-    with torch.no_grad():
-        for p in model.parameters():
-            n = torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32)
-            if id(p) in gn:
-                p.copy_(1.0 + 0.1 * n)
-            elif p.dim() >= 2:
-                p.copy_(n / math.sqrt(p[0].numel()))
-            else:
-                p.copy_(0.02 * n)
 
 
 def phase_build():
@@ -765,22 +773,12 @@ def _train_config(tiny, spatial_dims=3):
     return create_config_dict(flagship_dataset(tiny, spatial_dims), [0], 1, vae_p, ddpm_p)
 
 
-def _counters():
-    from medical_image_generation_tpu_torch.ops import flash_attention as fa
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
-
-    return {"flash_attn_fwd": fa.flash_attention, "flash_attn_bwd_dq": fa.flash_bwd_dq,
-            "flash_attn_bwd_dkdv": fa.flash_bwd_dkdv, "gn_stats_fold": gn.stats_fold,
-            "gn_affine_act": gn.affine_act,
-            "gn_bwd_stats": gn.gn_bwd_stats, "gn_bwd_apply": gn.gn_bwd_apply}
-
-
 def _reset_counts():
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
 
     from medical_image_generation_tpu_torch.ops import groupnorm as gn
 
-    for fn in _counters().values():
+    for fn in kernel_counters().values():
         fn.launches = 0
     fa.flash_attention.input_copies = fa.flash_bwd_dq.input_copies = 0
     fa.flash_bwd_dkdv.input_copies = 0
@@ -789,7 +787,7 @@ def _reset_counts():
 
 
 def _read_counts():
-    return {name: fn.launches for name, fn in _counters().items()}
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def _input_copies():
@@ -1239,7 +1237,7 @@ def ae_per_step(trainer, adv_on):
 
     gn = n(trainer.model.encoder) + n(trainer.model.decoder)
     gn += 3 * n(trainer.discriminator) if adv_on else 0
-    return {k: (gn if k.startswith("gn_") else 0) for k in _counters()}
+    return {k: (gn if k.startswith("gn_") else 0) for k in kernel_counters()}
 
 
 def _capture_grads(opt, store, key):
@@ -1488,7 +1486,7 @@ def _ae_cli_runs(ws, per_step):
 
     def fwd(tr):  # a reconstruct: the encoder's and the decoder's GroupNorms, forward only
         n = sum(isinstance(m, GroupNorm) for m in tr.model.modules())
-        return {k: (n if k in ("gn_stats_fold", "gn_affine_act") else 0) for k in _counters()}
+        return {k: (n if k in ("gn_stats_fold", "gn_affine_act") else 0) for k in kernel_counters()}
 
     restored = {}
     orig_restore = train_autoencoder.AutoEncoderTrainer._restore
@@ -2105,7 +2103,7 @@ def gn_seen(nets, fn):
     finally:
         for h in handles:
             h.remove()
-    ms = {k: 0.0 for k in _counters()}
+    ms = {k: 0.0 for k in kernel_counters()}
     for shape, isz, _, grad in seen:
         for k, v in gn_bounds_ms(shape, isz, grad).items():
             ms[k] += v
@@ -2320,7 +2318,7 @@ def _eval_prediction(tr, n, steps):
     chunks = -(-n // 16)
     gn = (chunks * (steps * count(tr.unet, GroupNorm) + count(tr.vae.decoder, GroupNorm))
           + 2 * count(tr.feature_extractor.module, GroupNorm))
-    out = {k: 0 for k in _counters()}
+    out = {k: 0 for k in kernel_counters()}
     out.update(flash_attn_fwd=chunks * steps * count(tr.unet, AttentionBlock),
                gn_stats_fold=gn, gn_affine_act=gn)
     return out
@@ -2586,7 +2584,7 @@ def ae_launches(cfg, adv_on, remat):
     if adv_on:
         gn += 3 * n(PatchDiscriminator.from_config(cfg["discriminator_params"], device="cpu"))
     extra = sum(n(b) for b in g.modules() if isinstance(b, ResBlock)) if remat else 0
-    out = {k: 0 for k in _counters()}
+    out = {k: 0 for k in kernel_counters()}
     out.update(gn_stats_fold=gn + extra, gn_affine_act=gn + extra, gn_bwd_stats=gn,
                gn_bwd_apply=gn)
     return out
@@ -2993,7 +2991,7 @@ def module_bounds(nets, fn):
     finally:
         for h in handles:
             h.remove()
-    ms = {k: 0.0 for k in _counters()}
+    ms = {k: 0.0 for k in kernel_counters()}
     for calls, grad in ((seen, False), (grads.values(), True)):
         for mod, shape, isz in calls:
             B, C, M = shape[0], shape[1], math.prod(shape[2:])
@@ -3449,7 +3447,7 @@ def _ddpm_yaml(root, task, key, remat):
 def _ddpm_cli_prediction(info, steps, val_steps, samples):
     """Launches of one DDPM CLI epoch: ``steps`` train steps, ``val_steps``
     validation forwards and ``samples`` sampling forwards."""
-    fwd = {k: 0 for k in _counters()}
+    fwd = {k: 0 for k in kernel_counters()}
     fwd.update(flash_attn_fwd=info["per_step"]["flash_attn_fwd"],
                gn_stats_fold=info["per_step"]["gn_bwd_stats"],
                gn_affine_act=info["per_step"]["gn_bwd_stats"])
@@ -4013,6 +4011,248 @@ def _cond_context_refused(gpu):
         fa.flash_attention_plain = orig
 
 
+# ------------------------------------------------------------------------ dist
+
+DIST_RING_CASES = [((1, 262144, 1, 512), 4), ((2, 32768, 1, 768), 2)]  # ((B, S, H, D), n)
+DIST_STEPS, DIST_BATCH = 3, 2  # flagship LDM steps under torchrun, global batch
+# (c) data = 2 against the one-process steps at the same global batch, on top
+# of twice the spread of two one-process runs (0 on the H100): each rank's
+# bf16 convolutions run at batch 1 (cuDNN may take other algorithms than at
+# batch 2) and the fp32 losses and gradients are averaged in another order.
+# Measured on H100s: up to 1.3e-4 of the value; a rank's own gradient norm
+# (a step without the mean) lies 1.7e-2 to 5.8e-2 off the averaged one.
+DIST_DP_RTOL = 1e-3
+DIST_DP_SUM_RTOL = 1e-4  # the parameter sums (measured: 1.8e-6)
+
+
+def _ring_label(shape, n):
+    return f"{shape[1]}x{shape[3]}_n{n}"
+
+
+def _ring_case(shape, n, gen):
+    """The ring's per-step block math (``ring_forward`` / ``ring_backward``)
+    over n in-process blocks of a bf16 (B, S, H, D) input, against the
+    whole-sequence flash kernels on the same input: o and dQ / dK / dV at
+    ``RING_TOL`` / ``RING_BWD_TOL``, the lse at LSE_TOL. Returns (record,
+    log line)."""
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+    from medical_image_generation_tpu_torch.ops import ring_attention as ra
+
+    dt = torch.bfloat16
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(4))
+    B, S, H, D = shape
+    scale = D ** -0.5
+    qs, ks, vs, dos = (list(t.chunk(n, 1)) for t in (q, k, v, do))
+
+    def timed(fn):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return out, s.elapsed_time(e)
+
+    def ring_fwd():
+        return ra.ring_forward(qs, ks, vs, scale, n, ra.list_rotate)
+
+    def ring_bwd():
+        return ra.ring_backward(qs, ks, vs, [o for o, _ in fwd], [lse for _, lse in fwd], dos,
+                                scale, n, ra.list_rotate)
+
+    def whole_fwd():
+        with torch.no_grad():
+            return fa.flash_attention(q, k, v, scale)
+
+    def whole_bwd():
+        return fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, scale)
+
+    # in turns, whole / ring / ring / whole, each pass once a turn; the counts
+    # are of the first ring forward and backward
+    (o_ref, lse_ref), w1 = timed(whole_fwd)
+    _reset_counts()
+    fwd, r1 = timed(ring_fwd)
+    bwd, rb1 = timed(ring_bwd)
+    launches = _read_counts()
+    del bwd
+    fwd, r2 = timed(ring_fwd)
+    _, w2 = timed(whole_fwd)
+    ref, wb1 = timed(whole_bwd)
+    bwd, rb2 = timed(ring_bwd)
+    ref, wb2 = timed(whole_bwd)
+    ring_fwd_ms, ring_bwd_ms, whole_fwd_ms, whole_bwd_ms = [r1, r2], [rb1, rb2], [w1, w2], \
+        [wb1, wb2]
+    o = torch.cat([o for o, _ in fwd], 1)
+    lse = torch.cat([lse.reshape(B, H, -1) for _, lse in fwd], 2).reshape(B * H, S)
+    grads = [torch.cat([g[i] for g in bwd], 1) for i in range(3)]
+    del fwd, bwd
+    rtol, atol = ra.RING_TOL[dt]
+    o_ok, o_err, o_ratio = within(o, o_ref, rtol, atol / o_ref.float().abs().max().item())
+    lse_err = _err(lse, lse_ref)
+    res = {nm: within(g, r, *ra.RING_BWD_TOL[dt])
+           for nm, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+    want = {"flash_attn_fwd": n * n, "flash_attn_bwd_dq": n * n, "flash_attn_bwd_dkdv": n * n}
+    ok = (o_ok and lse_err <= LSE_TOL and all(x[0] for x in res.values())
+          and all(launches[k] == c for k, c in want.items()))
+    line = (f"ring {shape} n={n} bf16: max|o-whole|={o_err:.3e} (err/allowed {o_ratio:.3f}) "
+            f"max|lse-whole|={lse_err:.3e} "
+            + " ".join(f"max|{nm}-whole|={x[1]:.3e} ({x[2]:.3f})" for nm, x in res.items())
+            + f"; tolerance o {rtol:.4g}|o| + {atol:.4g}, grads {ra.RING_BWD_TOL[dt][0]:.4g}|g| "
+            f"+ {ra.RING_BWD_TOL[dt][1]:.4g} max|g|; launches {launches} (want {want}); ms in "
+            f"turns (whole, ring, ring, whole): fwd {w1:.1f} {r1:.1f} {r2:.1f} {w2:.1f}, bwd "
+            f"{wb1:.1f} {rb1:.1f} {rb2:.1f} {wb2:.1f}")
+    if not ok:
+        raise AssertionError(f"[dist] the ring disagrees with the whole-sequence kernels: {line}")
+    return dict(shape=list(shape), n=n, launches=launches, ring_fwd_ms=ring_fwd_ms,
+                ring_bwd_ms=ring_bwd_ms, whole_fwd_ms=whole_fwd_ms, whole_bwd_ms=whole_bwd_ms,
+                err_over_allowed={"o": o_ratio, **{k: x[2] for k, x in res.items()}}), line
+
+
+def _torchrun(nproc, args, timeout=900):
+    """``python -m torch.distributed.run --standalone`` of ``bench/dist_steps.py``
+    from the checkout's root; returns rank 0's JSON record."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", "medical_image_generation_tpu_torch.bench.dist_steps",
+           *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"[dist] {' '.join(cmd[1:])} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    recs = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    if len(recs) != 1:
+        raise AssertionError(f"[dist] expected one JSON record from rank 0: {proc.stdout[-3000:]}")
+    recs[0]["wall_s"] = time.perf_counter() - t0
+    return recs[0]
+
+
+def _steps_close(got, ref, spread, label, rtol=2.0 ** -20, sum_rtol=None):
+    """Per-step losses, per-step gradient norms and the parameter sums of two
+    runs: each within twice the spread of two runs without torchrun, and at
+    least ``rtol`` of the value (by default a few fp32 ulps; ``sum_rtol``
+    for the sums, by default ``rtol``). Returns (ok, line)."""
+    pairs = ([("loss", a, b, s) for a, b, s in zip(got["losses"], ref["losses"],
+                                                    spread["losses"])]
+             + [("norm", a, b, s) for a, b, s in zip(got["norms"], ref["norms"], spread["norms"])]
+             + [(k, got[k], ref[k], spread[k]) for k in ("checksum", "abs_checksum")])
+    worst, ok = [], True
+    for name, a, b, s in pairs:
+        r = sum_rtol if sum_rtol is not None and name.endswith("checksum") else rtol
+        tol = max(2 * s, r * abs(b))
+        ok = ok and abs(a - b) <= tol
+        worst.append(f"{name} {a:.9g} vs {b:.9g} (|d| {abs(a - b):.3g}, tol {tol:.3g})")
+    return ok, f"{label}: " + "; ".join(worst)
+
+
+def _dist_ring(gpu):
+    """(a): the ring's block math in one process, and the block and whole
+    shapes against the plain versions. Returns {label: record}."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    cpu_gen = torch.Generator().manual_seed(42)
+    out = {}
+    for shape, n in DIST_RING_CASES:
+        rec, line = _ring_case(shape, n, gen)
+        out[_ring_label(shape, n)] = rec
+        log(f"[dist] {gpu}: {line} OK")
+        torch.cuda.empty_cache()
+        # the whole-sequence passes ran here too: a shape no earlier phase
+        # held (the backward at batch 1) is held against the plain versions
+        if not {("fwd", shape), ("bwd", shape)} <= FLASH_CHECKED:
+            _, line = _flash_ddpm_case(*shape, torch.bfloat16, gen, cpu_gen, True, timed=False)
+            log(f"[dist] {gpu}: whole-sequence flash {line} OK")
+            flash_checked("fwd", [shape])
+            flash_checked("bwd", [shape])
+            torch.cuda.empty_cache()
+        block = (shape[0], shape[1] // n, *shape[2:])
+        _, line = _flash_ddpm_case(*block, torch.bfloat16, gen, cpu_gen, True, timed=False)
+        log(f"[dist] {gpu}: ring block flash {line} OK")
+        flash_checked("fwd", [block])
+        flash_checked("bwd", [block])
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_torchrun(gpu, args):
+    """(b): the flagship LDM steps under torchrun at one NCCL rank against
+    two runs of the same steps without it. Returns (the torchrun record,
+    the first run without it, the spread of the two)."""
+    from medical_image_generation_tpu_torch.bench import dist_steps
+
+    torch.cuda.empty_cache()  # the child shares the card
+    step = _torchrun(1, args)
+    if step["world"] != 1 or step["backend"] != "nccl":
+        raise AssertionError(f"[dist] the torchrun run did not go through NCCL: {step}")
+    log(f"[dist] {gpu}: torchrun nproc 1 ({step['backend']}, mesh {step['mesh']}): losses "
+        f"{step['losses']} ms a step {[round(x, 1) for x in step['ms']]} (wall "
+        f"{step['wall_s']:.1f} s) launches a step {step['launches']}")
+    plain = []
+    for _ in range(2):
+        plain.append(dist_steps.run_ldm(DIST_STEPS, DIST_BATCH))
+        torch.cuda.empty_cache()
+    spread = {"losses": [abs(a - b) for a, b in zip(plain[0]["losses"], plain[1]["losses"])],
+              "norms": [abs(a - b) for a, b in zip(plain[0]["norms"], plain[1]["norms"])],
+              **{k: abs(plain[0][k] - plain[1][k]) for k in ("checksum", "abs_checksum")}}
+    ok, line = _steps_close(step, plain[0], spread, "torchrun vs one process")
+    log(f"[dist] {gpu}: {line}; spread of the two runs without torchrun {spread}; ms a step "
+        f"without torchrun {[round(x, 1) for x in plain[0]['ms']]}")
+    if not ok or plain[0]["launches"] != step["launches"]:
+        raise AssertionError(f"[dist] the torchrun steps differ from the one-process steps: "
+                             f"{line}; launches {step['launches']} vs {plain[0]['launches']}")
+    return step, plain[0], spread
+
+
+def _dist_two_ranks(gpu, args, ref, spread):
+    """(c), two cards: the LDM steps on 2 NCCL ranks (data = 2, a row a
+    rank) against the one-process steps at the same global batch, every
+    rank's parameter sums equal; and the ring over a model axis of 2 at
+    (1, 262144, 1, 512) against the whole-sequence kernels."""
+    dp = _torchrun(2, args)
+    sums = dp["rank_checksums"]
+    same = len(sums) == 2 and all(x == sums[0] for x in sums)
+    ok, line = _steps_close(dp, ref, spread, "data = 2 vs one process", DIST_DP_RTOL,
+                            DIST_DP_SUM_RTOL)
+    alone = [abs(a - b) / b for a, b in zip(dp["local_norms"], dp["norms"])]
+    log(f"[dist] {gpu}: torchrun nproc 2, data = 2: {line}; each rank's parameter sums "
+        f"{sums} (equal: {same}); rank 0's gradient norm before the mean {dp['local_norms']} "
+        f"(|d| / the averaged norm {[f'{x:.3g}' for x in alone]}: what a step without the "
+        f"mean would clip); ms a step {[round(x, 1) for x in dp['ms']]}")
+    if not ok or not same:
+        raise AssertionError("[dist] the data = 2 steps differ from the one-process steps")
+    ring = _torchrun(2, ["--ring", ",".join(map(str, DIST_RING_CASES[0][0]))])
+    ms = {k: [round(x, 1) for x in v] for k, v in ring.items() if k.endswith("_ms")}
+    log(f"[dist] {gpu}: torchrun nproc 2, model = 2 ring at {ring['shape']}: err/allowed "
+        f"{ring['err_over_allowed']}; ms in turns (whole, ring, ring, whole; the first ring "
+        f"pass sets up NCCL's connections) {ms}")
+    if not ring["ok"]:
+        raise AssertionError("[dist] the 2-rank ring disagrees with the whole-sequence kernels")
+    return {"dp": dp, "ring": ring}
+
+
+def phase_dist():
+    """(a) the ring's block math at the 3D pixel DDPM's and the 2D-latent
+    widths against the whole-sequence kernels; the block shapes against the
+    plain versions; (b) the flagship LDM steps under torchrun with NCCL
+    against the same steps without it; (c) 2 NCCL ranks when two cards are
+    visible. Returns {"ring": {label: record}, "step": the torchrun
+    record}."""
+    gpu = card()
+    t0 = time.perf_counter()
+    out = {"ring": _dist_ring(gpu)}
+    log(f"[dist] {gpu}: ring phase (a) {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    args = ["--steps", str(DIST_STEPS), "--batch", str(DIST_BATCH)]
+    out["step"], ref, spread = _dist_torchrun(gpu, args)
+    log(f"[dist] {gpu}: phase (b) {time.perf_counter() - t1:.1f} s")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"dist: multi-rank NCCL not run: {cards} card visible")
+    else:
+        out["multi"] = _dist_two_ranks(gpu, args, ref, spread)
+    log(f"[dist] {gpu}: phase dist {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4051,6 +4291,8 @@ def main() -> int:
     done("ddpm_train")
     rec_ddpm = phase_kernels_ddpm(ddpm)
     done("kernels_ddpm")
+    dist = phase_dist()
+    done("dist")
     with cli_workspace() as ws:
         phase_ae_cli(ws, ae_per)
         done("ae_cli")
@@ -4108,7 +4350,10 @@ def main() -> int:
                         "launches_aug_cond": {"ae_step": aug_cond["ae"]["per_step"][name],
                                               "ldm_step": aug_cond["ldm"]["per_step"][name]},
                         "step_ms_aug_cond": {"ae": aug_cond["ae"]["step"][name],
-                                             "ldm": aug_cond["ldm"]["step"][name]}})
+                                             "ldm": aug_cond["ldm"]["step"][name]},
+                        "launches_ring": {label: r["launches"][name]
+                                          for label, r in dist["ring"].items()},
+                        "launches_dist_step": dist["step"]["launches"][name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

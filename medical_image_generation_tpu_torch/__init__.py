@@ -19,4 +19,9 @@ the same module and a launch counter on its wrapper:
 
 A wrapper given a CUDA tensor launches its kernel or raises; the plain
 version runs only for CPU tensors.
+
+Several cards: one process a card under torchrun, on the (data, model) mesh
+of ``parallel/`` (``mesh.py``, ``comm.py``, ``sharding.py``), with ring
+attention over the model axis (``ops/ring_attention.py``) on the flash
+kernels.
 """

@@ -21,9 +21,12 @@ Batches are channels-last float32 numpy arrays: (B, *patch, C); 2D batches
 squeeze the pseudo-3D z axis (reference data_processing.py:297-300, 590).
 The trainer copies each to the card once.
 
-The port runs one process: the JAX package's ``jax.process_count`` and
-multi-host ``row_slice`` (:384-389, :412-427) are dropped; ``data_parallel``
-stays in the signature. As in the JAX package, the train loader's seed
+Data parallel (JAX :276-300, :376-427): the global batch is ``batch_size``
+times the mesh's data axis, and each rank's loader builds only its
+``parallel.mesh.data_axis_rows`` slice of every batch (``row_slice``). The
+schedule and every row's RNG are keyed on the GLOBAL row position, so the
+union of the ranks' rows is, bit for bit, the batch one process builds. As
+in the JAX package, the train loader's seed
 counter advances once per batch BUILT, so an iterator abandoned early (the
 trainer's latent probe reads one batch) moves it by however far the
 producer thread got. The port's checkpoints carry ``PrefetchLoader.state``
@@ -41,6 +44,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from medical_image_generation_tpu_torch.data.patches import (
     compute_initial_patch_size,
@@ -269,12 +273,17 @@ class PrefetchLoader:
         prefetch_depth: int = 4,
         seed: int = 0,
         deterministic: bool = False,
+        row_slice: Optional[Tuple[int, int]] = None,
     ):
         """deterministic: key every batch's sampling RNG on its position
         WITHIN the epoch instead of a run-global counter, so each epoch
         replays identical crops — the validation setting (with fixed-center
         bboxes, the val loss over frozen params has zero epoch-to-epoch
-        variance)."""
+        variance).
+
+        row_slice: (offset, count) of the rows of each global batch this
+        rank builds (``parallel.mesh.data_axis_rows``); None builds them
+        all."""
         self.dataset = dataset
         self.number_of_steps = number_of_steps
         self.scheduler = BatchScheduler(
@@ -285,6 +294,7 @@ class PrefetchLoader:
         self.deterministic = deterministic
         self._seed0 = seed
         self._seed_counter = seed
+        self.row_slice = row_slice
         self._pool = ThreadPoolExecutor(max_workers=self.num_threads)
 
     def __len__(self) -> int:
@@ -301,9 +311,14 @@ class PrefetchLoader:
         self.scheduler._rng.bit_generator.state = json.loads(state["scheduler_rng"])
         self._seed_counter = int(state["seed_counter"])
 
-    def _build_batch(self, rows: List[int], base_seed: int):
+    def _build_batch(self, sample_indices: List[int], base_seed: int):
+        off, cnt = self.row_slice or (0, len(sample_indices))
+        rows = sample_indices[off:off + cnt]
+
         def one(args):
-            pos, idx = args  # batch position: the oversampling rule keys on it
+            local_pos, idx = args
+            pos = off + local_pos  # the GLOBAL batch position: the oversampling
+            # rule and the row's RNG key on it, so every rank's rows agree
             rng = np.random.default_rng((base_seed, pos, idx))
             return self.dataset.sample_patch(pos, idx, rng)
 
@@ -374,15 +389,18 @@ def get_data_loaders(
     train_steps: int = TRAIN_STEPS_PER_EPOCH,
     val_steps: int = VAL_STEPS_PER_EPOCH,
     data_parallel: int = 1,
+    mesh=None,
 ) -> Tuple[PrefetchLoader, PrefetchLoader]:
     """Train/val loaders over a preprocessed dataset (reference
     data_processing.py:115-145).
 
     ``batch_size`` is per device (the reference's per-GPU semantics,
-    configuration.py:927-929); ``data_parallel`` scales it to the global
-    batch. The port runs one process on one card, so every row of a batch
-    is built here (the JAX package's multi-host row slices are not
-    ported)."""
+    configuration.py:927-929); ``data_parallel``, the mesh's data axis,
+    scales it to the global batch. In a run of several ranks pass the
+    ``mesh`` (the trainers' CLIs do): every rank computes the same global
+    schedule and builds only its ``data_axis_rows`` slice of each batch, so
+    train and val match the one-process run; without a mesh such a run
+    raises."""
     split_path = create_split_files(dataset_id, splitting, preprocessed_root=preprocessed_root)
     ids = get_data_ids(split_path, fold)
     ds_path = resolve_preprocessed_path(dataset_id, preprocessed_root)
@@ -408,6 +426,17 @@ def get_data_loaders(
         class_map = {k: int(v) for k, v in (label_map or {}).items()}
 
     global_batch = int(batch_size) * max(1, int(data_parallel))
+    row_slice = None
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world > 1:
+        if mesh is None:
+            raise ValueError("multi-rank run: get_data_loaders needs the mesh to compute "
+                             "this rank's slice of the global batch")
+        from medical_image_generation_tpu_torch.parallel.mesh import data_axis_rows
+
+        row_slice = data_axis_rows(mesh, global_batch)
+        print(f"rank {mesh.rank}/{world}: building rows [{row_slice[0]}, "
+              f"{row_slice[0] + row_slice[1]}) of each {global_batch}-row global batch")
     common = dict(
         data_path=images_path,
         batch_size=global_batch,
@@ -431,9 +460,10 @@ def get_data_loaders(
     threads = num_threads if num_threads is not None else config.get("num_workers", 8)
     train_loader = PrefetchLoader(
         train_ds, train_steps, shuffle=True, num_threads=threads, seed=1,
+        row_slice=row_slice,
     )
     val_loader = PrefetchLoader(
         val_ds, val_steps, shuffle=False, num_threads=threads, seed=2,
-        deterministic=True,
+        deterministic=True, row_slice=row_slice,
     )
     return train_loader, val_loader

@@ -125,13 +125,38 @@ class ResBlock(nn.Module):
         self.ConvND_1 = ConvND(out_channels, out_channels, 3, 1, 1, spatial_dims, **kw)
         if in_channels != out_channels:
             self.ConvND_2 = ConvND(in_channels, out_channels, 1, 1, 0, spatial_dims, **kw)
+        self.tp = None  # the model axis (parallel/comm.AxisGroup) when sharded
 
     def forward(self, x, temb=None):
+        if self.tp is not None:
+            return self._forward_model_parallel(x, temb)
         h = self.ConvND_0(self.GroupNorm_0(x, silu=True))
         if temb is not None:
             t = self.Dense_0(F.silu(temb))
             h = h + t.reshape(*t.shape, *([1] * (h.dim() - 2)))
         h = self.ConvND_1(self.GroupNorm_1(h, silu=True))
+        if hasattr(self, "ConvND_2"):
+            x = self.ConvND_2(x)
+        return x + h
+
+    def _forward_model_parallel(self, x, temb):
+        """The Megatron layout (``parallel/sharding.py``): ``ConvND_0`` and
+        ``Dense_0`` hold this rank's output channels, ``GroupNorm_1`` holds
+        their scale and bias and normalises them as groups / n groups,
+        ``ConvND_1`` holds those input channels; its partial sums are
+        all-reduced before its bias. x and temb are whole on every rank."""
+        tp = self.tp
+        h = self.ConvND_0(tp.copy(self.GroupNorm_0(x, silu=True)))
+        if temb is not None:
+            t = self.Dense_0(tp.copy(F.silu(temb)))
+            h = h + t.reshape(*t.shape, *([1] * (h.dim() - 2)))
+        gn = self.GroupNorm_1
+        h = group_norm(h, gn.weight, gn.bias, gn.num_groups // tp.size, gn.eps, True)
+        conv = self.ConvND_1
+        h = tp.reduce(conv.Conv_0._conv_forward(h, _cast(conv.Conv_0.weight, conv.dtype), None))
+        bias = _cast(conv.Conv_0.bias, conv.dtype)
+        h = (h + bias.reshape(-1, *([1] * (h.dim() - 2)))).contiguous(
+            memory_format=channels_last_format(h))
         if hasattr(self, "ConvND_2"):
             x = self.ConvND_2(x)
         return x + h
@@ -151,17 +176,28 @@ class AttentionBlock(nn.Module):
         self.GroupNorm_0 = GroupNorm(channels, norm_num_groups, norm_eps, device)
         self.Dense_0 = Linear(channels, 3 * channels, **kw)
         self.Dense_1 = Linear(channels, channels, **kw)
+        self.tp = None  # the model axis (parallel/comm.AxisGroup) when sharded
 
     def forward(self, x):
         B, C = x.shape[:2]
         spatial = x.shape[2:]
         h = self.GroupNorm_0(x)
         seq = h.permute(0, *range(2, x.dim()), 1).reshape(B, -1, C)  # (B, S, C) view
-        qkv = self.Dense_0(seq)
+        tp = self.tp
+        # under the Megatron layout (parallel/sharding.py) Dense_0 holds this
+        # rank's 3C / n output features: they are gathered whole before the
+        # split into q, k, v, and the row-parallel Dense_1 takes this rank's
+        # C / n input features, its partial sums all-reduced before its bias
+        qkv = self.Dense_0(seq) if tp is None else tp.gather(self.Dense_0(tp.copy(seq)), -1)
         q, k, v = (t.unflatten(-1, (self.num_heads, self.head_dim))
                    for t in qkv.split(C, dim=-1))
         out = dot_product_attention(q, k, v).reshape(B, -1, C)
-        out = self.Dense_1(out)
+        if tp is None:
+            out = self.Dense_1(out)
+        else:
+            d = self.Dense_1
+            out = (tp.reduce(F.linear(tp.scatter(out, -1), _cast(d.weight, d.compute_dtype)))
+                   + _cast(d.bias, d.compute_dtype))
         out = out.reshape(B, *spatial, C).permute(0, x.dim() - 1, *range(1, x.dim() - 1))
         return x + out
 

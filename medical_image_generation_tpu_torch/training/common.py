@@ -37,7 +37,28 @@ optax's semantics, written with ``torch._foreach_*`` ops:
   share (the LDM's ``training/train_ldm.py`` and the pixel-space DDPM's
   ``training/train_ddpm.py``): the optimizer and EMA, the step around the
   U-Net, the sampling weights, the last / best payload and its resume, the
-  epoch loop, and the training CLIs' common arguments.
+  epoch loop, and the training CLIs' common arguments;
+* the (data, model) mesh (``parallel/mesh.py``; the JAX trainers' ``mesh``,
+  sized by ``config["model_parallel"]``). Every trainer takes one (default
+  ``get_mesh(model_parallel=config.get("model_parallel", 1))``) and makes
+  it active around its steps and its loop (``with mesh:``, which opens the
+  ring-attention gate). Under it: the networks' blocks take the Megatron
+  layout over the model axis (``parallel/sharding.py``); a step draws the
+  GLOBAL batch's random numbers from the shared generators and takes this
+  rank's rows (``local_rows``), so it equals the one-process step at the
+  global batch, as JAX's does; the gradients are averaged over the data
+  axis (``AxisGroup.all_reduce_mean_``) before ``clip_by_global_norm``,
+  whose norm adds the sharded leaves' squares over the model axis and
+  counts replicated leaves once; the losses a step returns are the global
+  batch's (averaged over the data axis), so every rank logs the same
+  numbers and takes the same checkpoint decision; rank 0 writes the
+  checkpoints (whole tensors, gathered over the model axis, so a run of any
+  layout loads them), the plots and the samples; the data row 0 draws the
+  interval samples. The explicit all-reduce was chosen over
+  ``DistributedDataParallel``: the optimizer, the clip and the EMA are the
+  port's own (optax's semantics), MultiSteps accumulates before any
+  reduction, and the model-parallel norm needs the averaged gradients
+  before the clip, which DDP's bucketed hooks do not expose more simply.
 """
 
 from __future__ import annotations
@@ -64,6 +85,15 @@ from medical_image_generation_tpu_torch.data.loader import unpack_batch
 from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
+from medical_image_generation_tpu_torch.parallel.comm import AxisGroup
+from medical_image_generation_tpu_torch.parallel.mesh import Mesh, data_axis_rows, get_mesh
+from medical_image_generation_tpu_torch.parallel.sharding import (
+    full_state_dict,
+    gather_full,
+    local_shards,
+    local_state_dict,
+    shard_module_,
+)
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
 from medical_image_generation_tpu_torch.training import plots
 from medical_image_generation_tpu_torch.utils.profiling import (
@@ -105,17 +135,30 @@ def mu_dtype_from_config(config) -> Optional[torch.dtype]:
     raise ValueError(f"unknown adam_mu_dtype {name!r}")
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32, on the device."""
+def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                axis: Optional[AxisGroup] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, fp32, on the device.
+    Under the Megatron layout (``sharded``: which tensors are this rank's
+    shards, ``axis``: the model axis) the sharded tensors' squares are
+    summed over the axis and the replicated ones counted once, so every
+    rank gets the norm of the whole gradient."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if axis is None or axis.trivial or not sharded or not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms) ** 2
+    mask = torch.tensor(list(sharded), device=sq.device)
+    part = torch.stack([sq[mask].sum(), sq[~mask].sum()])
+    axis.sum_(part[:1])
+    return part.sum().sqrt()
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sharded: Optional[Sequence[bool]] = None,
+                        axis: Optional[AxisGroup] = None) -> torch.Tensor:
     """Clip in place in optax's form; returns the norm before clipping. No
     host synchronisation: the choice is made on the device."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, sharded, axis)
     keep = norm < max_norm
     one = torch.ones((), dtype=norm.dtype, device=norm.device)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -126,12 +169,18 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Ten
 class AdamW:
     """optax ``chain(clip_by_global_norm(clip), adamw(lr, b1, b2, eps,
     weight_decay, mu_dtype))`` over a list of params (or ``adam`` when
-    ``weight_decay`` is 0). ``step(grads)`` updates the params in place."""
+    ``weight_decay`` is 0). ``step(grads)`` updates the params in place.
+    ``sharded`` / ``norm_axis``: the Megatron layout's shards and model axis,
+    for the clip's norm (``global_norm``)."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr_schedule: Callable[[int], float],
                  clip: Optional[float] = 1.0, weight_decay: float = 0.0, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, mu_dtype: Optional[torch.dtype] = None):
+                 b2: float = 0.999, eps: float = 1e-8, mu_dtype: Optional[torch.dtype] = None,
+                 sharded: Optional[Sequence[bool]] = None,
+                 norm_axis: Optional[AxisGroup] = None):
         self.params = list(params)
+        self.sharded, self.norm_axis = sharded, norm_axis
+        self.last_norm = None  # the last step's gradient norm before the clip (device)
         self.lr_schedule = lr_schedule
         self.clip, self.wd, self.b1, self.b2, self.eps = clip, weight_decay, b1, b2, eps
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
@@ -147,7 +196,7 @@ class AdamW:
         grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
                  for g, p in zip(grads, self.params)]
         if self.clip:
-            clip_by_global_norm(grads, self.clip)
+            self.last_norm = clip_by_global_norm(grads, self.clip, self.sharded, self.norm_axis)
         lr = self.lr_schedule(self.count)
         self.count += 1
         b1, b2 = self.b1, self.b2
@@ -308,7 +357,11 @@ def save_last_best(trainer, epoch: int, val_loss: float,
     best-model candidacy to every k-th epoch and the final epoch;
     ``trainer.best_val`` only advances when a best save happens, so a later
     candidate competes against the last SAVED best. Returns the names
-    written."""
+    written.
+
+    In a run of several ranks every rank takes the same decision (the val
+    loss is the global batch's); the model row of data coordinate 0 builds
+    the payload (gathering the model axis's shards) and rank 0 writes it."""
     improved = val_loss < trainer.best_val
     interval = max(1, int(trainer.config.get("checkpoint_interval", 1)))
     best_interval = max(1, int(trainer.config.get("best_checkpoint_interval", 1)))
@@ -317,12 +370,15 @@ def save_last_best(trainer, epoch: int, val_loss: float,
     want_best = improved and ((epoch + 1) % best_interval == 0 or last_epoch)
     if not (want_best or want_last):
         return []
-    payload = payload_fn()
-    if want_last:
+    mesh = getattr(trainer, "mesh", None)  # None: one process
+    writer = mesh is None or mesh.is_writer
+    payload = payload_fn() if mesh is None or mesh.coords[0] == 0 else None
+    if want_last and writer:
         ckpt.save_checkpoint(trainer.save_dict["checkpoints"], "last_model", payload)
     if want_best:
         trainer.best_val = val_loss
-        ckpt.save_checkpoint(trainer.save_dict["checkpoints"], "best_model", payload)
+        if writer:
+            ckpt.save_checkpoint(trainer.save_dict["checkpoints"], "best_model", payload)
     return ["last_model"] * want_last + ["best_model"] * want_best
 
 
@@ -355,6 +411,37 @@ def timed_batches(loader, device: torch.device, stats: Dict[str, float],
         stats["wait_s"] += t_copy - t_wait
         stats["copy_s"] += time.perf_counter() - t_copy
         yield out
+
+
+def local_rows(draws, mesh: Mesh):
+    """This rank's rows of a step's random draws, drawn for the GLOBAL batch
+    (a NamedTuple of tensors batched on dim 0, nested NamedTuples and
+    Nones): rows ``data_axis_rows(mesh, B)`` of each tensor."""
+    if mesh.shape["data"] == 1 or draws is None:
+        return draws
+    if isinstance(draws, tuple):
+        return type(draws)(*(local_rows(f, mesh) for f in draws))
+    off, cnt = data_axis_rows(mesh, draws.shape[0])
+    return draws[off:off + cnt]
+
+
+def save_dirs(config: dict, mesh: Mesh):
+    """``create_save_path_dict``'s (dirs, run path): rank 0 makes the run
+    directory and writes its config snapshot; the other ranks get the same
+    paths and write nothing."""
+    if mesh.is_writer:
+        return create_save_path_dict(config)
+    path = config["results_path"]
+    return ({"checkpoints": os.path.join(path, "checkpoints"),
+             "plots": os.path.join(path, "plots")}, path)
+
+
+def resolve_mesh(mesh: Optional[Mesh], config: dict, device: torch.device) -> Mesh:
+    """``mesh``, else ``get_mesh(model_parallel=config["model_parallel"])``
+    (default 1) on ``device``: the JAX trainers' default."""
+    if mesh is not None:
+        return mesh
+    return get_mesh(model_parallel=int(config.get("model_parallel", 1)), device=device)
 
 
 class TrainDraws(NamedTuple):
@@ -396,10 +483,14 @@ class DiffusionTrainer:
 
     def __init__(self, config: dict, unet: torch.nn.Module, spatial_dims: int,
                  device: str | torch.device = "cuda", seed: int = 0,
-                 steps_per_epoch: int = 250, timer_name: str = "train"):
+                 steps_per_epoch: int = 250, timer_name: str = "train",
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.config = config
         self.seed = seed
+        self.mesh = resolve_mesh(mesh, config, self.device)
+        self.data_axis = AxisGroup.of(self.mesh, "data")
+        self.layout = shard_module_(unet, self.mesh)  # {} unless the model axis > 1
         self.unet = unet.train()
         self.spatial_dims = spatial_dims
         self.schedule = NoiseSchedule.from_config(config["time_scheduler_params"],
@@ -414,13 +505,16 @@ class DiffusionTrainer:
             config.get("ddpm_transformations", {}), spatial_dims=spatial_dims)
         self.params = [p for p in self.unet.parameters() if p.requires_grad]
         self.param_names = [n for n, p in self.unet.named_parameters() if p.requires_grad]
+        self.shard_dims = [self.layout.get(n) for n in self.param_names]
         self.grad_accum = int(config.get("grad_accumulate_step", 1))
         self.opt = AdamW(
             self.params,
             make_lr_schedule(float(config.get("ddpm_learning_rate", 2e-5)),
                              config.get("lr_scheduler"), config.get("lr_scheduler_params"),
                              steps_per_epoch),
-            clip=self.clip, weight_decay=1e-2, mu_dtype=mu_dtype_from_config(config))
+            clip=self.clip, weight_decay=1e-2, mu_dtype=mu_dtype_from_config(config),
+            sharded=[d is not None for d in self.shard_dims],
+            norm_axis=AxisGroup.of(self.mesh, "model"))
         if self.grad_accum > 1:
             self.opt = MultiSteps(self.opt, self.grad_accum)
         self.ema = ([p.detach().clone() for p in self.params] if self.ema_decay else None)
@@ -452,8 +546,10 @@ class DiffusionTrainer:
 
     def make_draws(self, batch, labels=None, generator: Optional[torch.Generator] = None,
                    host_generator: Optional[torch.Generator] = None) -> TrainDraws:
-        B = batch.shape[0]
-        shape = self.noise_shape(batch)
+        """The draws of the GLOBAL batch: ``batch`` is this rank's rows, and
+        the mesh's data axis times its size is the global batch."""
+        B = batch.shape[0] * self.mesh.shape["data"]
+        shape = (B, *self.noise_shape(batch)[1:])
         gen = generator or self.generator
         host = host_generator or self.host_generator
         return TrainDraws(
@@ -476,11 +572,17 @@ class DiffusionTrainer:
 
     def train_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
                    draws: Optional[TrainDraws] = None) -> torch.Tensor:
-        """One optimizer step on a (B, *spatial_in, C) batch in [0, 1];
-        returns the loss (fp32 device scalar)."""
+        """One optimizer step on this rank's rows (B, *spatial_in, C) of the
+        global batch, in [0, 1]; ``draws`` are the global batch's. Returns
+        the global batch's loss (fp32 device scalar)."""
+        with self.mesh:
+            return self._train_step(batch, labels, generator, draws)
+
+    def _train_step(self, batch, labels, generator, draws):
         batch = batch.to(self.device)
         if draws is None:
             draws = self.make_draws(batch, labels, generator)
+        draws = local_rows(draws, self.mesh)
         imgs = augment_batch(batch, draws.augment, self.aug_cfg)
         noisy, target, t = self._noised(imgs, draws)
         labels_in = None
@@ -494,24 +596,29 @@ class DiffusionTrainer:
         pred = self.unet(noisy, t, class_labels=labels_in)
         loss = torch.mean((pred.float() - target) ** 2)
         loss.backward()
-        synced = self.opt.step([p.grad for p in self.params])
+        grads = [p.grad for p in self.params]
+        self.data_axis.all_reduce_mean_([g for g in grads if g is not None])
+        synced = self.opt.step(grads)
         if self.ema is not None and synced:
             ema_update(self.ema, self.params, float(self.ema_decay))
         self.step += 1
-        return loss.detach()
+        return self.data_axis.mean(loss.detach())
 
     @torch.no_grad()
     def val_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
                  draws: Optional[TrainDraws] = None,
                  host_generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Loss on a final-size batch: no augmentation, no label dropout."""
+        """The global batch's loss on this rank's rows of a final-size batch:
+        no augmentation, no label dropout."""
         batch = batch.to(self.device)
         if draws is None:
             draws = self.make_draws(batch, None, generator, host_generator)
+        draws = local_rows(draws, self.mesh)
         noisy, target, t = self._noised(batch, draws)
         lab = labels.to(self.device) if labels is not None and self.class_cond else None
-        pred = self.unet(noisy, t, class_labels=lab)
-        return torch.mean((pred.float() - target) ** 2)
+        with self.mesh:
+            pred = self.unet(noisy, t, class_labels=lab)
+        return self.data_axis.mean(torch.mean((pred.float() - target) ** 2))
 
     # ---------------------------------------------------------------- sampling
 
@@ -542,10 +649,12 @@ class DiffusionTrainer:
 
     def _host_state(self) -> Dict[str, Any]:
         """The sampler's part of a payload: ``unet`` (the live params) and
-        ``ema_unet`` when EMA is on, every tensor copied to the CPU."""
-        out = {"unet": {k: v.detach().cpu() for k, v in self.unet.state_dict().items()}}
+        ``ema_unet`` when EMA is on, every tensor whole (gathered over the
+        model axis) and copied to the CPU."""
+        out = {"unet": full_state_dict(self.unet, self.layout, self.mesh)}
         if self.ema is not None:
-            out["ema_unet"] = {n: e.cpu() for n, e in zip(self.param_names, self.ema)}
+            out["ema_unet"] = {n: e.cpu() for n, e in zip(
+                self.param_names, gather_full(self.ema, self.shard_dims, self.mesh))}
         return out
 
     def save_checkpoint(self, path: str) -> None:
@@ -558,8 +667,9 @@ class DiffusionTrainer:
         ``step``, ``validation_loss``, the generator states and, during
         ``train``, the train loader's state."""
         opt = self.opt.state()
-        opt_state = {k: ({n: t.detach().cpu() for n, t in zip(self.param_names, v)}
-                         if isinstance(v, list) else v) for k, v in opt.items()}
+        opt_state = {k: ({n: t.detach().cpu() for n, t in zip(
+            self.param_names, gather_full(v, self.shard_dims, self.mesh))}
+            if isinstance(v, list) else v) for k, v in opt.items()}
         out = {"epoch": int(epoch), **self._host_state(), "opt_state": opt_state,
                "step": int(self.step), "validation_loss": float(val_loss),
                "generators": {"host": self.host_generator.get_state(),
@@ -573,16 +683,17 @@ class DiffusionTrainer:
         """Restore params, EMA (when both the run and the payload have it,
         as the JAX ``_restore``), optimizer state, step and generator states
         from a last/best payload."""
-        opt = {k: ([v[n] for n in self.param_names] if isinstance(v, dict) else v)
-               for k, v in payload["opt_state"].items()}
+        opt = {k: (local_shards([v[n] for n in self.param_names], self.shard_dims, self.mesh)
+                   if isinstance(v, dict) else v) for k, v in payload["opt_state"].items()}
         if ("acc" in opt) != (self.grad_accum > 1):
             raise ValueError("the checkpoint was written with gradient accumulation "
                              f"{'on' if 'acc' in opt else 'off'}; this run has "
                              f"grad_accumulate_step={self.grad_accum}")
-        self.unet.load_state_dict(payload["unet"])
+        self.unet.load_state_dict(local_state_dict(payload["unet"], self.layout, self.mesh))
         if self.ema is not None and "ema_unet" in payload:
-            torch._foreach_copy_(self.ema, [payload["ema_unet"][n].to(self.device)
-                                            for n in self.param_names])
+            torch._foreach_copy_(self.ema, [t.to(self.device) for t in local_shards(
+                [payload["ema_unet"][n] for n in self.param_names], self.shard_dims,
+                self.mesh)])
         self.opt.load_state(opt)
         self.step = int(payload["step"])
         self.host_generator.set_state(payload["generators"]["host"])
@@ -619,8 +730,8 @@ class DiffusionTrainer:
 
     def train(self, train_loader, val_loader) -> None:
         if self.save_dict is None:
-            self.save_dict, self.save_path = create_save_path_dict(self.config)
-        with profile_trace(self.config.get("profile_dir")):
+            self.save_dict, self.save_path = save_dirs(self.config, self.mesh)
+        with profile_trace(self.config.get("profile_dir")), self.mesh:
             self._train_impl(train_loader, val_loader)
 
     def _train_impl(self, train_loader, val_loader) -> None:
@@ -667,14 +778,17 @@ class DiffusionTrainer:
             stats["saved"] = self._save_epoch_artifacts(epoch, val_loss)
             stats["save_s"] = time.perf_counter() - t2
 
-            if (epoch + 1) % interval == 0:
+            # the interval samples: the model row of data coordinate 0 (all of
+            # its ranks: the model axis's blocks run collectives); rank 0 writes
+            if (epoch + 1) % interval == 0 and self.mesh.coords[0] == 0:
                 t3 = time.perf_counter()
                 n = 16 if self.spatial_dims == 2 else self.samples_3d
                 gen = torch.Generator(device=self.device).manual_seed(
                     self.seed + 20_000_000 + epoch)
                 images = self.sample_images(n, sampler="ddim", generator=gen)
-                stats["samples"] = plots.save_samples(images, self.save_dict["plots"], epoch,
-                                                      self.spatial_dims)
+                if self.mesh.is_writer:
+                    stats["samples"] = plots.save_samples(images, self.save_dict["plots"],
+                                                          epoch, self.spatial_dims)
                 stats["sample_s"] = time.perf_counter() - t3
                 self._after_samples(val_loader, stats)
             self.epoch_stats.append(stats)
@@ -682,12 +796,13 @@ class DiffusionTrainer:
     def _save_epoch_artifacts(self, epoch, val_loss):
         """loss.png (when matplotlib is there), loss_dict.pkl, then last /
         best. Returns the checkpoint names written, the seconds of the
-        payload's copy to the host and of the writes."""
-        plots.save_main_losses(
-            self.loss_dict["rec_loss"], self.loss_dict["val_rec_loss"],
-            os.path.join(self.save_dict["plots"], "loss.png"), title="Diffusion MSE",
-        )
-        ckpt.save_loss_dict(self.save_path, self.loss_dict)
+        payload's copy to the host and of the writes (rank 0 writes)."""
+        if self.mesh.is_writer:
+            plots.save_main_losses(
+                self.loss_dict["rec_loss"], self.loss_dict["val_rec_loss"],
+                os.path.join(self.save_dict["plots"], "loss.png"), title="Diffusion MSE",
+            )
+            ckpt.save_loss_dict(self.save_path, self.loss_dict)
         record = {"payload_s": 0.0}
 
         def payload():

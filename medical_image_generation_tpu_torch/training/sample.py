@@ -43,6 +43,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from medical_image_generation_tpu_torch._device import resolve_device
 from medical_image_generation_tpu_torch.config.run import load_config
@@ -51,6 +52,7 @@ from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
 from medical_image_generation_tpu_torch.io import png
 from medical_image_generation_tpu_torch.io.nifti import save_nifti
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
+from medical_image_generation_tpu_torch.parallel.mesh import maybe_initialize_distributed
 from medical_image_generation_tpu_torch.training.common import DTYPES, build_generator
 
 
@@ -257,9 +259,21 @@ def _parser(model: str = "LDM",
     return p
 
 
+def rank0_device(name: str) -> Optional[torch.device]:
+    """The sampling CLIs' device: under torchrun, rank 0's card (the other
+    ranks sample nothing and get None); else ``name``."""
+    dev = maybe_initialize_distributed(name)
+    if dev is not None and dist.get_rank() != 0:
+        print(f"rank {dist.get_rank()}: sampling runs on rank 0")
+        return None
+    return dev or resolve_device(name)
+
+
 def main_ldm(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = rank0_device(args.device)
+    if device is None:
+        return
     payload = load_torch_checkpoint(args.checkpoint)
     config = load_config(args.config)
     key = config.get("latent_space_type", "vae")
@@ -282,7 +296,9 @@ def main_ddpm(argv: Optional[Sequence[str]] = None) -> None:
     live params, as the JAX CLI samples ``params``) at the shape of the
     config's ``ddpm_transformations.patch_size``."""
     args = _parser("pixel-space DDPM", ".pt holding the unet state_dict").parse_args(argv)
-    device = resolve_device(args.device)
+    device = rank0_device(args.device)
+    if device is None:
+        return
     payload = load_ddpm_checkpoint(args.checkpoint)
     sampler = PixelSampler.from_config(load_config(args.config), payload["unet"],
                                        dtype=DTYPES[args.dtype], device=device)

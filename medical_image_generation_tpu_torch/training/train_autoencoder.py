@@ -29,6 +29,13 @@ GroupNorm kernels, forward and backward. The step updates the params and
 both optimizer states in place and returns its losses as fp32 device
 scalars (no host synchronisation).
 
+On a (data, model) mesh (``common``'s module notes; JAX
+``train_autoencoder.py:87-89``, :184-185): the generator's blocks take the
+Megatron layout over the model axis, the discriminator stays replicated,
+both networks' gradients are averaged over the data axis, the draws are
+the global batch's (this rank takes its rows), the losses and the KL the
+weight is set from are the global batch's, and rank 0 writes.
+
 Random draws: the augmentation's from a CPU generator, the posterior noise
 ``eps`` from a generator on the device; ``draws`` (an ``AEDraws``)
 replaces both, so a test can feed the JAX step's own numbers (split as
@@ -59,7 +66,6 @@ import torch
 from medical_image_generation_tpu_torch._device import resolve_device
 from medical_image_generation_tpu_torch.config.run import (
     apply_overrides,
-    create_save_path_dict,
     filter_config_by_mode,
     get_config_for_current_task,
     print_configuration,
@@ -76,6 +82,19 @@ from medical_image_generation_tpu_torch.models.discriminator import (
     least_squares_gan_loss,
 )
 from medical_image_generation_tpu_torch.models.perceptual import PerceptualLoss
+from medical_image_generation_tpu_torch.parallel.comm import AxisGroup
+from medical_image_generation_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    maybe_initialize_distributed,
+)
+from medical_image_generation_tpu_torch.parallel.sharding import (
+    full_state_dict,
+    gather_full,
+    local_shards,
+    local_state_dict,
+    shard_module_,
+)
 from medical_image_generation_tpu_torch.planning.planner import compute_output_size
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
 from medical_image_generation_tpu_torch.training import common, plots
@@ -109,9 +128,12 @@ class AutoEncoderTrainer:
     def __init__(self, config: dict, model, discriminator: PatchDiscriminator,
                  perceptual: PerceptualLoss, latent_space_type: str = "vae",
                  device: str | torch.device = "cuda", seed: int = 0,
-                 steps_per_epoch: int = 250):
+                 steps_per_epoch: int = 250, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.config = config
+        self.mesh = common.resolve_mesh(mesh, config, self.device)
+        self.data_axis = AxisGroup.of(self.mesh, "data")
+        self.layout = shard_module_(model, self.mesh)  # the generator's; {} unless model > 1
         self.latent_space_type = latent_space_type
         self.model = model.train()
         self.discriminator = discriminator.train()
@@ -131,6 +153,7 @@ class AutoEncoderTrainer:
 
         self.g_names = [n for n, p in model.named_parameters() if p.requires_grad]
         self.g_params = [p for p in model.parameters() if p.requires_grad]
+        self.g_dims = [self.layout.get(n) for n in self.g_names]
         self.d_names = [n for n, p in discriminator.named_parameters() if p.requires_grad]
         self.d_params = [p for p in discriminator.parameters() if p.requires_grad]
         sched = config.get("lr_scheduler"), config.get("lr_scheduler_params")
@@ -138,7 +161,7 @@ class AutoEncoderTrainer:
                                                *sched, steps_per_epoch)
         self.d_sched = common.make_lr_schedule(float(config.get("d_learning_rate", 5e-5)),
                                                *sched, steps_per_epoch)
-        self.g_opt = self._optimizer(self.g_params, self.g_sched)
+        self.g_opt = self._optimizer(self.g_params, self.g_sched, self.g_dims)
         self.d_opt = self._optimizer(self.d_params, self.d_sched)
         self.host_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
@@ -154,17 +177,21 @@ class AutoEncoderTrainer:
         self.timer = StepTimer("ae_train")
         self.epoch_stats: list = []  # one dict of host-side seconds an epoch
 
-    def _optimizer(self, params, sched):
+    def _optimizer(self, params, sched, dims=None):
         """optax ``adam`` (weight decay 0, fp32 first moment) after the
         global-norm clip, in MultiSteps under gradient accumulation (JAX
-        ``training/common.py:87-114`` as the AE trainer calls it)."""
-        opt = common.AdamW(params, sched, clip=self.clip, weight_decay=0.0, mu_dtype=None)
+        ``training/common.py:87-114`` as the AE trainer calls it); ``dims``:
+        the params' sharded dims under the Megatron layout, for the norm."""
+        opt = common.AdamW(params, sched, clip=self.clip, weight_decay=0.0, mu_dtype=None,
+                           sharded=[d is not None for d in dims or ()] or None,
+                           norm_axis=AxisGroup.of(self.mesh, "model"))
         return common.MultiSteps(opt, self.grad_accum) if self.grad_accum > 1 else opt
 
     @staticmethod
     def from_config(config: dict, latent_space_type: str = "vae",
                     device: str | torch.device = "cuda", dtype=torch.bfloat16, seed: int = 0,
-                    steps_per_epoch: int = 250) -> "AutoEncoderTrainer":
+                    steps_per_epoch: int = 250,
+                    mesh: Optional[Mesh] = None) -> "AutoEncoderTrainer":
         """Generator and discriminator with fp32 master params computing in
         ``dtype``, flax-style initialisation from ``seed``; the perceptual
         loss's frozen features from its own seeded generator (or
@@ -180,7 +207,7 @@ class AutoEncoderTrainer:
         perceptual = PerceptualLoss.from_config(
             config.get("perceptual_params", {"spatial_dims": sd}), dtype=dtype, device=dev)
         return AutoEncoderTrainer(config, model, disc, perceptual, latent_space_type, dev, seed,
-                                  steps_per_epoch)
+                                  steps_per_epoch, mesh)
 
     # ------------------------------------------------------------------ steps
 
@@ -196,13 +223,16 @@ class AutoEncoderTrainer:
 
     def make_draws(self, batch, generator: Optional[torch.Generator] = None,
                    host_generator: Optional[torch.Generator] = None) -> AEDraws:
+        """The draws of the GLOBAL batch (``batch``: this rank's rows)."""
         host = host_generator or self.host_generator
         gen = generator or self.generator
+        B = batch.shape[0] * self.mesh.shape["data"]
         eps = None
         if self.latent_space_type == "vae":
-            eps = torch.randn(self.latent_shape_of(batch), device=self.device, generator=gen)
-        return AEDraws(make_draws(self.aug_cfg, batch.shape[0], batch.shape[-1],
-                                  batch.dim() - 2, host, gen, tuple(batch.shape[1:-1])), eps)
+            eps = torch.randn((B, *self.latent_shape_of(batch)[1:]), device=self.device,
+                              generator=gen)
+        return AEDraws(make_draws(self.aug_cfg, B, batch.shape[-1], batch.dim() - 2, host, gen,
+                                  tuple(batch.shape[1:-1])), eps)
 
     def _g_loss(self, imgs, eps, adv_on: bool):
         if self.latent_space_type == "vae":
@@ -223,17 +253,24 @@ class AutoEncoderTrainer:
 
     def train_step(self, batch, adv_on: bool,
                    draws: Optional[AEDraws] = None) -> Dict[str, torch.Tensor]:
-        """One generator (and, when ``adv_on``, discriminator) update on a
-        (B, *spatial_in, C) batch in [0, 1]; returns {rec, perc, reg,
-        gen_adv, disc} as fp32 device scalars."""
+        """One generator (and, when ``adv_on``, discriminator) update on
+        this rank's rows (B, *spatial_in, C) of the global batch, in [0, 1]
+        (``draws``: the global batch's); returns the global batch's {rec,
+        perc, reg, gen_adv, disc} as fp32 device scalars."""
+        with self.mesh:
+            return self._train_step(batch, adv_on, draws)
+
+    def _train_step(self, batch, adv_on, draws):
         batch = batch.to(self.device)
         if draws is None:
             draws = self.make_draws(batch)
+        draws = common.local_rows(draws, self.mesh)
         imgs = augment_batch(batch, draws.augment, self.aug_cfg)
         eps = None if draws.eps is None else draws.eps.to(self.device)
         loss, metrics, recon = self._g_loss(imgs, eps, adv_on)
-        grads = torch.autograd.grad(loss, self.g_params, allow_unused=True)
-        self.g_opt.step(list(grads))
+        grads = list(torch.autograd.grad(loss, self.g_params, allow_unused=True))
+        self.data_axis.all_reduce_mean_([g for g in grads if g is not None])
+        self.g_opt.step(grads)
         del grads, loss
         d_loss = torch.zeros((), device=self.device)
         if adv_on:
@@ -242,22 +279,25 @@ class AutoEncoderTrainer:
             logits_real = self.discriminator(imgs)
             d_loss = least_squares_gan_loss(logits_real=logits_real,
                                             logits_fake=logits_fake) * self.adv_weight
-            self.d_opt.step(list(torch.autograd.grad(d_loss, self.d_params)))
+            d_grads = list(torch.autograd.grad(d_loss, self.d_params))
+            self.data_axis.all_reduce_mean_(d_grads)
+            self.d_opt.step(d_grads)
         self.step += 1
         out = {k: v.detach().float() for k, v in metrics.items()}
         out["disc"] = d_loss.detach().float()
-        return out
+        return {k: self.data_axis.mean(v) for k, v in out.items()}
 
     @torch.no_grad()
     def val_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(L1 of the reconstruction, the reconstruction) of a final-size
         batch: decode(mu) for the KL-VAE, the quantized path for the VQ-VAE."""
         batch = batch.to(self.device)
-        if self.latent_space_type == "vae":
-            recon = self.model.reconstruct(batch)
-        else:
-            recon = self.model(batch)[0]
-        return common.l1_loss(recon, batch), recon
+        with self.mesh:
+            if self.latent_space_type == "vae":
+                recon = self.model.reconstruct(batch)
+            else:
+                recon = self.model(batch)[0]
+        return self.data_axis.mean(common.l1_loss(recon, batch)), recon
 
     @torch.no_grad()
     def adapt_kl_loss_weight(self, val_loader) -> None:
@@ -268,8 +308,9 @@ class AutoEncoderTrainer:
         if not (self.auto_kl_weight and self.latent_space_type == "vae"):
             return
         print("Setting KL loss weight from measured KL...")
-        kls = [common.kl_loss(*self.model.encode(common.batch_to_device(b, self.device)[0]))
-               for b in val_loader]
+        with self.mesh:
+            kls = [self.data_axis.mean(common.kl_loss(*self.model.encode(
+                common.batch_to_device(b, self.device)[0]))) for b in val_loader]
         mean_kl = float(torch.stack(kls).mean()) if kls else 0.0
         exponent = math.floor(math.log10(abs(mean_kl))) if mean_kl > 0 else 0
         self.kl_weight = 0.001 / (10 ** exponent)
@@ -279,18 +320,18 @@ class AutoEncoderTrainer:
 
     def checkpoint_payload(self, epoch: int, val_loss: float) -> Dict:
         """The last/best payload (see the module docstring)."""
-        def opt_state(opt, names):
-            return {k: ({n: t.detach().cpu() for n, t in zip(names, v)}
-                        if isinstance(v, list) else v) for k, v in opt.state().items()}
+        def opt_state(opt, names, dims):
+            return {k: ({n: t.detach().cpu() for n, t in zip(
+                names, gather_full(v, dims, self.mesh))}
+                if isinstance(v, list) else v) for k, v in opt.state().items()}
 
-        # the generator under its latent space's name, "vae" or "vq"
+        # the generator under its latent space's name, "vae" or "vq", whole
         out = {"epoch": int(epoch),
-               self.latent_space_type: {k: v.detach().cpu()
-                                        for k, v in self.model.state_dict().items()},
+               self.latent_space_type: full_state_dict(self.model, self.layout, self.mesh),
                "discriminator": {k: v.detach().cpu()
                                  for k, v in self.discriminator.state_dict().items()},
-               "g_opt_state": opt_state(self.g_opt, self.g_names),
-               "d_opt_state": opt_state(self.d_opt, self.d_names),
+               "g_opt_state": opt_state(self.g_opt, self.g_names, self.g_dims),
+               "d_opt_state": opt_state(self.d_opt, self.d_names, [None] * len(self.d_names)),
                "step": int(self.step), "validation_loss": float(val_loss),
                "kl_weight": float(self.kl_weight),
                "generators": {"host": self.host_generator.get_state(),
@@ -303,10 +344,11 @@ class AutoEncoderTrainer:
     def load_payload(self, payload: Dict) -> None:
         """Restore both networks, both optimizer states, the step, the KL
         weight and the generator states from a last/best payload."""
-        for key, opt, names in (("g_opt_state", self.g_opt, self.g_names),
-                                ("d_opt_state", self.d_opt, self.d_names)):
-            state = {k: ([v[n] for n in names] if isinstance(v, dict) else v)
-                     for k, v in payload[key].items()}
+        for key, opt, names, dims in (
+                ("g_opt_state", self.g_opt, self.g_names, self.g_dims),
+                ("d_opt_state", self.d_opt, self.d_names, [None] * len(self.d_names))):
+            state = {k: (local_shards([v[n] for n in names], dims, self.mesh)
+                         if isinstance(v, dict) else v) for k, v in payload[key].items()}
             if ("acc" in state) != (self.grad_accum > 1):
                 raise ValueError("the checkpoint was written with gradient accumulation "
                                  f"{'on' if 'acc' in state else 'off'}; this run has "
@@ -315,7 +357,8 @@ class AutoEncoderTrainer:
         if self.latent_space_type not in payload:
             raise KeyError(f"the checkpoint holds no {self.latent_space_type!r} generator: "
                            "written by a run of another latent space?")
-        self.model.load_state_dict(payload[self.latent_space_type])
+        self.model.load_state_dict(local_state_dict(payload[self.latent_space_type], self.layout,
+                                                    self.mesh))
         self.discriminator.load_state_dict(payload["discriminator"])
         self.step = int(payload["step"])
         self.kl_weight = float(payload["kl_weight"])
@@ -346,8 +389,8 @@ class AutoEncoderTrainer:
 
     def train(self, train_loader, val_loader) -> None:
         if self.save_dict is None:
-            self.save_dict, self.save_path = create_save_path_dict(self.config)
-        with profile_trace(self.config.get("profile_dir")):
+            self.save_dict, self.save_path = common.save_dirs(self.config, self.mesh)
+        with profile_trace(self.config.get("profile_dir")), self.mesh:
             self._train_impl(train_loader, val_loader)
 
     def _train_impl(self, train_loader, val_loader) -> None:
@@ -410,13 +453,15 @@ class AutoEncoderTrainer:
         the last validation image beside its reconstruction. Returns the
         checkpoint names written, the payload's host-copy seconds and the
         interval image's path."""
-        plots.save_main_losses(self.loss_dict["train_rec"], self.loss_dict["val_rec"],
-                               os.path.join(self.save_dict["plots"], "loss.png"),
-                               title="L1 reconstruction loss")
-        # lr rides in loss_dict.pkl but is not a loss
-        plots.save_all_losses({k: v for k, v in self.loss_dict.items() if k != "lr"},
-                              os.path.join(self.save_dict["plots"], "all_losses.png"))
-        ckpt.save_loss_dict(self.save_path, self.loss_dict)
+        writer = self.mesh.is_writer
+        if writer:
+            plots.save_main_losses(self.loss_dict["train_rec"], self.loss_dict["val_rec"],
+                                   os.path.join(self.save_dict["plots"], "loss.png"),
+                                   title="L1 reconstruction loss")
+            # lr rides in loss_dict.pkl but is not a loss
+            plots.save_all_losses({k: v for k, v in self.loss_dict.items() if k != "lr"},
+                                  os.path.join(self.save_dict["plots"], "all_losses.png"))
+            ckpt.save_loss_dict(self.save_path, self.loss_dict)
         record = {"payload_s": 0.0}
 
         def payload():
@@ -427,7 +472,7 @@ class AutoEncoderTrainer:
 
         record["saved"] = common.save_last_best(self, epoch, val_rec, payload)
         interval = int(self.config.get("val_plot_interval", 10))
-        if last_pair is not None and (epoch + 1) % interval == 0:
+        if writer and last_pair is not None and (epoch + 1) % interval == 0:
             record["recon"] = plots.save_reconstruction(*last_pair, self.save_dict["plots"],
                                                         epoch, self.spatial_dims)
         return record
@@ -450,7 +495,7 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> AutoEncoderTrainer:
     (train_autoencoder.py:463-481) on the port; returns the trainer after
     training. What the port cannot do is refused before the first step."""
     args = parse_arguments(argv)
-    device = resolve_device(args.device)
+    device = maybe_initialize_distributed(args.device) or resolve_device(args.device)
     config = get_config_for_current_task(
         args.dataset_id, args.model_type, "autoencoder",
         progress_bar=args.progress_bar, continue_training=args.continue_training,
@@ -464,11 +509,13 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> AutoEncoderTrainer:
                          f"disagrees with -l {args.latent_space_type}")
     trainer = AutoEncoderTrainer.from_config(
         config, args.latent_space_type, device=device, dtype=common.DTYPES[args.dtype], seed=0,
-        steps_per_epoch=int(config.get("steps_per_epoch") or 250))
+        steps_per_epoch=int(config.get("steps_per_epoch") or 250),
+        mesh=get_mesh(model_parallel=int(config.get("model_parallel", 1)), device=device))
     print_configuration(config, config["results_path"], "train", model="autoencoder")
     train_loader, val_loader = get_data_loaders(
         config, args.dataset_id, args.splitting, config["ae_batch_size"],
         args.model_type, config["ae_transformations"], args.fold,
+        data_parallel=trainer.mesh.shape["data"], mesh=trainer.mesh,
     )
     trainer.train(train_loader, val_loader)
     return trainer

@@ -55,6 +55,11 @@ from medical_image_generation_tpu_torch.config.run import (
 )
 from medical_image_generation_tpu_torch.data.loader import get_data_loaders
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
+from medical_image_generation_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    maybe_initialize_distributed,
+)
 from medical_image_generation_tpu_torch.training import common
 from medical_image_generation_tpu_torch.training.sample import (
     PixelSampler,
@@ -67,17 +72,17 @@ class DDPMTrainer(common.DiffusionTrainer):
     """Pixel-space diffusion trainer. Build with ``from_config``."""
 
     def __init__(self, config: dict, unet: DiffusionUNet, device: str | torch.device = "cuda",
-                 seed: int = 0, steps_per_epoch: int = 250):
+                 seed: int = 0, steps_per_epoch: int = 250, mesh: Optional[Mesh] = None):
         super().__init__(config, unet, config["ddpm_params"]["spatial_dims"], device, seed,
-                         steps_per_epoch, "ddpm_train")
+                         steps_per_epoch, "ddpm_train", mesh)
         self.image_shape = ddpm_image_shape(config)
         cc = self.class_cond or {}
         self.guidance_scale = float(cc.get("guidance_scale", 2.0))
 
     @staticmethod
     def from_config(config: dict, unet_state=None, device: str | torch.device = "cuda",
-                    dtype=torch.bfloat16, seed: int = 0,
-                    steps_per_epoch: int = 250) -> "DDPMTrainer":
+                    dtype=torch.bfloat16, seed: int = 0, steps_per_epoch: int = 250,
+                    mesh: Optional[Mesh] = None) -> "DDPMTrainer":
         """U-Net with fp32 master params computing in ``dtype``, in and out
         channels the data's (and the null class's embedding with
         ``class_conditioning``); flax-style initialisation from ``seed``, or
@@ -91,7 +96,7 @@ class DDPMTrainer(common.DiffusionTrainer):
             common.init_like_flax_(unet)
         else:
             unet.load_state_dict(unet_state)
-        return DDPMTrainer(config, unet, dev, seed, steps_per_epoch)
+        return DDPMTrainer(config, unet, dev, seed, steps_per_epoch, mesh)
 
     def noise_shape(self, batch):
         """(B, *patch, C): the images the U-Net sees."""
@@ -130,7 +135,7 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> DDPMTrainer:
     385-405) on the port; returns the trainer after training. What the port
     cannot do is refused before the first step."""
     args = parse_arguments(argv)
-    device = resolve_device(args.device)
+    device = maybe_initialize_distributed(args.device) or resolve_device(args.device)
     config = get_config_for_current_task(
         args.dataset_id, args.model_type, "ddpm",
         progress_bar=args.progress_bar, continue_training=args.continue_training,
@@ -140,12 +145,14 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> DDPMTrainer:
     config = filter_config_by_mode(config, "train_ddpm")
     config = apply_overrides(config, args.overrides)
     print_configuration(config, config["results_path"], "train", model="ddpm")
+    mesh = get_mesh(model_parallel=int(config.get("model_parallel", 1)), device=device)
     train_loader, val_loader = get_data_loaders(
         config, args.dataset_id, args.splitting, config["ddpm_batch_size"],
         args.model_type, config["ddpm_transformations"], args.fold,
+        data_parallel=mesh.shape["data"], mesh=mesh,
     )
     trainer = DDPMTrainer.from_config(config, device=device, dtype=common.DTYPES[args.dtype],
-                                      seed=0, steps_per_epoch=len(train_loader))
+                                      seed=0, steps_per_epoch=len(train_loader), mesh=mesh)
     trainer.train(train_loader, val_loader)
     return trainer
 

@@ -93,6 +93,11 @@ from medical_image_generation_tpu_torch.eval.ssim import pairwise_metrics
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
+from medical_image_generation_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    maybe_initialize_distributed,
+)
 from medical_image_generation_tpu_torch.planning.planner import compute_output_size
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
 from medical_image_generation_tpu_torch.training import common
@@ -109,10 +114,11 @@ class LDMTrainer(common.DiffusionTrainer):
 
     def __init__(self, config: dict, unet: DiffusionUNet, vae: AutoencoderKL | VQVAE,
                  device: str | torch.device = "cuda", seed: int = 0,
-                 steps_per_epoch: int = 250, latent_space_type: str = "vae"):
+                 steps_per_epoch: int = 250, latent_space_type: str = "vae",
+                 mesh: Optional[Mesh] = None):
         self.vae_params = common.generator_params(config, latent_space_type)
         super().__init__(config, unet, self.vae_params["spatial_dims"], device, seed,
-                         steps_per_epoch, "ldm_train")
+                         steps_per_epoch, "ldm_train", mesh)
         self.vae = vae.eval().requires_grad_(False)
         self.latent_space_type = latent_space_type
         self.posterior_eps = latent_space_type == "vae"
@@ -126,12 +132,12 @@ class LDMTrainer(common.DiffusionTrainer):
     @staticmethod
     def from_config(config: dict, vae_state, unet_state=None,
                     device: str | torch.device = "cuda", dtype=torch.bfloat16, seed: int = 0,
-                    steps_per_epoch: int = 250,
-                    latent_space_type: str = "vae") -> "LDMTrainer":
+                    steps_per_epoch: int = 250, latent_space_type: str = "vae",
+                    mesh: Optional[Mesh] = None) -> "LDMTrainer":
         """U-Net with fp32 master params computing in ``dtype`` (flax-style
         initialisation from ``seed``, or ``unet_state``), and the frozen
         KL-VAE (VQ-VAE for ``vq``) from ``vae_state`` (computing in
-        ``dtype``)."""
+        ``dtype``); the trainer on ``mesh`` (default: the config's)."""
         dev = resolve_device(device)
         ddpm_params = dict(config["ddpm_params"])
         cc = config.get("class_conditioning") or None
@@ -146,7 +152,7 @@ class LDMTrainer(common.DiffusionTrainer):
             unet.load_state_dict(unet_state)
         vae = common.build_generator(config, latent_space_type, dtype, device=dev)
         vae.load_state_dict(vae_state)
-        return LDMTrainer(config, unet, vae, dev, seed, steps_per_epoch, latent_space_type)
+        return LDMTrainer(config, unet, vae, dev, seed, steps_per_epoch, latent_space_type, mesh)
 
     # ----------------------------------------------------------------- latent
 
@@ -177,15 +183,20 @@ class LDMTrainer(common.DiffusionTrainer):
         1e-8)`` from one (center-cropped) batch. The posterior noise comes
         from ``generator``, else from a generator seeded 0 (the JAX probe's
         ``PRNGKey(0)``), never from the training stream. The VQ latent
-        keeps ``scale_factor`` 1 (its range is the codebook's)."""
+        keeps ``scale_factor`` 1 (its range is the codebook's). In a
+        data-parallel run ``batch`` is this rank's rows: the noise is drawn
+        for the global batch and the latents are gathered over the data
+        axis, so every rank gets the one-process probe's numbers."""
         batch = center_crop_batch(batch.to(self.device), self._final_spatial(batch))
         eps = None
         if self.latent_space_type == "vae":
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
-            eps = torch.randn(self.latent_shape_of(batch), device=self.device,
-                              generator=generator)
-        z = self._encode(batch, eps)
+            shape = self.latent_shape_of(batch)
+            eps = common.local_rows(torch.randn(
+                (shape[0] * self.mesh.shape["data"], *shape[1:]), device=self.device,
+                generator=generator), self.mesh)
+        z = self.data_axis.all_gather(self._encode(batch, eps), 0)
         if self.latent_space_type == "vae":
             self.scale_factor = float(1.0 / (z.std(correction=0) + 1e-8))
         self.latent_shape = tuple(z.shape)
@@ -334,7 +345,7 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> LDMTrainer:
     585-627) on the port; returns the trainer after training. Everything
     the port cannot do is refused here, before the first step."""
     args = parse_arguments(argv)
-    device = resolve_device(args.device)
+    device = maybe_initialize_distributed(args.device) or resolve_device(args.device)
     config = get_config_for_current_task(
         args.dataset_id, args.model_type, "ldm",
         progress_bar=args.progress_bar, continue_training=args.continue_training,
@@ -363,14 +374,16 @@ def run_cli(argv: Optional[Sequence[str]] = None) -> LDMTrainer:
     if key not in ae:
         raise KeyError(f"{ae_best} holds no {key!r} autoencoder (keys {sorted(ae)}): "
                        f"trained with another -l?")
+    mesh = get_mesh(model_parallel=int(config.get("model_parallel", 1)), device=device)
     train_loader, val_loader = get_data_loaders(
         config, args.dataset_id, args.splitting, config["ddpm_batch_size"],
         args.model_type, config["ddpm_transformations"], args.fold,
+        data_parallel=mesh.shape["data"], mesh=mesh,
     )
     trainer = LDMTrainer.from_config(config, ae[key], device=device,
                                      dtype=common.DTYPES[args.dtype], seed=0,
                                      steps_per_epoch=len(train_loader),
-                                     latent_space_type=key)
+                                     latent_space_type=key, mesh=mesh)
     del ae
     trainer.train(train_loader, val_loader)
     return trainer
