@@ -173,7 +173,9 @@ Phases (any failure raises and exits non-zero):
                    every query and key, o / dQ at four query tiles, dK / dV
                    at four key tiles summed over every query, delta every
                    row), with ms, the bound and SDPA's memory-efficient
-                   backend beside them; the four GroupNorm kernels against
+                   backend beside them (its backward as forward + backward
+                   minus forward; one timed call after one warm call at
+                   262144 tokens); the four GroupNorm kernels against
                    plain versions computed in row chunks. No fp32 flash at
                    262144 tokens and no fp32 GroupNorm over 2^31 elements
                    (scalar fp32 kernels and whole fp32 references too slow
@@ -210,9 +212,18 @@ Phases (any failure raises and exits non-zero):
                    the tiny config CPU vs GPU (fp32): a DiffusionEncoder
                    forward and backward and a conditioned U-Net forward with
                    ControlNet residuals; both once at flagship width (timed,
-                   launches held); and a context of another length than the
-                   token grid refused on the card (NotImplementedError, no
-                   plain attention).
+                   launches held). Then a context of its own length and
+                   width: the flash forward, dQ and dK/dV at every
+                   CONTEXT_PAIRS (q shape, Sk) against their plain versions
+                   (bf16; fp32 at CONTEXT_F32), with ms, the bound, plain ms
+                   and SDPA's forward and forward + backward; the tiny fp32
+                   U-Net built with context_dim 12, CPU vs GPU, forward and
+                   backward with a (2, 7, 12) context; and the flagship-width
+                   U-Net with context_dim 768 (bf16, batch 2 of the 32^3 x 8
+                   latent), forward + backward with a context of 77 tokens,
+                   then of 1: ms forward and backward, 22 launches of each
+                   flash kernel (11 self, 11 to the context), no plain
+                   attention on the card, idle share, peak memory.
 20. dist         -- (after phase 17) (a) the ring attention's per-step block
                    math (ops/ring_attention.py ring_forward / ring_backward,
                    the path's functions, with the n blocks rotated in this
@@ -237,9 +248,10 @@ Phases (any failure raises and exits non-zero):
                    parameter sums equal, and the ring at (1, 262144, 1, 512)
                    over model = 2 against the whole-sequence kernels; with one
                    card it says so.
-Every flash forward and backward of every phase is recorded, and the run
-fails at the end if one ran at a shape no kernel phase (or the CPU-vs-GPU
-parity phases) held against its plain version.
+Every flash forward and backward of every phase is recorded with q's shape
+and the keys' length, and the run fails at the end if one ran at a (shape,
+Sk) no kernel phase (or the CPU-vs-GPU parity phases) held against its plain
+version.
 
 The last two lines of standard output are the kernels' JSON record (launches
 counted on the LDM train path, ``ae_launches`` on the ten timed AE steps with
@@ -250,7 +262,9 @@ a 2D and a 3D DDPM step, one 2D (batch 16) and one 3D (batch 1) sampling
 forward and each DDPM CLI's first epoch, ``step_ms_ddpm`` each kernel's
 device ms / bound a DDPM step, ``shapes_ddpm`` (shape, ms, bound_ms) at
 phase 17's shapes, ``launches_aug_cond`` an AE step and a conditioned LDM step of
-phase 19, ``step_ms_aug_cond`` their device ms / bound, ``launches_ring`` phase 20's
+phase 19, ``step_ms_aug_cond`` their device ms / bound, ``shapes_context`` (shape,
+Sk, ms, bound_ms) at phase 19's context pairs, ``launches_context`` one flagship
+U-Net forward + backward with a 77-token context, ``launches_ring`` phase 20's
 in-process rings, ``launches_dist_step`` a torchrun LDM step) and the device
 record; the
 card's name and power limit are printed before them.
@@ -2842,29 +2856,31 @@ def _plan_run(ws):
 
 # ------------------------------------------------------------------ slice 11
 
-FLASH_SEEN = set()     # ("fwd" | "bwd", (B, S, H, D)) of every flash call on the card
+FLASH_SEEN = set()     # ("fwd" | "bwd", q's (B, Sq, H, D), Sk) of every flash call on the card
 FLASH_CHECKED = set()  # the same, for the shapes a phase held against the plain versions
 _FLASH_CAPTURES = []   # open flash_capture sets
 
 
 def install_flash_recorder():
-    """Record the (B, S, H, D) of every flash forward and backward that runs
-    on the card, in FLASH_SEEN (and in any open ``flash_capture`` set)."""
+    """Record q's (B, Sq, H, D) and the keys' length Sk of every flash
+    forward and backward that runs on the card, in FLASH_SEEN (and in any
+    open ``flash_capture`` set): a context of another length counts as a
+    shape of its own."""
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
 
     fwd, bwd = fa._fwd, fa.flash_attention_bwd
 
-    def note(kind, q):
+    def note(kind, q, k):
         if q.is_cuda:
             for s in [FLASH_SEEN, *_FLASH_CAPTURES]:
-                s.add((kind, tuple(q.shape)))
+                s.add((kind, tuple(q.shape), k.shape[1]))
 
     def rec_fwd(q, k, v, scale):
-        note("fwd", q)
+        note("fwd", q, k)
         return fwd(q, k, v, scale)
 
     def rec_bwd(q, k, v, o, lse, do, scale):
-        note("bwd", q)
+        note("bwd", q, k)
         return bwd(q, k, v, o, lse, do, scale)
 
     fa._fwd, fa.flash_attention_bwd = rec_fwd, rec_bwd
@@ -2872,7 +2888,7 @@ def install_flash_recorder():
 
 @contextlib.contextmanager
 def flash_capture():
-    """Yields the set of flash (kind, shape) that run on the card inside."""
+    """Yields the set of flash (kind, q shape, Sk) that run on the card inside."""
     seen = set()
     _FLASH_CAPTURES.append(seen)
     try:
@@ -2881,8 +2897,10 @@ def flash_capture():
         _FLASH_CAPTURES.remove(seen)
 
 
-def flash_checked(kind, shapes):
-    FLASH_CHECKED.update((kind, tuple(s)) for s in shapes)
+def flash_checked(kind, shapes, sk=None):
+    """Mark q shapes as held against the plain versions, with keys of Sk
+    tokens (default: each shape's own length)."""
+    FLASH_CHECKED.update((kind, tuple(s), s[1] if sk is None else sk) for s in shapes)
 
 
 def check_flash_listed():
@@ -2891,8 +2909,8 @@ def check_flash_listed():
     missing = FLASH_SEEN - FLASH_CHECKED
     if missing:
         raise AssertionError(f"flash calls at shapes no kernel phase checked: {sorted(missing)}")
-    log(f"[env] every flash call ran at a checked shape: {len(FLASH_SEEN)} (kind, shape) "
-        f"pairs seen, {len(FLASH_CHECKED)} checked")
+    log(f"[env] every flash call ran at a checked shape: {len(FLASH_SEEN)} (kind, q shape, "
+        f"Sk) seen, {len(FLASH_CHECKED)} checked")
 
 
 @contextlib.contextmanager
@@ -3176,15 +3194,41 @@ def _ref_tiles(S, gen, tile=64):
     return torch.cat([torch.arange(s, s + tile) for s in sorted(starts)]).cuda()
 
 
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "FLASH_ATTENTION", "CUDNN_ATTENTION")  # no S x S math
+
+
+def sdpa_ms(q, k, v, scale, iters, do=None):
+    """ms of PyTorch's SDPA on BSHD q, k, v (its memory-efficient, flash or
+    cuDNN backend), forward alone, or with ``do`` forward + backward; None
+    where no such backend takes the shape. The library yardstick: the port
+    never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    grad = do is not None
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(grad) for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous() if grad else None
+
+    def call():
+        o = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        return torch.autograd.grad(o, (qh, kh, vh), doh) if grad else o
+
+    try:
+        with sdpa_kernel([getattr(SDPBackend, b) for b in SDPA_BACKENDS]):
+            return time_ms(call, *iters)
+    except RuntimeError as e:  # no memory-efficient backend takes the shape
+        log(f"[sdpa] no library call at {tuple(q.shape)} Sk={k.shape[1]}"
+            f"{' (backward)' if grad else ''}: {str(e)[:120]}")
+        return None
+
+
 def _flash_ddpm_case(B, S, H, D, dt, gen, cpu_gen, backward, timed=True):
     """One DDPM flash shape against the chunked plain references: the lse
     over every query and key, o and dQ at four query tiles, dK / dV at four
     key tiles summed over every query, delta over every row; same bits
-    twice. With ``timed``, bf16 ms and SDPA's beside them. Returns
-    ({kernel: record} in bf16, log line)."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
+    twice. With ``timed``, bf16 ms and SDPA's beside them (its backward as
+    fwd+bwd minus fwd; one warm and one timed call at 262144 tokens).
+    Returns ({kernel: record} in bf16, log line)."""
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
@@ -3221,16 +3265,7 @@ def _flash_ddpm_case(B, S, H, D, dt, gen, cpu_gen, backward, timed=True):
     timed = timed and dt == torch.bfloat16
     if timed:
         ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), *iters)
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        try:
-            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION,
-                              SDPBackend.CUDNN_ATTENTION]):
-                lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
-                              *iters)
-        except RuntimeError as e:  # no memory-efficient backend takes the shape
-            lib = None
-            log(f"[kernels_ddpm] no library call at this shape: {str(e)[:120]}")
-        del qh, kh, vh
+        lib = sdpa_ms(q, k, v, scale, iters)
         b_ = bound(4 * fl, 4 * n * isz + 4 * bhs, PEAK_BF16_FLOPS)
         rec["flash_attn_fwd"] = dict(shape=[B, S, H, D], dtype="bf16", max_abs_err=err, ms=ms,
                                      plain_ms=plain_s * 1e3, bound_ms=b_[0], bound_by=b_[1],
@@ -3268,14 +3303,20 @@ def _flash_ddpm_case(B, S, H, D, dt, gen, cpu_gen, backward, timed=True):
                             *iters)
             b_dq = bound(6 * fl, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
             b_kv = bound(8 * fl, 6 * n * isz + 8 * bhs, PEAK_BF16_FLOPS)
+            both = None if lib is None else sdpa_ms(q, k, v, scale, (1, 1) if big else (1, 3),
+                                                    do)
+            lib_b = None if both is None else both - lib
             for name, t_ms, b_, e in (("flash_attn_bwd_dq", ms_dq, b_dq, res["dq"][1]),
                                       ("flash_attn_bwd_dkdv", ms_kv, b_kv,
                                        max(res["dk"][1], res["dv"][1]))):
                 rec[name] = dict(shape=[B, S, H, D], dtype="bf16", max_abs_err=e, ms=t_ms,
                                  plain_ms=plain_b * 1e3, bound_ms=b_[0], bound_by=b_[1],
-                                 library_ms=None)
+                                 library_ms=lib_b)
             line += (f" | dq ms={ms_dq:.3f} bound_ms={b_dq[0]:.3f} | dkdv ms={ms_kv:.3f} "
-                     f"bound_ms={b_kv[0]:.3f}")
+                     f"bound_ms={b_kv[0]:.3f} | SDPA backward ms="
+                     + ("no library call at this shape" if lib_b is None else
+                        f"{lib_b:.3f} (fwd+bwd {both:.3f} minus fwd {lib:.3f})")
+                     + (" (one timed call after one warm call)" if big else ""))
     if not ok:
         raise AssertionError(f"[kernels_ddpm] flash kernels disagree with their plain versions: "
                              f"{line}")
@@ -3390,10 +3431,12 @@ def phase_kernels_ddpm(ddpm):
     t0 = time.perf_counter()
     path = set().union(*(d["flash"] for d in ddpm.values()))
     flash = path | set().union(*(d["flash_trials"] for d in ddpm.values()))
-    shapes = sorted({s for _, s in flash}, key=lambda s: -s[0] * s[1] * s[1] * s[3])
+    if any(sk != s[1] for _, s, sk in flash):
+        raise AssertionError(f"[kernels_ddpm] a DDPM attention with a context: {flash}")
+    shapes = sorted({s for _, s, _ in flash}, key=lambda s: -s[0] * s[1] * s[1] * s[3])
     for shape in shapes:
-        backward = ("bwd", shape) in flash
-        on_path = ("fwd", shape) in path
+        backward = ("bwd", shape, shape[1]) in flash
+        on_path = ("fwd", shape, shape[1]) in path
         for dt in (torch.bfloat16, torch.float32):
             if dt == torch.float32 and (shape[1] > 65536 or not on_path):
                 log(f"[kernels_ddpm] {gpu}: flash {shape} fp32 not checked ("
@@ -3810,7 +3853,7 @@ def _aug_cond(ws):
         out["parity"] = _cond_parity(gpu)
     FLASH_CHECKED.update(parity_shapes)
     _cond_flagship(gpu)
-    _cond_context_refused(gpu)
+    out["context"] = _cond_context(gpu)
     return out
 
 
@@ -3983,32 +4026,349 @@ def _cond_flagship(gpu):
                              f"kernel phases: {sorted(missing)}")
 
 
-def _cond_context_refused(gpu):
-    """A transformer's attention to a context of another length than its
-    token grid raises NotImplementedError on the card (before any launch),
-    and no plain attention runs in its place."""
-    from medical_image_generation_tpu_torch.models.diffusion_unet import CrossAttention
+# (q shape (B, Sq, H, D), Sk): a context of 1 and 77 tokens at the 3D U-Net's
+# two sites and 77 at the 2D level-1 site, keys longer than the queries at
+# the D = 768 cluster site, and a ragged pair of three heads
+CONTEXT_PAIRS = [((2, 4096, 1, 512), 1), ((2, 4096, 1, 512), 77), ((2, 512, 1, 768), 1),
+                 ((2, 512, 1, 768), 77), ((2, 512, 1, 768), 4096), ((48, 1024, 1, 512), 77),
+                 ((2, 1000, 3, 96), 200)]
+CONTEXT_F32 = [((2, 4096, 1, 512), 77), ((2, 1000, 3, 96), 200)]  # also checked in fp32
+CONTEXT_WIDTH = 768  # a text encoder's embedding width (77 tokens) or covariates (1)
+
+
+def context_bounds(B, Sq, Sk, H, D, isz):
+    """{kernel: (least ms, "operations" or "bytes")} of the forward, dQ and
+    dK/dV with keys of Sk tokens: 4, 6 and 8 B H Sq Sk D FLOP (2 and 3 and 4
+    products of Sq x Sk x D) at the bf16 peak, against each pass's bytes:
+    forward q, k, v, o and the lse; dQ q, k, v, o, dO, dq, lse and delta;
+    dK/dV q, k, v, dO, dk, dv, lse and delta, each once."""
+    qs, ks, rows = B * Sq * H * D * isz, B * Sk * H * D * isz, B * H * Sq * 4
+    fl = B * H * Sq * Sk * D
+    return {"flash_attn_fwd": bound(4 * fl, 2 * qs + 2 * ks + rows, PEAK_BF16_FLOPS),
+            "flash_attn_bwd_dq": bound(6 * fl, 4 * qs + 2 * ks + 2 * rows, PEAK_BF16_FLOPS),
+            "flash_attn_bwd_dkdv": bound(8 * fl, 2 * qs + 4 * ks + 2 * rows, PEAK_BF16_FLOPS)}
+
+
+def single_key_bounds(q, k, v, do, scale):
+    """Bounds on |dq| and |dk| with one key (Sk = 1), elementwise. The
+    softmax over one key is 1, so dq and dk vanish: the kernels and the
+    plain versions return the fp32 rounding of dP - delta (dO's dot products
+    with v and with o = v, D terms each), times k or, summed over the
+    queries, q. With gamma_D = D u / (1 - D u), u = 2^-24 (fp32 sums), that
+    is at most scale * 2 gamma_D sum_d |dO_d v_d| |k| for dq and the same
+    summed against |q| over the queries for dk."""
+    D = q.shape[-1]
+    gamma = D * 2.0 ** -24 / (1 - D * 2.0 ** -24)
+    c = scale * 2 * gamma * (do.float().abs() * v.float().abs()).sum(-1, keepdim=True)
+    return c * k.float().abs(), (c * q.float().abs()).sum(1, keepdim=True)
+
+
+def p_rounding_bound(q, k, v, scale):
+    """Elementwise bound on what the bf16 forward's rounding of P to bf16
+    before P V (unit roundoff u = 2^-8) moves o: u (P |V|), P the softmax,
+    from the plain math in fp32. FLASH_TOL's 2^-10 stands for that term
+    where many keys average its random signs away (self-attention, and
+    contexts of 200 and 4096 keys: 0.33-0.80 of FLASH_TOL); against 77
+    keys a few elements of o near 0 exceed FLASH_TOL alone (1.07-1.48x on
+    an NVIDIA H100 80GB HBM3 at 700 W). The backward passes stay within
+    FLASH_BWD_TOL."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale, -1)
+    return (2.0 ** -8 * (p @ vf.abs())).permute(0, 2, 1, 3)
+
+
+def held(got, ref, allowed, extra):
+    """(every element within allowed + extra, max abs error, largest error /
+    (allowed + extra), the same over ``allowed`` alone)."""
+    d = (got.float() - ref.float()).abs()
+    return (bool((d <= allowed + extra).all()), d.max().item(),
+            (d / (allowed + extra)).max().item(), (d / allowed).max().item())
+
+
+def _context_case(shape, Sk, dt, gen):
+    """The three flash kernels at q of ``shape`` against keys and values of Sk
+    tokens, against their plain versions: o within FLASH_TOL plus, in bf16,
+    the bound of rounding P to bf16 (``p_rounding_bound``), the backward
+    within FLASH_BWD_TOL, and with one key dq and dk, which vanish, within
+    their fp32 rounding bound of 0 (``single_key_bounds``). Also the lse (LSE_TOL), delta, launches,
+    and a skipped key tile caught. With ms, bound, plain ms and SDPA's
+    forward and forward + backward ms in bf16. Returns ({kernel: record},
+    log line)."""
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
 
-    att = CrossAttention(16, 2, context_dim=12, device="cuda")
-    x = torch.randn((2, 64, 16), device="cuda")
-    ctx = torch.randn((2, 7, 12), device="cuda")
-    calls = []
-    orig = fa.flash_attention_plain
-    fa.flash_attention_plain = lambda *a, **k: calls.append(1) or orig(*a, **k)
-    _reset_counts()
+    B, Sq, H, D = shape
+    q, do = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(2))
+    k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").to(dt) for _ in range(2))
+    scale = D ** -0.5
+    n0 = {k_: f.launches for k_, f in kernel_counters().items()}
+    o, lse = fa.flash_attention(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, scale)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale)
+    r_dq, r_delta = fa.flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do, scale)
+    r_dk, r_dv = fa.flash_bwd_dkdv_plain(q, k, v, do, lse_ref, r_delta, scale)
+    torch.cuda.synchronize()
+    launched = {k_: f.launches - n0[k_] for k_, f in kernel_counters().items()}
+    p_bound = p_rounding_bound(q, k, v, scale) if dt == torch.bfloat16 else 0.0
+    rtol, atol = FLASH_TOL[dt]
+    res = {"o": held(o, o_ref, atol + rtol * o_ref.float().abs(), p_bound)}
+    rt, at = FLASH_BWD_TOL[dt]
+    for nm, g, r in (("dq", dq, r_dq), ("dk", dk, r_dk), ("dv", dv, r_dv)):
+        res[nm] = held(g, r, rt * r.float().abs() + at * r.float().abs().max(), 0.0)
+    if Sk == 1:  # dq and dk vanish: each side within its rounding bound of 0
+        for nm, g, r, b in zip(("dq", "dk"), (dq, dk), (r_dq, r_dk),
+                               single_key_bounds(q, k, v, do, scale)):
+            res[nm] = held(g, r, 2 * b, 0.0)
+    lerr = _err(lse, lse_ref)
+    # a kernel that skips one key tile must fail the forward's tolerance, where there is one
+    o_cut, lse_cut = fa.flash_attention_plain(q, k[:, FLASH_TILE:], v[:, FLASH_TILE:], scale)
+    cut_seen = Sk <= FLASH_TILE or not (
+        held(o_cut, o_ref, atol + rtol * o_ref.float().abs(), p_bound)[0]
+        and _err(lse_cut, lse_ref) <= LSE_TOL)
+    d_ok, d_err, _ = within(delta, r_delta, 1e-5, 1e-5)
+    shapes_ok = dk.shape == dv.shape == k.shape and dq.shape == q.shape
+    ok = (all(x[0] for x in res.values()) and lerr <= LSE_TOL and cut_seen and d_ok
+          and shapes_ok and launched["flash_attn_fwd"] == launched["flash_attn_bwd_dq"]
+          == launched["flash_attn_bwd_dkdv"] == 1)
+    line = (f"q {shape} Sk={Sk} {str(dt)[6:]}: "
+            + " ".join(f"max|{nm}-plain|={x[1]:.3e} ({x[2]:.3f} of its allowance"
+                       + ("; twice the rounding bound of 0)" if Sk == 1 and nm in ("dq", "dk")
+                          else f"; {x[3]:.3f} of FLASH_TOL alone)" if nm == "o" else ")")
+                       for nm, x in res.items())
+            + f" max|lse-plain|={lerr:.3e} max|delta-plain|={d_err:.3e} one-tile-skip "
+            f"caught={cut_seen}{' (no tile to skip)' if Sk <= FLASH_TILE else ''}; launches "
+            f"{ {k_: n for k_, n in launched.items() if n} }")
+    err = res["o"][1]
+    rec = {}
+    if dt == torch.bfloat16:
+        bounds = context_bounds(B, Sq, Sk, H, D, q.element_size())
+        times = {
+            "flash_attn_fwd": (time_ms(lambda: fa.flash_attention(q, k, v, scale), 2, 5),
+                               time_ms(lambda: fa.flash_attention_plain(q, k, v, scale), 1, 3),
+                               err),
+            "flash_attn_bwd_dq": (
+                time_ms(lambda: fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, scale), 2, 5),
+                time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do, scale), 1, 3),
+                res["dq"][1]),
+            "flash_attn_bwd_dkdv": (
+                time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale), 2, 5),
+                time_ms(lambda: fa.flash_bwd_dkdv_plain(q, k, v, do, lse_ref, delta, scale),
+                        1, 3),
+                max(res["dk"][1], res["dv"][1]))}
+        lib_f = sdpa_ms(q, k, v, scale, (2, 5))
+        lib_b = sdpa_ms(q, k, v, scale, (2, 5), do)
+        lib_bwd = None if lib_f is None or lib_b is None else lib_b - lib_f
+        for name, (ms, plain, e) in times.items():
+            b_ = bounds[name]
+            rec[name] = dict(shape=list(shape), Sk=Sk, dtype="bf16", max_abs_err=e, ms=ms,
+                             plain_ms=plain, bound_ms=b_[0], bound_by=b_[1],
+                             library_ms=lib_f if name == "flash_attn_fwd" else lib_bwd)
+            line += (f" | {name} ms={ms:.4f} bound_ms={b_[0]:.4f} ({b_[1]}) plain_ms="
+                     f"{plain:.4f}")
+        line += " | SDPA ms forward={} forward+backward={}".format(
+            *("no library call" if m is None else f"{m:.4f}" for m in (lib_f, lib_b)))
+    if not ok:
+        raise AssertionError(f"[aug_cond] flash kernels with a context disagree with their "
+                             f"plain versions: {line}")
+    return rec, line
+
+
+def _cond_context(gpu):
+    """The conditioned U-Net attending to a context on the card: the three
+    flash kernels at every CONTEXT_PAIRS entry against their plain versions;
+    the tiny fp32 U-Net with a context, CPU against GPU, forward and
+    backward; the flagship-width U-Net built with ``context_dim`` 768,
+    forward and backward with contexts of 77 and 1 tokens. Returns
+    {"kernels": {kernel: [record]}, "launches": {kernel: launches of one
+    forward + backward with the 77-token context}}."""
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    recs = {}
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products in full fp32
     try:
-        att(x, ctx)
-    except NotImplementedError as e:
-        log(f"[aug_cond] {gpu}: a context of 7 tokens against a 64-token grid on the card "
-            f"raised NotImplementedError ({e}); plain attention calls {len(calls)}, flash "
-            f"launches {_read_counts()['flash_attn_fwd']}")
-        if calls:
-            raise AssertionError("the plain attention ran on the card")
-    else:
-        raise AssertionError("a context of another length ran on the card")
+        for shape, Sk in CONTEXT_PAIRS:
+            dts = ((torch.bfloat16, torch.float32) if (shape, Sk) in CONTEXT_F32
+                   else (torch.bfloat16,))
+            for dt in dts:
+                rec, line = _context_case(shape, Sk, dt, gen)
+                log(f"[aug_cond] {gpu}: context flash {line} OK")
+                for name, r in rec.items():
+                    recs.setdefault(name, []).append(r)
+            flash_checked("fwd", [shape], Sk)
+            flash_checked("bwd", [shape], Sk)
+            torch.cuda.empty_cache()
     finally:
-        fa.flash_attention_plain = orig
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"[aug_cond] {gpu}: {len(CONTEXT_PAIRS)} context pairs agree "
+        f"({time.perf_counter() - t0:.1f} s)")
+    with flash_capture() as parity_shapes:  # held against the CPU's plain versions
+        _cond_context_parity(gpu)
+    FLASH_CHECKED.update(parity_shapes)
+    return {"kernels": recs, "launches": _cond_context_flagship(gpu)}
+
+
+def _cond_context_parity(gpu):
+    """The tiny conditioned U-Net built with ``context_dim`` 12 (fp32, TF32
+    off) on the CPU (plain versions) and on the card (kernels): forward with
+    a (2, 7, 12) context and backward, output and the gradients of x, the
+    context and every parameter, each within 1e-4 of its largest value."""
+    from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
+    from medical_image_generation_tpu_torch.planning.planner import (
+        compute_output_size,
+        flagship_configs,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        vae_p, ddpm_p, image = flagship_configs(tiny=True)
+        latent = compute_output_size(image, vae_p["downsample_parameters"])
+        g = torch.Generator().manual_seed(48)
+        x = torch.randn((2, *latent, ddpm_p["in_channels"]), generator=g)
+        ctx = torch.randn((2, 7, 12), generator=g)
+        t = torch.tensor([17, 901])
+        cot = torch.randn((2, *latent, ddpm_p["out_channels"]), generator=g)
+        unet = DiffusionUNet.from_config(dict(ddpm_p, with_conditioning=True),
+                                         dtype=torch.float32, device="cpu", context_dim=12)
+        randomize_(unet, 49)
+        res, launches = {}, {}
+        for name, net, dv in (("cpu", unet, "cpu"), ("gpu", copy.deepcopy(unet).cuda(), "cuda")):
+            xi, ci = (a.to(dv, copy=True).requires_grad_() for a in (x, ctx))
+            _reset_counts()
+            out = net(xi, t.to(dv), context=ci)
+            (out * cot.to(dv)).sum().backward()
+            torch.cuda.synchronize()
+            launches[name] = _read_counts()
+            res[name] = [out.detach().cpu(), xi.grad.cpu(), ci.grad.cpu()] + [
+                p.grad.cpu() for p in net.parameters()]
+        err = max(_err(a, b) / max(b.abs().max().item(), 1e-30)
+                  for a, b in zip(res["gpu"], res["cpu"]))
+        tol = 1e-4  # fp32 everywhere (TF32 off); summation order only
+        log(f"[aug_cond] {gpu}: tiny fp32 conditioned U-Net with a (2, 7, 12) context, CPU "
+            f"plain vs GPU kernels, forward + backward (output, x, context and every "
+            f"parameter's gradient): max err / max|ref| {err:.3e} (tol {tol:g}); GPU launches "
+            f"{launches['gpu']}")
+        if not err <= tol:
+            raise AssertionError("tiny conditioned U-Net with a context: CPU-GPU parity failed")
+        if not all(launches["gpu"][k] > 0 for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                                                    "flash_attn_bwd_dkdv")):
+            raise AssertionError(f"the flash kernels did not run: {launches}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def _cond_context_flagship(gpu):
+    """The conditioned U-Net at the 3D flagship's width (aug_cond_config's
+    ddpm_params, ``context_dim`` 768, seeded bf16 weights) on batch 2 of the
+    32^3 x 8 latent: forward and backward with a context of 77 tokens, then
+    of 1. Each pass: ms forward and backward (CUDA events), launches (22 of
+    each flash kernel: 11 self-attentions at Sk = Sq, 11 attentions to the
+    context), no plain attention on the card, every flash and GroupNorm
+    shape one a kernel phase held, peak memory, and a profile (device busy,
+    idle share). Returns the launches of the 77-token pass."""
+    from medical_image_generation_tpu_torch.models.blocks import GroupNorm
+    from medical_image_generation_tpu_torch.models.diffusion_unet import (
+        CrossAttention,
+        DiffusionUNet,
+    )
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    ddpm_p = aug_cond_config(tiny=False)["ddpm_params"]
+    unet = DiffusionUNet.from_config(ddpm_p, dtype=torch.bfloat16, device=dev,
+                                     context_dim=CONTEXT_WIDTH)
+    randomize_(unet, 50)
+    n_ca = sum(isinstance(m, CrossAttention) for m in unet.modules())
+    n_gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
+    gen = torch.Generator(device=dev).manual_seed(51)
+    x = torch.randn((2, 32, 32, 32, ddpm_p["in_channels"]), generator=gen, device=dev)
+    cot = torch.randn((2, 32, 32, 32, ddpm_p["out_channels"]), generator=gen, device=dev)
+    t = torch.tensor([17, 901], device=dev)
+    expect = {"flash_attn_fwd": n_ca, "flash_attn_bwd_dq": n_ca, "flash_attn_bwd_dkdv": n_ca,
+              "gn_stats_fold": n_gn, "gn_affine_act": n_gn, "gn_bwd_stats": n_gn,
+              "gn_bwd_apply": n_gn}
+    plain_calls = []
+    originals = {nm: getattr(fa, nm) for nm in ("flash_attention_plain", "flash_bwd_dq_plain",
+                                                "flash_bwd_dkdv_plain")}
+
+    def counting(nm, fn):
+        def call(q, *a):
+            if q.is_cuda:
+                plain_calls.append(nm)
+            return fn(q, *a)
+        return call
+
+    out = None
+    try:
+        for nm, fn in originals.items():
+            setattr(fa, nm, counting(nm, fn))
+        for Sk in (77, 1):
+            ctx = torch.randn((2, Sk, CONTEXT_WIDTH), generator=gen, device=dev)
+            xi, ci = x.clone().requires_grad_(), ctx.requires_grad_()
+
+            def step():
+                unet.zero_grad(set_to_none=True)
+                xi.grad = ci.grad = None
+                y = unet(xi, t, context=ci)
+                (y.float() * cot).sum().backward()
+                return y
+
+            step()  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with flash_capture() as seen, gn_recorder() as gns:
+                _reset_counts()
+                y = step()
+                torch.cuda.synchronize()
+                counts = _read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            fwd_t, bwd_t = [], []
+            for _ in range(3):
+                unet.zero_grad(set_to_none=True)
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                e[0].record()
+                yy = unet(xi, t, context=ci)
+                e[1].record()
+                (yy.float() * cot).sum().backward()
+                e[2].record()
+                torch.cuda.synchronize()
+                fwd_t.append(e[0].elapsed_time(e[1]))
+                bwd_t.append(e[1].elapsed_time(e[2]))
+            del yy
+            busy, _ = profile_breakdown(f"aug_cond context Sk={Sk} forward + backward", step)
+            idle = profile_breakdown.last["idle_share"]
+            finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(ci.grad).all()) and \
+                all(torch.isfinite(p.grad).all() for p in unet.parameters())
+            cross = sorted({(k_, s, sk) for k_, s, sk in seen if sk == Sk})
+            expect_seen = {(k_, s, sk) for k_ in ("fwd", "bwd") for s in FLAGSHIP_FLASH
+                           for sk in (s[1], Sk)}
+            missing = seen - FLASH_CHECKED
+            gn_missing = {s[1:] for s in gns} - set(GN_SHAPES)
+            log(f"[aug_cond] {gpu}: flagship conditioned U-Net (context_dim {CONTEXT_WIDTH}, "
+                f"bf16, batch 2 of 32^3 x 8) with a (2, {Sk}, {CONTEXT_WIDTH}) context: forward "
+                f"{statistics.median(fwd_t):.3f} ms, backward {statistics.median(bwd_t):.3f} ms "
+                f"(CUDA events, median of 3); device busy {busy:.3f} ms, idle share {idle:.3f}; "
+                f"peak {peak:.2f} GiB; launches {counts} (predicted {expect}); flash calls to "
+                f"the context {cross}; plain attention calls on the card {len(plain_calls)}; "
+                f"finite: {finite}; output {tuple(y.shape)}")
+            if counts != expect or plain_calls or not finite or y.shape != (2, 32, 32, 32, 8):
+                raise AssertionError(f"[aug_cond] flagship U-Net with a {Sk}-token context "
+                                     "failed")
+            if seen != expect_seen or missing or gn_missing:
+                raise AssertionError(f"[aug_cond] flash calls {sorted(seen)} (unchecked "
+                                     f"{sorted(missing)}), GroupNorm shapes not held "
+                                     f"{sorted(gn_missing)}")
+            if out is None:
+                out = counts
+            del y, ctx, xi, ci
+    finally:
+        for nm, fn in originals.items():
+            setattr(fa, nm, fn)
+        del unet
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------------ dist
@@ -4158,7 +4518,7 @@ def _dist_ring(gpu):
         torch.cuda.empty_cache()
         # the whole-sequence passes ran here too: a shape no earlier phase
         # held (the backward at batch 1) is held against the plain versions
-        if not {("fwd", shape), ("bwd", shape)} <= FLASH_CHECKED:
+        if not {("fwd", shape, shape[1]), ("bwd", shape, shape[1])} <= FLASH_CHECKED:
             _, line = _flash_ddpm_case(*shape, torch.bfloat16, gen, cpu_gen, True, timed=False)
             log(f"[dist] {gpu}: whole-sequence flash {line} OK")
             flash_checked("fwd", [shape])
@@ -4351,6 +4711,9 @@ def main() -> int:
                                               "ldm_step": aug_cond["ldm"]["per_step"][name]},
                         "step_ms_aug_cond": {"ae": aug_cond["ae"]["step"][name],
                                              "ldm": aug_cond["ldm"]["step"][name]},
+                        "shapes_context": [{k: r[k] for k in ("shape", "Sk", "ms", "bound_ms")}
+                                           for r in aug_cond["context"]["kernels"].get(name, [])],
+                        "launches_context": aug_cond["context"]["launches"][name],
                         "launches_ring": {label: r["launches"][name]
                                           for label, r in dist["ring"].items()},
                         "launches_dist_step": dist["step"]["launches"][name]})

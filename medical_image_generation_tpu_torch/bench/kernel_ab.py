@@ -22,7 +22,9 @@ calls for what ``medimgen_gn_stats_fold`` does in one:
 ``medimgen_gn_fold`` (A and b from the sums), bound in ``build``. PyTorch's
 SDPA forward and backward, ``torch.var_mean``, ``F.group_norm``+``F.silu``
 backward and ``aten.native_group_norm_backward`` (dscale and dbias only, no
-SiLU) are timed beside them as yardsticks. Prints one line per shape and a
+SiLU) are timed beside them as yardsticks. The flash entry points of the
+parent take one sequence length S; this checkout's take Sq and Sk, and each
+side is called with its own arguments. Prints one line per shape and a
 JSON record as the last line; needs a GPU and nvcc.
 """
 
@@ -66,11 +68,12 @@ def build(csrc: str, tag: str) -> dict:
             raise RuntimeError(f"nvcc failed for {tag} {name}.cu:\n{log}")
         libs[name] = ctypes.CDLL(out)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    n_int = 5 if tag == "parent" else 6  # B, H, S, D, dtype / B, H, Sq, Sk, D, dtype
     libs["flash_attn_fwd"].medimgen_flash_attn_fwd.argtypes = (
-        [vp] * 5 + [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, vp])
+        [vp] * 5 + [i32] * n_int + [i64] * 6 + [ctypes.c_float, i32, vp])
     for fn in ("medimgen_flash_attn_bwd_dq", "medimgen_flash_attn_bwd_dkdv"):
         getattr(libs["flash_attn_bwd"], fn).argtypes = (
-            [vp] * 8 + [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, vp])
+            [vp] * 8 + [i32] * n_int + [i64] * 6 + [ctypes.c_float, i32, vp])
     f32, fwd = ctypes.c_float, libs["groupnorm"]
     if tag == "parent":  # channel sums, then the fold: two C calls
         fwd.medimgen_gn_channel_stats.argtypes = (
@@ -127,24 +130,27 @@ def site(libs: dict, B: int, S: int, H: int, D: int) -> dict:
     delta = torch.empty((B * H, S), device="cuda")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
 
+    def lengths(who):  # the parent's one S, or this checkout's Sq and Sk
+        return (S,) if who == "parent" else (S, S)
+
     def fwd(who):
         err = libs[who]["flash_attn_fwd"].medimgen_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, S, D,
-            1, *strides, scale, 1, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H,
+            *lengths(who), D, 1, *strides, scale, 1, stream)
         _build.check(err, f"{who} flash forward")
 
     def dq_pass(who):
         err = libs[who]["flash_attn_bwd"].medimgen_flash_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, S, D, 1, *strides, scale, 1,
-            stream)
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, *lengths(who), D, 1, *strides,
+            scale, 1, stream)
         _build.check(err, f"{who} flash dQ")
 
     def dkdv(who):
         err = libs[who]["flash_attn_bwd"].medimgen_flash_attn_bwd_dkdv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, S, D, 1, *strides, scale, 1,
-            stream)
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, *lengths(who), D, 1, *strides,
+            scale, 1, stream)
         _build.check(err, f"{who} flash dK/dV")
 
     res = {"shape": [B, S, H, D]}

@@ -2,7 +2,10 @@
 //
 // Replaces the TPU kernel `_bwd_fused_kernel` / `_flash_backward` in
 // medical_image_generation_tpu/ops/pallas_attention.py (:187-358). From q, k, v,
-// o, dO and the f32 row logsumexp `lse` (B*H, S) that the forward writes:
+// o, dO and the f32 row logsumexp `lse` (B*H, Sq) that the forward writes,
+// with queries (and o, dO, dq) of Sq rows and keys and values (and dk, dv) of
+// Sk rows (the TPU kernel takes one S for all; Sk is a cross-attention
+// context's own length here):
 //
 //   p = exp(scale q k^T - lse),  delta = rowsum(dO * o),
 //   dv = p^T dO,  ds = scale p (dO v^T - delta),  dk = ds^T q,  dq = ds k.
@@ -12,17 +15,19 @@
 // blocks run in any order, so this is the deterministic two-pass form, with
 // no atomics:
 //   * dq kernel: a block owns 64 query rows and walks the K/V tiles. It
-//     also computes delta for its rows and writes it to (B*H, S) f32.
+//     also computes delta for its rows and writes it to (B*H, Sq) f32.
 //   * dk/dv kernel (launched after it on the same stream): a cluster owns 64
 //     keys and walks the Q/dO tiles, reading lse and delta.
-// Both recompute q k^T and dO v^T, so the pair does 7 S^2 D matmuls where
+// Both recompute q k^T and dO v^T, so the pair does 7 Sq Sk D matmuls where
 // the fused form does 5; fusing the two needs atomics or a cluster
 // reduction for dq.
 //
-// Bound on this card: operations, counted as the 5 S^2 D matmuls the math
-// needs, 10*B*H*S^2*D FLOP at 989 TFLOP/s (bf16 tensor cores). The bytes
-// (q, k, v, o, dO read once, dq, dk, dv written once) bound only the small
-// (S = 512, D = 768) sites.
+// Bound on this card: operations, counted as the 5 Sq Sk D matmuls the math
+// needs, 10*B*H*Sq*Sk*D FLOP at 989 TFLOP/s (bf16 tensor cores), against
+// the bytes (q, k, v, o, dO read once, dq, dk, dv written once) at 3.35
+// TB/s. The bytes bound the small (512-token, D = 768) sites and a short
+// context (Sk = 77): there the dK/dV grid is a few key blocks, each walking
+// every query, and the dQ kernel's one key tile is mostly zero fill.
 //
 // dq kernel (bf16): the dQ accumulator of 64 rows is 64 x D f32 (32,768
 // registers at D = 512), so the head dim is split as in the forward: each
@@ -36,7 +41,7 @@
 //     rank order through DSMEM, so both CTAs hold the same bits. No partial
 //     is exchanged inside a CTA.
 //   * warpgroup 0 turns S into P = exp2(scale log2e s - lse log2e) (0 past
-//     S) and hands it to warpgroup 1 through shared memory; warpgroup 1 forms
+//     Sk) and hands it to warpgroup 1 through shared memory; warpgroup 1 forms
 //     dS = scale P (dP - delta), packs it into bf16 wgmma A fragments and
 //     hands those back (mbarrier handoffs, double-buffered). Both then take
 //     dQ += dS K on their own chunks (wgmma m64nNk16, N = 64*CPC, A from
@@ -44,14 +49,15 @@
 //   * delta = rowsum(dO * o) comes from 16-byte loads of o and dO at the
 //     start, each row summed by one quad in a fixed order.
 //   * one producer warp (one thread) loads Q and dO once and the K/V tiles
-//     through TMA into a 2-stage ring (zero fill outside S and D). No
+//     through TMA into a 2-stage ring (zero fill outside Sq, Sk and D). No
 //     setmaxnreg: the 288 threads get ptxas's 224 registers each, which
 //     holds the 128 accumulator floats with no spill (setmaxnreg needs whole
 //     producer warpgroups, whose 168-register cap spills).
 //   * keys a tile: 32 where two K/V stages fit beside the resident Q and dO
 //     (128 KB at D = 512), else 16 (D = 512, and the cluster sites).
 //   * fixed summation orders and no atomics: dq and delta are the same bits
-//     on every run. Keys past S get p = ds = 0; rows past S are not stored.
+//     on every run. Keys past Sk get p = ds = 0 (a context shorter than one
+//     key tile is one partial tile); rows past Sq are not stored.
 // Shared memory at D = 512: Q and dO 128 KB, two 16-key K/V stages 64 KB,
 // P and dS slots 12 KB.
 //
@@ -73,17 +79,20 @@
 //     of dV += P^T dO_r and dK += dS^T Q_r (wgmma m64nNk16, N = 64*CPC), with
 //     dO and Q read MN-major from the same shared-memory tiles the scores read
 //     K-major: nothing is transposed.
-//   * when the grid would not fill the card once (the 512-token sites), a
+//   * when the grid would not fill the card once (the 512-token sites, a
+//     short context's one or two key blocks), a
 //     cluster also splits the queries in two halves: twice the CTAs, each
 //     walking half the Q/dO tiles; at the end the half-1 CTA leaves its
 //     accumulators in shared memory and the half-0 CTA adds them (DSMEM, in
 //     that order) and stores dk and dv.
 //   * one producer warpgroup (one thread) loads K_r and V_r once and the
 //     Q_r / dO_r tiles (32 queries) through TMA into a 3-stage ring
-//     (128-byte swizzle, zero fill outside S and D); setmaxnreg moves
+//     (128-byte swizzle, zero fill outside Sq, Sk and D); setmaxnreg moves
 //     registers from the producer (40) to the consumers (232).
 //   * fixed summation orders and no atomics: dk and dv are the same bits on
-//     every run. Queries past S get p = ds = 0; keys past S are not stored.
+//     every run. Queries past Sq get p = ds = 0; keys past Sk are not stored
+//     (their rows of the accumulators hold the products of zero-filled K and
+//     V, and touch no other row).
 // Shared memory at D = 512: K and V 64 KB, three Q/dO stages 96 KB, partial
 // and P slots 48 KB.
 //
@@ -129,14 +138,14 @@ constexpr int dq_keys(int cpc, bool cluster) {
 // an n-CTA cluster (CLUSTER: n > 1). Warpgroup 0 forms S = Q K^T and P,
 // warpgroup 1 forms dP = dO V^T and dS (from warpgroup 0's P); both then
 // take dQ += dS K on their own CPC chunks. Warp 8 issues the TMA loads.
-// o, dO, dq: contiguous (B, S, H, D), 16-byte aligned, D a multiple of 8.
+// o, dO, dq: contiguous (B, Sq, H, D), 16-byte aligned, D a multiple of 8.
 template <int CPC, int KT, bool CLUSTER>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
                   const bf16* __restrict__ o, const bf16* __restrict__ dO,
                   const float* __restrict__ lse, float* __restrict__ delta,
-                  bf16* __restrict__ dq, int H, int S, int D, int n, float scale,
+                  bf16* __restrict__ dq, int H, int Sq, int Sk, int D, int n, float scale,
                   float scale_log2) {
     constexpr int NACC = CPC * 32;       // dq accumulator floats a thread (64 x 64*CPC)
     constexpr int NS = KT / 2;           // score floats a thread (64 x KT)
@@ -156,7 +165,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
     const int q0 = (blockIdx.x / n) * BOX;
     const int col0 = rank * 2 * CPC * BOX;  // this CTA's first head-dim column
-    const int ntiles = (S + KT - 1) / KT;
+    const int ntiles = (Sk + KT - 1) / KT;
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < DQ_STAGES; ++s) {
@@ -213,12 +222,12 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     for (int r = 0; r < 2; ++r) {
         const int row = q0 + 16 * w + g + 8 * r;
         if (wg == 0) {
-            rowv[r] = row < S ? lse[(long long)bh * S + row] * LOG2E : INFINITY;
+            rowv[r] = row < Sq ? lse[(long long)bh * Sq + row] * LOG2E : INFINITY;
             continue;
         }
         float acc = 0.f;
-        if (row < S) {
-            const long long off = (((long long)b * S + row) * H + h) * D;
+        if (row < Sq) {
+            const long long off = (((long long)b * Sq + row) * H + h) * D;
             for (int c = 8 * tq; c < D; c += 32) {
                 const uint4 ov = *reinterpret_cast<const uint4*>(o + off + c);
                 const uint4 dv = *reinterpret_cast<const uint4*>(dO + off + c);
@@ -235,7 +244,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant_
         acc += __shfl_xor_sync(0xffffffffu, acc, 1);
         acc += __shfl_xor_sync(0xffffffffu, acc, 2);
         rowv[r] = acc;
-        if (rank == 0 && tq == 0 && row < S) delta[(long long)bh * S + row] = acc;
+        if (rank == 0 && tq == 0 && row < Sq) delta[(long long)bh * Sq + row] = acc;
     }
 
     float acc[NACC];
@@ -275,11 +284,11 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant_
         }
 
         unsigned a[KK][4];
-        if (wg == 0) {  // p = exp(scale s - lse), 0 past S; hand it over, take dS back
+        if (wg == 0) {  // p = exp(scale s - lse), 0 past Sk; hand it over, take dS back
 #pragma unroll
             for (int i = 0; i < NS; ++i) {
                 const int key = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
-                sc[i] = key < S ? exp2f(fmaf(sc[i], scale_log2, -rowv[(i >> 1) & 1])) : 0.f;
+                sc[i] = key < Sk ? exp2f(fmaf(sc[i], scale_log2, -rowv[(i >> 1) & 1])) : 0.f;
             }
             slot_store(pslot, sc, t);
             mbar_arrive(&p_ready[buf]);
@@ -323,8 +332,8 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant_
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = q0 + 16 * w + g + 8 * r;
-        if (row >= S) continue;
-        bf16* orow = dq + (((long long)b * S + row) * H + h) * D;
+        if (row >= Sq) continue;
+        bf16* orow = dq + (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
         for (int i = 0; i < NACC / 4; ++i) {
             const int c = wcol0 + 8 * i + 2 * tq;
@@ -370,8 +379,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                     const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S, int D, int n,
-                    int halves, float scale, float scale_log2) {
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk, int D,
+                    int n, int halves, float scale, float scale_log2) {
     constexpr int NACC = CPC * 32;  // dv or dk accumulator floats a thread (64 x 64*CPC)
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = align1024(smem_raw);
@@ -390,8 +399,8 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constan
     const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
     const int k0 = (blockIdx.x / (n * halves)) * BOX;
     const int col0 = (rank % n) * CPC * BOX;
-    const int per = ((S + TILE - 1) / TILE + halves - 1) / halves;  // query tiles a half
-    const int jb = half * per, ntiles = max(0, min(per, (S + TILE - 1) / TILE - jb));
+    const int per = ((Sq + TILE - 1) / TILE + halves - 1) / halves;  // query tiles a half
+    const int jb = half * per, ntiles = max(0, min(per, (Sq + TILE - 1) / TILE - jb));
     const bool clustered = n * halves > 1;
 
     if (threadIdx.x == 0) {
@@ -451,7 +460,7 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constan
         float acc[NACC];
 #pragma unroll
         for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-        const float* row_bh = (wg == 0 ? lse : delta) + (long long)bh * S;
+        const float* row_bh = (wg == 0 ? lse : delta) + (long long)bh * Sq;
         mbar_wait(kvbar, 0);
 
         for (int j = 0; j < ntiles; ++j) {
@@ -483,8 +492,8 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constan
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
                     const int q = i0 + 8 * i + 2 * tq + e;
-                    rowv[2 * i + e] = wg == 0 ? (q < S ? row_bh[q] * LOG2E : INFINITY)
-                                              : (q < S ? row_bh[q] : 0.f);
+                    rowv[2 * i + e] = wg == 0 ? (q < Sq ? row_bh[q] * LOG2E : INFINITY)
+                                              : (q < Sq ? row_bh[q] : 0.f);
                 }
 
             if (n > 1) {  // sum the cluster's n partials of this matrix, in rank order
@@ -496,7 +505,7 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constan
             }
 
             float4* pslot = slots + (3 * buf + 2) * SLOT_F4;
-            if (wg == 0) {  // p^T = exp(scale s^T - lse), 0 past S; hand it to wg 1
+            if (wg == 0) {  // p^T = exp(scale s^T - lse), 0 past Sq; hand it to wg 1
 #pragma unroll
                 for (int i = 0; i < 16; ++i)
                     sc[i] = exp2f(fmaf(sc[i], scale_log2, -rowv[2 * (i >> 2) + (i & 1)]));
@@ -554,8 +563,8 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constan
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
                 const int row = k0 + 16 * w + g + 8 * r;
-                if (row >= S) continue;
-                bf16* orow = out + (((long long)b * S + row) * H + h) * D;
+                if (row >= Sk) continue;
+                bf16* orow = out + (((long long)b * Sk + row) * H + h) * D;
 #pragma unroll
                 for (int i = 0; i < NACC / 4; ++i) {
                     const int c = col0 + 8 * i + 2 * tq;
@@ -574,7 +583,7 @@ struct Args {
     const float* lse;
     float* delta;
     void *dq, *dk, *dv;
-    int B, H, S, D;
+    int B, H, Sq, Sk, D;
     long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;
     float scale;
     bool vec;
@@ -584,17 +593,17 @@ struct Args {
 template <int CPC, bool CLUSTER>
 int launch_dq_bf16(const Args& a, int n) {
     constexpr int KT = dq_keys(CPC, CLUSTER);
-    const long long o_ss = (long long)a.H * a.D, o_sb = o_ss * a.S;  // dO: contiguous BSHD
+    const long long o_ss = (long long)a.H * a.D, o_sb = o_ss * a.Sq;  // dO: contiguous BSHD
     CUtensorMap mq, mk, mv, mdo;
-    int err = make_map_bshd(&mq, a.q, a.B, a.H, a.S, a.D, a.q_sb, a.q_ss, BOX);
-    if (!err) err = make_map_bshd(&mk, a.k, a.B, a.H, a.S, a.D, a.k_sb, a.k_ss, KT);
-    if (!err) err = make_map_bshd(&mv, a.v, a.B, a.H, a.S, a.D, a.v_sb, a.v_ss, KT);
-    if (!err) err = make_map_bshd(&mdo, a.dO, a.B, a.H, a.S, a.D, o_sb, o_ss, BOX);
+    int err = make_map_bshd(&mq, a.q, a.B, a.H, a.Sq, a.D, a.q_sb, a.q_ss, BOX);
+    if (!err) err = make_map_bshd(&mk, a.k, a.B, a.H, a.Sk, a.D, a.k_sb, a.k_ss, KT);
+    if (!err) err = make_map_bshd(&mv, a.v, a.B, a.H, a.Sk, a.D, a.v_sb, a.v_ss, KT);
+    if (!err) err = make_map_bshd(&mdo, a.dO, a.B, a.H, a.Sq, a.D, o_sb, o_ss, BOX);
     if (err) return err;
     constexpr unsigned smem = DqLayout(CPC, KT, CLUSTER).total;
     if (const int e = allow_smem<flash_bwd_dq_bf16<CPC, KT, CLUSTER>>(smem)) return e;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n * ((a.S + BOX - 1) / BOX), a.B * a.H);
+    cfg.gridDim = dim3(n * ((a.Sq + BOX - 1) / BOX), a.B * a.H);
     cfg.blockDim = dim3(DQ_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = a.st;
@@ -608,37 +617,38 @@ int launch_dq_bf16(const Args& a, int n) {
     const cudaError_t e = cudaLaunchKernelEx(
         &cfg, flash_bwd_dq_bf16<CPC, KT, CLUSTER>, mq, mk, mv, mdo,
         static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dO), a.lse, a.delta,
-        static_cast<bf16*>(a.dq), a.H, a.S, a.D, n, a.scale, a.scale * LOG2E);
+        static_cast<bf16*>(a.dq), a.H, a.Sq, a.Sk, a.D, n, a.scale, a.scale * LOG2E);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
-// Query halves: two when the grid would not fill the card once (the U-Net's
-// 512-token sites), so that twice the CTAs each walk half the queries.
+// Query halves: two when the grid of key blocks would not fill the card once
+// (the U-Net's 512-token sites, a short context), so that twice the CTAs each
+// walk half the queries; only where there are two query tiles to split.
 int pick_halves(const Args& a, int n) {
     static int sms = 0;  // the SMs of the first device this runs on
     int dev = 0;
     if (!sms && (cudaGetDevice(&dev) != cudaSuccess ||
                  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess))
         return 1;
-    const long long ctas = (long long)a.B * a.H * ((a.S + BOX - 1) / BOX) * n;
-    return 2 * ctas <= sms && a.S > TILE ? 2 : 1;
+    const long long ctas = (long long)a.B * a.H * ((a.Sk + BOX - 1) / BOX) * n;
+    return 2 * ctas <= sms && a.Sq > TILE ? 2 : 1;
 }
 
 template <int CPC>
 int launch_dkdv_bf16(const Args& a, int n) {
-    const long long o_ss = (long long)a.H * a.D, o_sb = o_ss * a.S;  // dO: contiguous BSHD
+    const long long o_ss = (long long)a.H * a.D, o_sb = o_ss * a.Sq;  // dO: contiguous BSHD
     CUtensorMap mq, mk, mv, mdo;
-    int err = make_map_bshd(&mq, a.q, a.B, a.H, a.S, a.D, a.q_sb, a.q_ss, TILE);
-    if (!err) err = make_map_bshd(&mk, a.k, a.B, a.H, a.S, a.D, a.k_sb, a.k_ss, BOX);
-    if (!err) err = make_map_bshd(&mv, a.v, a.B, a.H, a.S, a.D, a.v_sb, a.v_ss, BOX);
-    if (!err) err = make_map_bshd(&mdo, a.dO, a.B, a.H, a.S, a.D, o_sb, o_ss, TILE);
+    int err = make_map_bshd(&mq, a.q, a.B, a.H, a.Sq, a.D, a.q_sb, a.q_ss, TILE);
+    if (!err) err = make_map_bshd(&mk, a.k, a.B, a.H, a.Sk, a.D, a.k_sb, a.k_ss, BOX);
+    if (!err) err = make_map_bshd(&mv, a.v, a.B, a.H, a.Sk, a.D, a.v_sb, a.v_ss, BOX);
+    if (!err) err = make_map_bshd(&mdo, a.dO, a.B, a.H, a.Sq, a.D, o_sb, o_ss, TILE);
     if (err) return err;
     const unsigned smem = DkvLayout(CPC).total;
     if (const int e = allow_smem<flash_bwd_dkdv_bf16<CPC>>(smem)) return e;
     cudaLaunchConfig_t cfg = {};
     const int halves = pick_halves(a, n);
-    cfg.gridDim = dim3(n * halves * ((a.S + BOX - 1) / BOX), a.B * a.H);
+    cfg.gridDim = dim3(n * halves * ((a.Sk + BOX - 1) / BOX), a.B * a.H);
     cfg.blockDim = dim3(WS_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = a.st;
@@ -651,8 +661,8 @@ int launch_dkdv_bf16(const Args& a, int n) {
     cfg.numAttrs = 1;
     const cudaError_t e = cudaLaunchKernelEx(
         &cfg, flash_bwd_dkdv_bf16<CPC>, mq, mk, mv, mdo, a.lse, (const float*)a.delta,
-        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.S, a.D, n, halves, a.scale,
-        a.scale * LOG2E);
+        static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.Sq, a.Sk, a.D, n, halves,
+        a.scale, a.scale * LOG2E);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
@@ -681,7 +691,8 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ o,
                  const float* __restrict__ dO, const float* __restrict__ lse,
-                 float* __restrict__ delta, float* __restrict__ dq, int H, int S, int D,
+                 float* __restrict__ delta, float* __restrict__ dq, int H, int Sq, int Sk,
+                 int D,
                  long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                  long long v_ss, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
@@ -700,10 +711,10 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* sDelta = sLse + BQ32;
 
     const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-    const int q0 = blockIdx.x * BQ32, nq = min(BQ32, S - q0);
+    const int q0 = blockIdx.x * BQ32, nq = min(BQ32, Sq - q0);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const long long o_ss = (long long)H * D;
-    const long long o_base = ((long long)b * S * H + h) * D;
+    const long long o_base = ((long long)b * Sq * H + h) * D;
     const float* qb = q + b * q_sb + (long long)h * D;
     const float* kb = k + b * k_sb + (long long)h * D;
     const float* vb = v + b * v_sb + (long long)h * D;
@@ -721,13 +732,13 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
         acc = warp_sum(acc);
         if (lane == 0) {
             sDelta[r] = acc;
-            sLse[r] = r < nq ? lse[(long long)bh * S + q0 + r] : 0.f;
-            if (r < nq) delta[(long long)bh * S + q0 + r] = acc;
+            sLse[r] = r < nq ? lse[(long long)bh * Sq + q0 + r] : 0.f;
+            if (r < nq) delta[(long long)bh * Sq + q0 + r] = acc;
         }
     }
 
-    for (int k0 = 0; k0 < S; k0 += BQ32) {
-        const int nk = min(BQ32, S - k0);
+    for (int k0 = 0; k0 < Sk; k0 += BQ32) {
+        const int nk = min(BQ32, Sk - k0);
         __syncthreads();
         load_tile_f32(sKV, ldt, vb + k0 * v_ss, v_ss, nk, BQ32, D, Dp);
         __syncthreads();
@@ -770,7 +781,8 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dO,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv, int H, int S, int D,
+                   float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Sk,
+                   int D,
                    long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                    long long v_sb, long long v_ss, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
@@ -791,9 +803,10 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     float* sDelta = sLse + BQ32;
 
     const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-    const int k0 = blockIdx.x * BK32, nk = min(BK32, S - k0);
+    const int k0 = blockIdx.x * BK32, nk = min(BK32, Sk - k0);
     const long long o_ss = (long long)H * D;
-    const long long o_base = ((long long)b * S * H + h) * D;
+    const long long o_base = ((long long)b * Sq * H + h) * D;  // dO: (B, Sq, H, D)
+    const long long k_base = ((long long)b * Sk * H + h) * D;  // dk, dv: (B, Sk, H, D)
     const float* qb = q + b * q_sb + (long long)h * D;
     const float* kb = k + b * k_sb + (long long)h * D;
     const float* vb = v + b * v_sb + (long long)h * D;
@@ -802,14 +815,14 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     load_tile_f32(sV, ldt, vb + k0 * v_ss, v_ss, nk, BK32, D, Dp);
     for (int i = threadIdx.x; i < BK32 * ldt; i += NTHREADS) { sdK[i] = 0.f; sdV[i] = 0.f; }
 
-    for (int i0 = 0; i0 < S; i0 += BQ32) {
-        const int nq = min(BQ32, S - i0);
+    for (int i0 = 0; i0 < Sq; i0 += BQ32) {
+        const int nq = min(BQ32, Sq - i0);
         __syncthreads();
         load_tile_f32(sQ, ldt, qb + i0 * q_ss, q_ss, nq, BQ32, D, Dp);
         load_tile_f32(sdO, ldt, dO + o_base + i0 * o_ss, o_ss, nq, BQ32, D, Dp);
         for (int c = threadIdx.x; c < BQ32; c += NTHREADS) {
-            sLse[c] = c < nq ? lse[(long long)bh * S + i0 + c] : 0.f;
-            sDelta[c] = c < nq ? delta[(long long)bh * S + i0 + c] : 0.f;
+            sLse[c] = c < nq ? lse[(long long)bh * Sq + i0 + c] : 0.f;
+            sDelta[c] = c < nq ? delta[(long long)bh * Sq + i0 + c] : 0.f;
         }
         __syncthreads();
         for (int idx = threadIdx.x; idx < BK32 * BQ32; idx += NTHREADS) {
@@ -842,7 +855,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int idx = threadIdx.x; idx < nk * D; idx += NTHREADS) {
         const int r = idx / D, d = idx - r * D;
-        const long long at = o_base + (k0 + r) * o_ss + d;
+        const long long at = k_base + (k0 + r) * o_ss + d;
         dk[at] = sdK[r * ldt + d];
         dv[at] = sdV[r * ldt + d];
     }
@@ -858,16 +871,16 @@ int launch_f32(const Args& a, bool dq_pass) {
     const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
                 *v = static_cast<const float*>(a.v), *dO = static_cast<const float*>(a.dO);
     if (dq_pass) {
-        const dim3 grid((a.S + BQ32 - 1) / BQ32, a.B * a.H);
+        const dim3 grid((a.Sq + BQ32 - 1) / BQ32, a.B * a.H);
         flash_bwd_dq_f32<<<grid, NTHREADS, smem, a.st>>>(
             q, k, v, static_cast<const float*>(a.o), dO, a.lse, a.delta,
-            static_cast<float*>(a.dq), a.H, a.S, a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb,
+            static_cast<float*>(a.dq), a.H, a.Sq, a.Sk, a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb,
             a.v_ss, a.scale);
     } else {
-        const dim3 grid((a.S + BK32 - 1) / BK32, a.B * a.H);
+        const dim3 grid((a.Sk + BK32 - 1) / BK32, a.B * a.H);
         flash_bwd_dkdv_f32<<<grid, NTHREADS, smem, a.st>>>(
             q, k, v, dO, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-            a.H, a.S, a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.scale);
+            a.H, a.Sq, a.Sk, a.D, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.scale);
     }
     return (int)cudaGetLastError();
 }
@@ -886,7 +899,8 @@ size_t smem_bytes(int D, int dtype) {
 }
 
 int run(const Args& a, int dtype, bool dq_pass) {
-    if (a.D < 1 || smem_bytes(a.D, dtype) > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    if (a.D < 1 || a.Sq < 1 || a.Sk < 1 || smem_bytes(a.D, dtype) > MAX_SMEM)
+        return (int)cudaErrorInvalidValue;
     if (dtype == 0) return launch_f32(a, dq_pass);
     // bf16: TMA needs aligned bases and 8-element strides (the caller copies other inputs)
     if (dtype != 1 || !a.vec) return (int)cudaErrorInvalidValue;
@@ -922,29 +936,33 @@ long long medimgen_flash_attn_bwd_smem_bytes(int D, int dtype) {
     return (long long)smem_bytes(D, dtype);
 }
 
-// q/k/v: element (b, s, h, d) at base + b*sb + s*ss + h*D + d. o, dO and the
-// outputs dq, dk, dv: contiguous (B, S, H, D) of q's dtype; lse, delta:
-// contiguous f32 (B*H, S). vec != 0 (bf16): every base pointer is 16-byte
-// aligned and D and all strides are multiples of 8 elements.
+// q: element (b, s, h, d) at base + b*sb + s*ss + h*D + d for s < Sq; k, v
+// the same for s < Sk. o, dO and dq: contiguous (B, Sq, H, D), dk and dv:
+// contiguous (B, Sk, H, D), of q's dtype; lse, delta: contiguous f32 (B*H,
+// Sq). vec != 0 (bf16): every base pointer is 16-byte aligned and D and all
+// strides are multiples of 8 elements.
 // The dq pass writes dq and delta; the dk/dv pass reads delta and must run
 // after it on the same stream. Each returns the cudaError_t code.
 int medimgen_flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                const void* dO, const float* lse, float* delta, void* dq,
-                               int B, int H, int S, int D, int dtype, long long q_sb,
+                               int B, int H, int Sq, int Sk, int D, int dtype,
+                               long long q_sb,
                                long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                                long long v_ss, float scale, int vec, void* stream) {
-    const Args a{q, k, v, o, dO, lse, delta, dq, nullptr, nullptr, B, H, S, D, q_sb, q_ss,
-                 k_sb, k_ss, v_sb, v_ss, scale, vec != 0, static_cast<cudaStream_t>(stream)};
+    const Args a{q, k, v, o, dO, lse, delta, dq, nullptr, nullptr, B, H, Sq, Sk, D, q_sb,
+                 q_ss, k_sb, k_ss, v_sb, v_ss, scale, vec != 0,
+                 static_cast<cudaStream_t>(stream)};
     return run(a, dtype, true);
 }
 
 int medimgen_flash_attn_bwd_dkdv(const void* q, const void* k, const void* v, const void* dO,
                                  const float* lse, const float* delta, void* dk, void* dv,
-                                 int B, int H, int S, int D, int dtype, long long q_sb,
+                                 int B, int H, int Sq, int Sk, int D, int dtype,
+                                 long long q_sb,
                                  long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                                  long long v_ss, float scale, int vec, void* stream) {
     const Args a{q, k, v, nullptr, dO, lse, const_cast<float*>(delta), nullptr, dk, dv, B, H,
-                 S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, vec != 0,
+                 Sq, Sk, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, vec != 0,
                  static_cast<cudaStream_t>(stream)};
     return run(a, dtype, false);
 }

@@ -2,14 +2,18 @@
 //
 // Replaces the TPU kernel `_flash_kernel` / `_flash_forward` in
 // medical_image_generation_tpu/ops/pallas_attention.py (:61-184): softmax(scale * Q K^T) V
-// over (B*H, S, D) with an online softmax across K tiles, f32 running max m,
-// f32 running sum l and an f32 output accumulator, and no S x S buffer. It
-// writes O (input dtype) and the f32 row logsumexp (B*H, S) that a backward
-// pass consumes.
+// over (B*H, Sq, D) queries and (B*H, Sk, D) keys and values with an online
+// softmax across K tiles, f32 running max m, f32 running sum l and an f32
+// output accumulator, and no Sq x Sk buffer. It writes O (input dtype, Sq
+// rows) and the f32 row logsumexp (B*H, Sq) that a backward pass consumes.
+// The TPU kernel takes one S for q, k and v; here Sk is its own length (a
+// cross-attention context of 1 or 77 tokens, or longer than Sq).
 //
-// Bound on this card: operations. 4*B*H*S^2*D FLOP at 989 TFLOP/s (bf16 tensor
-// cores); the bytes (Q, K, V read once, O written once) are ~1% of that time
-// at the U-Net's shapes (S=4096, D=512 and S=512, D=768).
+// Bound on this card: 4*B*H*Sq*Sk*D FLOP at 989 TFLOP/s (bf16 tensor cores)
+// against the bytes (Q, K, V read once, O and lse written once) at 3.35 TB/s.
+// Operations bound self-attention at the U-Net's shapes (Sq = Sk = 4096, D =
+// 512; the bytes are ~1% of that time); bytes bound a short context (Sk =
+// 77), and every key tile past Sk is a tile of zeros and masked scores.
 //
 // Design (bf16, the model's path). The TPU kernel walks K blocks inside one
 // grid step; here a CTA, or a cluster of n CTAs, owns 64 query rows of one
@@ -35,11 +39,13 @@
 //     P V wgmma (m64nNk16, N = 64*CPC) after conversion to bf16; V is read
 //     MN-major from shared memory, so nothing is transposed.
 //   * One producer warpgroup (one thread) loads Q once and K/V tiles through
-//     TMA (cp.async.bulk.tensor, 128-byte swizzle, zero fill outside S and D)
+//     TMA (cp.async.bulk.tensor, 128-byte swizzle, zero fill outside Sq, Sk and D)
 //     into a ring of 2 stages, completing on mbarriers; consumers release a
 //     stage with an arrival of each thread. setmaxnreg moves registers from
 //     the producer (24) to the consumers (240).
-//   * Ragged S: keys past S get score -inf, query rows past S are not stored;
+//   * Ragged lengths: keys past Sk get score -inf (a context shorter than
+//     one 32-key tile is one partial tile: TMA zero-fills K and V past Sk),
+//     query rows past Sq are not stored;
 //     D is padded with TMA's zero fill, and the wrapper copies inputs TMA
 //     cannot describe (misaligned base, strides or D not multiples of 8).
 // Shared memory at D = 512: Q 64 KB, two K/V stages 128 KB, partial slots
@@ -114,7 +120,7 @@ template <int CPC, bool CLUSTER>  // CLUSTER: n > 1
 __global__ void __launch_bounds__(WS_THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
-               float* __restrict__ lse, int H, int S, int D, int n, float scale_log2) {
+               float* __restrict__ lse, int H, int Sq, int Sk, int D, int n, float scale_log2) {
     constexpr int NACC = CPC * 32;  // O accumulator floats a thread (64 x 64*CPC)
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = align1024(smem_raw);
@@ -129,7 +135,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
     const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
     const int q0 = (blockIdx.x / n) * BOX;
     const int col0 = rank * 2 * CPC * BOX;  // this CTA's first head-dim column
-    const int ntiles = (S + TILE - 1) / TILE;
+    const int ntiles = (Sk + TILE - 1) / TILE;
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < 2; ++s) {
@@ -217,12 +223,12 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
 
             // online softmax in registers (log2 units); rows g and g + 8 of warp w
             const int k0 = j * TILE;
-            if (k0 + TILE > S) {
+            if (k0 + TILE > Sk) {
 #pragma unroll
                 for (int i = 0; i < 4; ++i)
 #pragma unroll
                     for (int e = 0; e < 4; ++e)
-                        if (k0 + 8 * i + 2 * tq + (e & 1) >= S) sc[4 * i + e] = -INFINITY;
+                        if (k0 + 8 * i + 2 * tq + (e & 1) >= Sk) sc[4 * i + e] = -INFINITY;
             }
             float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -266,14 +272,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
             mbar_arrive(&empty[s]);
         }
 
-        // O = acc / l into (B, S, H, D); lse = m + log(l) into (B*H, S)
+        // O = acc / l into (B, Sq, H, D); lse = m + log(l) into (B*H, Sq)
         const int wcol0 = col0 + wg * CPC * BOX;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             const int row = q0 + 16 * w + g + 8 * r;
-            if (row >= S) continue;
+            if (row >= Sq) continue;
             const float inv = 1.f / l[r];
-            bf16* orow = o + (((long long)b * S + row) * H + h) * D;
+            bf16* orow = o + (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
             for (int i = 0; i < NACC / 4; ++i) {
                 const int c = wcol0 + 8 * i + 2 * tq;
@@ -282,7 +288,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
                         acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
             }
             if (rank == 0 && wg == 0 && tq == 0)
-                lse[(long long)bh * S + row] = (m[r] + log2f(l[r])) * LN2;
+                lse[(long long)bh * Sq + row] = (m[r] + log2f(l[r])) * LN2;
         }
         if (CLUSTER) cluster_sync();  // no CTA leaves while a peer may read its slots
     }
@@ -290,17 +296,18 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
 
 template <int CPC, bool CLUSTER>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                int S, int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-                long long v_sb, long long v_ss, float scale, int n, cudaStream_t st) {
+                int Sq, int Sk, int D, long long q_sb, long long q_ss, long long k_sb,
+                long long k_ss, long long v_sb, long long v_ss, float scale, int n,
+                cudaStream_t st) {
     CUtensorMap mq, mk, mv;
-    int err = make_map_bshd(&mq, q, B, H, S, D, q_sb, q_ss, BOX);
-    if (!err) err = make_map_bshd(&mk, k, B, H, S, D, k_sb, k_ss, TILE);
-    if (!err) err = make_map_bshd(&mv, v, B, H, S, D, v_sb, v_ss, TILE);
+    int err = make_map_bshd(&mq, q, B, H, Sq, D, q_sb, q_ss, BOX);
+    if (!err) err = make_map_bshd(&mk, k, B, H, Sk, D, k_sb, k_ss, TILE);
+    if (!err) err = make_map_bshd(&mv, v, B, H, Sk, D, v_sb, v_ss, TILE);
     if (err) return err;
     const unsigned smem = FwdLayout(CPC).total;
     if (const int e = allow_smem<flash_fwd_bf16<CPC, CLUSTER>>(smem)) return e;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(n * ((S + BOX - 1) / BOX), B * H);
+    cfg.gridDim = dim3(n * ((Sq + BOX - 1) / BOX), B * H);
     cfg.blockDim = dim3(WS_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = st;
@@ -312,7 +319,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t e = cudaLaunchKernelEx(&cfg, flash_fwd_bf16<CPC, CLUSTER>, mq, mk, mv,
-                                             static_cast<bf16*>(o), lse, H, S, D, n,
+                                             static_cast<bf16*>(o), lse, H, Sq, Sk, D, n,
                                              scale * LOG2E);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
@@ -343,7 +350,7 @@ struct LayoutF32 {
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              int H, int S, int D, long long q_sb, long long q_ss, long long k_sb,
+              int H, int Sq, int Sk, int D, long long q_sb, long long q_ss, long long k_sb,
               long long k_ss, long long v_sb, long long v_ss, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
     const LayoutF32 L(D);
@@ -363,12 +370,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float* kb = k + b * k_sb + (long long)h * D;
     const float* vb = v + b * v_sb + (long long)h * D;
 
-    load_tile_f32(sQ, ldt, qb + q0 * q_ss, q_ss, min(BQ32, S - q0), BQ32, D, Dp);
+    load_tile_f32(sQ, ldt, qb + q0 * q_ss, q_ss, min(BQ32, Sq - q0), BQ32, D, Dp);
     for (int i = threadIdx.x; i < BQ32 * ldo; i += NTHREADS) sO[i] = 0.f;
     for (int i = threadIdx.x; i < BQ32; i += NTHREADS) { sM[i] = -1e30f; sL[i] = 0.f; }
 
-    for (int k0 = 0; k0 < S; k0 += BK32) {
-        const int nk = min(BK32, S - k0);
+    for (int k0 = 0; k0 < Sk; k0 += BK32) {
+        const int nk = min(BK32, Sk - k0);
         load_tile_f32(sKV, ldt, kb + k0 * k_ss, k_ss, nk, BK32, D, Dp);
         __syncthreads();
         for (int idx = threadIdx.x; idx < BQ32 * BK32; idx += NTHREADS) {
@@ -395,27 +402,27 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         __syncthreads();
     }
 
-    const int nq = min(BQ32, S - q0);
+    const int nq = min(BQ32, Sq - q0);
     for (int idx = threadIdx.x; idx < nq * D; idx += NTHREADS) {
         const int r = idx / D, d = idx - r * D;
-        o[(((long long)b * S + q0 + r) * H + h) * D + d] = sO[r * ldo + d] / sL[r];
+        o[(((long long)b * Sq + q0 + r) * H + h) * D + d] = sO[r * ldo + d] / sL[r];
     }
     for (int r = threadIdx.x; r < nq; r += NTHREADS)
-        lse[(long long)bh * S + q0 + r] = sM[r] + logf(sL[r]);
+        lse[(long long)bh * Sq + q0 + r] = sM[r] + logf(sL[r]);
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-               int S, int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-               long long v_sb, long long v_ss, float scale, cudaStream_t st) {
+               int Sq, int Sk, int D, long long q_sb, long long q_ss, long long k_sb,
+               long long k_ss, long long v_sb, long long v_ss, float scale, cudaStream_t st) {
     const size_t smem = LayoutF32(D).total;
     cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S + BQ32 - 1) / BQ32, B * H);
+    const dim3 grid((Sq + BQ32 - 1) / BQ32, B * H);
     flash_fwd_f32<<<grid, NTHREADS, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, H, S, D, q_sb, q_ss, k_sb,
-        k_ss, v_sb, v_ss, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, H, Sq, Sk, D, q_sb, q_ss,
+        k_sb, k_ss, v_sb, v_ss, scale);
     return (int)cudaGetLastError();
 }
 
@@ -433,26 +440,28 @@ long long medimgen_flash_attn_smem_bytes(int D, int dtype) { return (long long)s
 
 long long medimgen_flash_attn_smem_limit() { return (long long)MAX_SMEM; }
 
-// q/k/v: element (b, s, h, d) at base + b*sb + s*ss + h*D + d.
-// o: contiguous (B, S, H, D); lse: contiguous f32 (B*H, S).
+// q: element (b, s, h, d) at base + b*sb + s*ss + h*D + d for s < Sq; k, v
+// the same for s < Sk. o: contiguous (B, Sq, H, D); lse: contiguous f32
+// (B*H, Sq).
 // vec != 0: every base pointer is 16-byte aligned and D and all strides are
 // multiples of 8 elements. The bf16 kernel loads through TMA and needs it
 // (the caller copies other inputs first). Returns the cudaError_t code.
 int medimgen_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                            int B, int H, int S, int D, int dtype,
+                            int B, int H, int Sq, int Sk, int D, int dtype,
                             long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                             long long v_sb, long long v_ss, float scale, int vec,
                             void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (smem_bytes(D, dtype) > MAX_SMEM || D < 1) return (int)cudaErrorInvalidValue;
+    if (smem_bytes(D, dtype) > MAX_SMEM || D < 1 || Sq < 1 || Sk < 1)
+        return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-        return launch_f32(q, k, v, o, lse, B, H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+        return launch_f32(q, k, v, o, lse, B, H, Sq, Sk, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                           scale, st);
     if (dtype != 1 || !vec) return (int)cudaErrorInvalidValue;
     const Split sp(D);
     // n > 1 only from D = 513, where cpc is 3
 #define MEDIMGEN_ARGS \
-    q, k, v, o, lse, B, H, S, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, sp.n, st
+    q, k, v, o, lse, B, H, Sq, Sk, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, sp.n, st
     if (sp.n > 1)
         return sp.cpc == 3 ? launch_bf16<3, true>(MEDIMGEN_ARGS) : (int)cudaErrorInvalidValue;
     switch (sp.cpc) {

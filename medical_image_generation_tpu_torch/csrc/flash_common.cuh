@@ -117,13 +117,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // Tensor map of a bf16 view with element (b, s, h, d) at base + b*sb + s*ss +
-// h*D + d: dims (D, H, S, B), boxes of 64 columns x `rows` rows of S. Needs a
-// 16-byte aligned base and D, ss, sb multiples of 8. Returns a cudaError_t code.
+// h*D + d: dims (D, H, S, B), boxes of 64 columns x `rows` rows of S, where S
+// is the length of this tensor (Sq for q and dO, Sk for k and v: a box may
+// be longer than S, and TMA zero-fills the rows past it). Needs a 16-byte
+// aligned base and D, ss, sb multiples of 8. Returns a cudaError_t code.
 inline int make_map_bshd(CUtensorMap* map, const void* base, int B, int H, int S, int D,
                          long long sb, long long ss, int rows) {
     EncodeTiledFn fn = encode_tiled();
     if (!fn) return (int)cudaErrorNotSupported;
-    if (B == 1) sb = ss * S;  // any valid stride for a dimension of size 1
+    if (B == 1) sb = ss * S;  // any valid stride for a dimension of size 1 (S: this tensor's)
     const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
     const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};

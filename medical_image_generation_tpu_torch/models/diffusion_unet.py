@@ -18,11 +18,14 @@ num_head_channels[level])`` heads. Both attentions run through the flash
 kernels; without a ``context`` (no trainer passes one) the second attends
 to the block's own tokens. The LayerNorms have eps 1e-6 and the GELU is
 the tanh approximation, as flax's defaults are. The flax module sizes the
-key / value projections from the context it is initialised with, and the
-trainers initialise without one, so they map ``channels`` to ``channels``
-and ``cross_attention_dim`` is read by neither package's U-Net
-(``SpatialTransformer(context_dim=...)`` builds projections for a context
-of another width).
+key / value projections from the context it is initialised with. The
+trainers initialise without one, so there they map ``channels`` to
+``channels``, and ``cross_attention_dim`` is read by neither package's
+U-Net (``from_config`` ignores it). ``DiffusionUNet(context_dim=E)`` (or
+``from_config(..., context_dim=E)``) builds every transformer's key / value
+projections for a context of width E, the tree flax initialises with a
+(B, Sk, E) context: ``forward(x, t, context=c)`` then attends to c's Sk
+tokens at every site, through the same flash kernels (Sk of its own).
 
 ``forward`` takes the ControlNet residuals (JAX :234-249):
 ``down_block_additional_residuals`` added to the collected skips (zipped,
@@ -171,7 +174,9 @@ class DiffusionUNet(nn.Module):
     C_in) returns the fp32 prediction in (B, *spatial, C_out). Build from the
     planner's ddpm_params with ``from_config``. ``param_dtype`` (default:
     ``dtype``) holds the conv / linear weights: fp32 for training with bf16
-    compute."""
+    compute. ``context_dim`` (needs ``with_conditioning``) sizes the
+    transformers' key / value projections for ``forward``'s (B, Sk,
+    context_dim) context; None maps each site's own channels."""
 
     def __init__(self, spatial_dims=3, in_channels=8, out_channels=8,
                  num_channels=(256, 512, 768), attention_levels=(False, True, True),
@@ -180,8 +185,12 @@ class DiffusionUNet(nn.Module):
                  kernel_sizes=((3, 3, 3),) * 3, paddings=((1, 1, 1),) * 3,
                  num_class_embeds: Optional[int] = None, use_checkpointing: bool = False,
                  with_conditioning: bool = False, transformer_num_layers: int = 1,
-                 dtype=torch.float32, param_dtype=None, device=None):
+                 context_dim: Optional[int] = None, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
+        if context_dim is not None and not with_conditioning:
+            raise ValueError("context_dim sizes the SpatialTransformers' key / value "
+                             "projections: it needs with_conditioning=True")
         n = len(num_channels)
         nrb = per_level(num_res_blocks, n)
         self.dtype = dtype
@@ -204,7 +213,8 @@ class DiffusionUNet(nn.Module):
             hc = num_head_channels[level]
             if with_conditioning:
                 heads = max(1, ch // hc) if hc > 0 else 1
-                return SpatialTransformer(ch, heads, transformer_num_layers, G, sd, **kw)
+                return SpatialTransformer(ch, heads, transformer_num_layers, G, sd,
+                                          context_dim, **kw)
             return AttentionBlock(ch, hc if hc > 0 else -1, G, **kw)
 
         rb, ab = 0, 0
@@ -247,8 +257,10 @@ class DiffusionUNet(nn.Module):
         nn.init.zeros_(self.ConvND_1.Conv_0.bias)
 
     @staticmethod
-    def from_config(params: dict, dtype=torch.bfloat16, param_dtype=None,
-                    device=None) -> "DiffusionUNet":
+    def from_config(params: dict, dtype=torch.bfloat16, param_dtype=None, device=None,
+                    context_dim: Optional[int] = None) -> "DiffusionUNet":
+        """The U-Net of the planner's ddpm_params (``cross_attention_dim`` sizes
+        nothing, as in JAX); ``context_dim`` as in ``DiffusionUNet``."""
         return DiffusionUNet(
             spatial_dims=params["spatial_dims"],
             in_channels=params["in_channels"],
@@ -265,6 +277,7 @@ class DiffusionUNet(nn.Module):
             use_checkpointing=bool(params.get("use_checkpointing", False)),
             with_conditioning=bool(params.get("with_conditioning", False)),
             transformer_num_layers=int(params.get("transformer_num_layers", 1)),
+            context_dim=context_dim,
             dtype=dtype,
             param_dtype=param_dtype,
             device=device,

@@ -8,19 +8,19 @@ their source notes give the designs and the bounds.
 
 ``flash_attention(q, k, v, scale)`` takes BSHD tensors (batch, seq, heads,
 head_dim) and returns ``(o, lse)``: o in BSHD (contiguous, q's dtype) and the
-fp32 row logsumexp of shape (B*H, S), which carries no gradient. q, k and v
-may be strided views (for example the three thirds of a fused QKV
+fp32 row logsumexp of shape (B*H, Sq), which carries no gradient. k and v
+have one shape, with q's batch, heads and head dim and a sequence length Sk
+of their own (a cross-attention context of 1 or 77 tokens, or more than
+Sq): the kernels and the plain versions take any Sq >= 1 and Sk >= 1. q, k
+and v may be strided views (for example the three thirds of a fused QKV
 projection) as long as the head and head-dim axes are packed (strides D and
 1). It is one autograd Function on every device: the forward saves
 q, k, v, o and lse, and the backward is ``flash_attention_bwd``.
 
-The plain versions also take a subset of query rows as they are (q may
-have fewer rows than k and v), so on the CPU ``flash_attention`` takes k and
-v of another sequence length than q (a cross-attention context); on the
-card, where the kernels take one length for q, k and v, that raises
-``NotImplementedError``. ``flash_lse_plain_chunked`` and
-``flash_bwd_dkdv_plain_chunked`` compute the same math a chunk of query rows
-at a time, for sequences whose S x S matrix cannot be held.
+The plain versions also take a subset of query rows as they are.
+``flash_lse_plain_chunked`` and ``flash_bwd_dkdv_plain_chunked`` compute
+the same math a chunk of query rows at a time, for sequences whose Sq x Sk
+matrix cannot be held.
 
 CPU tensors go to the plain versions; CUDA tensors launch the kernels or
 raise. Launch counters: ``flash_attention.launches`` (forward),
@@ -72,7 +72,7 @@ def _bshd(t, dtype):
 
 def flash_bwd_dq_plain(q, k, v, o, lse, do, scale: float):
     """Plain dQ pass in fp32: (dq in BSHD, q's dtype; delta = rowsum(dO * o),
-    fp32 (B*H, S))."""
+    fp32 (B*H, Sq))."""
     B, S, H, _ = q.shape
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, S)
     _, ds = _bwd_scores_plain(q, k, v, do, lse, delta, scale)
@@ -82,7 +82,7 @@ def flash_bwd_dq_plain(q, k, v, o, lse, do, scale: float):
 
 def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale: float):
     """Plain dK/dV pass in fp32 from the dQ pass's delta: (dk, dv) in BSHD,
-    q's dtype."""
+    k's shape and q's dtype."""
     p, ds = _bwd_scores_plain(q, k, v, do, lse, delta, scale)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float().permute(0, 2, 1, 3))
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float().permute(0, 2, 1, 3))
@@ -141,10 +141,6 @@ def _check(q, k, v):
                          f"{q.shape}, {k.shape}, {v.shape}")
     if not (q.device == k.device == v.device) or not (q.dtype == k.dtype == v.dtype):
         raise ValueError("q/k/v must share device and dtype")
-    if q.shape[1] != k.shape[1] and q.device.type != "cpu":
-        raise NotImplementedError(
-            f"the flash kernels take one sequence length for q, k and v; keys and values of "
-            f"{k.shape[1]} tokens against {q.shape[1]} queries run only on the CPU")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got {q.dtype}")
     if q.device.type not in ("cpu", "cuda"):
@@ -161,7 +157,7 @@ def _lib_fwd():
     lib = _build.load("flash_attn_fwd")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.medimgen_flash_attn_fwd.argtypes = (
-        [vp] * 5 + [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, vp])
+        [vp] * 5 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp])
     lib.medimgen_flash_attn_fwd.restype = i32
     lib.medimgen_flash_attn_smem_bytes.argtypes = [i32, i32]
     lib.medimgen_flash_attn_smem_bytes.restype = i64
@@ -175,10 +171,10 @@ def _lib_bwd():
     lib = _build.load("flash_attn_bwd")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.medimgen_flash_attn_bwd_dq.argtypes = (
-        [vp] * 8 + [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, vp])
+        [vp] * 8 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp])
     lib.medimgen_flash_attn_bwd_dq.restype = i32
     lib.medimgen_flash_attn_bwd_dkdv.argtypes = (
-        [vp] * 8 + [i32] * 5 + [i64] * 6 + [ctypes.c_float, i32, vp])
+        [vp] * 8 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp])
     lib.medimgen_flash_attn_bwd_dkdv.restype = i32
     lib.medimgen_flash_attn_bwd_smem_bytes.argtypes = [i32, i32]
     lib.medimgen_flash_attn_bwd_smem_bytes.restype = i64
@@ -225,7 +221,8 @@ def _fwd(q, k, v, scale: float):
     """Forward on checked inputs: the plain version on the CPU, else the kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
-    B, S, H, D = q.shape
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
     lib = _lib_fwd()
     dt = _DTYPES[q.dtype]
     _check_smem(lib.medimgen_flash_attn_smem_bytes(D, dt), D, "the flash forward")
@@ -233,11 +230,11 @@ def _fwd(q, k, v, scale: float):
     if q.dtype == torch.bfloat16:
         (q, k, v), Dk, n_copies = tma_inputs(D, q, k, v)
         flash_attention.input_copies += n_copies
-    o = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     err = lib.medimgen_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, H, S, Dk, dt, *_strides(q, k, v),
+        B, H, Sq, Sk, Dk, dt, *_strides(q, k, v),
         float(scale), int(_vec_ok(Dk, q.element_size(), q, k, v)),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attn_fwd launch")
@@ -259,24 +256,26 @@ def _bwd_args(q, k, v, o, lse, do):
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
-    """dQ pass (o, do, lse contiguous): returns (dq, delta), delta =
-    rowsum(dO * o) as fp32 (B*H, S). The plain version on the CPU. In bf16
+    """dQ pass (o, do, lse contiguous): returns (dq, delta), dq of q's shape
+    and delta = rowsum(dO * o) as fp32 (B*H, Sq). The plain version on the
+    CPU. In bf16
     the kernel also reads o and dO with 16-byte loads, so all five inputs go
     through ``tma_inputs``."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, o, lse, do, scale)
-    B, S, H, D = q.shape
+    B, Sq, H, D = q.shape
     lib, dt, vec, stream = _bwd_args(q, k, v, o, lse, do)
     Dk = D
     if q.dtype == torch.bfloat16:
         (q, k, v, o, do), Dk, n_copies = tma_inputs(D, q, k, v, o, do)
         flash_bwd_dq.input_copies += n_copies
         vec = True
-    dq = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
     err = lib.medimgen_flash_attn_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B, H, S, Dk, dt, *_strides(q, k, v), float(scale),
+        delta.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[1], Dk, dt, *_strides(q, k, v),
+        float(scale),
         int(vec), stream)
     _build.check(err, "flash_attn_bwd dq launch")
     flash_bwd_dq.launches += 1
@@ -284,11 +283,12 @@ def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
-    """dK/dV pass, after ``flash_bwd_dq`` wrote delta: returns (dk, dv).
-    The plain version on the CPU."""
+    """dK/dV pass, after ``flash_bwd_dq`` wrote delta: returns (dk, dv) of
+    k's shape. The plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale)
-    B, S, H, D = q.shape
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
     lib, dt, vec, stream = _bwd_args(q, k, v, do, lse, do)
     if delta.shape != lse.shape or delta.dtype != torch.float32 or not delta.is_contiguous():
         raise ValueError(f"delta must be contiguous fp32 {tuple(lse.shape)}")
@@ -297,11 +297,12 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
         (q, k, v, do), Dk, n_copies = tma_inputs(D, q, k, v, do)
         flash_bwd_dkdv.input_copies += n_copies
         vec = True
-    dk = torch.empty((B, S, H, Dk), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, H, Dk), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     err = lib.medimgen_flash_attn_bwd_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, S, Dk, dt, *_strides(q, k, v),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, Dk, dt,
+        *_strides(q, k, v),
         float(scale), int(vec), stream)
     _build.check(err, "flash_attn_bwd dkdv launch")
     flash_bwd_dkdv.launches += 1

@@ -235,11 +235,12 @@ def test_jax_convtranspose_upsample_loses_a_voxel_an_axis():
     assert r.shape == (1, 32, 32, 32, 1)
 
 
-def test_flash_attention_takes_keys_of_another_length_on_the_cpu_only():
+def test_flash_attention_takes_keys_of_another_length_on_every_device():
     """q of 24 tokens against k / v of 10 (two heads): the output and the
-    three gradients against autograd through plain softmax attention. A
-    tensor off the CPU (here on the meta device) with Sk != Sq raises
-    ``NotImplementedError``, naming the kernels' one sequence length."""
+    three gradients against autograd through plain softmax attention. Off
+    the CPU the length is no longer refused: a meta tensor with Sk != Sq
+    meets only the device check (``ValueError``), as one with Sk == Sq
+    does."""
     g = torch.Generator().manual_seed(14)
     q = torch.randn((2, 24, 2, 8), generator=g, requires_grad=True)
     k = torch.randn((2, 10, 2, 8), generator=g, requires_grad=True)
@@ -257,7 +258,7 @@ def test_flash_attention_takes_keys_of_another_length_on_the_cpu_only():
     for a, b in ((q, qr), (k, kr), (v, vr)):
         np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), rtol=1e-5, atol=1e-5)
     meta = [t.detach().to("meta") for t in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="one sequence length"):
+    with pytest.raises(ValueError, match="runs on CUDA or CPU tensors, not meta"):
         fa.flash_attention(*meta, 0.3)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k[..., :4], v[..., :4], 0.3)

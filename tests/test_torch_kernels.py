@@ -469,16 +469,83 @@ def test_flash_kernels_at_ddpm_lengths_match_the_chunked_references_on_gpu(cuda,
     _close(dv[:, rows], r_dv, rt, at)
 
 
+# (B, Sq, Sk, H, D): a context of 1, 7 and 77 tokens (shorter than one key
+# tile) at the U-Net's 3D and 2D sites, keys longer than the queries (the
+# D = 768 cluster sites too), and a ragged pair with three heads.
+CONTEXT_SHAPES = [(2, 4096, 1, 1, 512), (2, 4096, 77, 1, 512), (2, 512, 77, 1, 768),
+                  (2, 512, 4096, 1, 768), (48, 1024, 77, 1, 512), (1, 1000, 200, 3, 96),
+                  (2, 40, 300, 2, 64), (1, 64, 7, 2, 20)]
+
+
+def _single_key_bounds(q, k, v, do, scale):
+    """Elementwise bounds on |dq| and |dk| with one key, where both vanish:
+    the fp32 rounding of dP - delta (two D-term dot products of dO, with v
+    and with o = v), scale * 2 gamma_D sum_d |dO_d v_d| (gamma_D = D u / (1
+    - D u), u = 2^-24), times |k|, or summed against |q| over the queries."""
+    D = q.shape[-1]
+    gamma = D * 2.0 ** -24 / (1 - D * 2.0 ** -24)
+    c = scale * 2 * gamma * (do.float().abs() * v.float().abs()).sum(-1, keepdim=True)
+    return c * k.float().abs(), (c * q.float().abs()).sum(1, keepdim=True)
+
+
+def _p_rounding_bound(q, k, v, scale):
+    """Elementwise bound on what rounding P to bf16 before P V (u = 2^-8)
+    moves o: u (P |V|), from the plain math in fp32. FLASH_TOL's 2^-10
+    covers that term where many keys average its signs away; against a
+    context of a few keys a few elements of o near 0 exceed it."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale, -1)
+    return (2.0 ** -8 * (p @ vf.abs())).permute(0, 2, 1, 3)
+
+
 @pytest.mark.cuda
-def test_flash_refuses_keys_of_another_length_on_gpu(cuda, monkeypatch):
-    """k / v of 7 tokens against 64 queries (a cross-attention context) raise
-    NotImplementedError on the card, before any launch; the plain version,
-    which takes them on the CPU, does not run in the kernels' place."""
-    q = torch.randn((2, 64, 2, 8), device=cuda)
-    k, v = (torch.randn((2, 7, 2, 8), device=cuda) for _ in range(2))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,D", CONTEXT_SHAPES)
+def test_flash_kernels_at_another_key_length_match_plain_on_gpu(cuda, B, Sq, Sk, H, D, dtype):
+    """Forward, dQ and dK/dV with keys and values of Sk tokens against Sq
+    queries: each one launch, each within the tolerances above of its
+    plain version (o in bf16 plus the bound of rounding P to bf16); dk and
+    dv have k's shape. With one key dq and dk vanish, and each side
+    must lie within the rounding bound of 0."""
+    q, do = (torch.from_numpy(nd((B, Sq, H, D), s)).to(cuda, dtype) for s in (0, 3))
+    k, v = (torch.from_numpy(nd((B, Sk, H, D), s)).to(cuda, dtype) for s in (1, 2))
+    scale = D ** -0.5
+    before = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkdv.launches)
+    o, lse = tfa.flash_attention(q, k, v, scale)
+    ro, rlse = tfa.flash_attention_plain(q, k, v, scale)
+    p_bound = _p_rounding_bound(q, k, v, scale) if dtype == torch.bfloat16 else 0.0
+    rtol, atol = FLASH_TOL[dtype]
+    assert bool(((o.float() - ro.float()).abs() <= atol + rtol * ro.float().abs() + p_bound).all())
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    got = tfa.flash_attention_bwd(q, k, v, ro, rlse, do, scale)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, ro, rlse, do, scale)
+    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkdv.launches) == tuple(n + 1 for n in before)
+    bounds = _single_key_bounds(q, k, v, do, scale) if Sk == 1 else (None, None)
+    for g, r, t, b in zip(got, ref, (q, k, v), (*bounds, None)):
+        assert g.shape == t.shape and g.dtype == dtype
+        if b is None:
+            _close(g, r, *FLASH_BWD_TOL[dtype])
+        else:
+            assert bool(((g.float() - r.float()).abs() <= 2 * b).all())
+
+
+@pytest.mark.cuda
+def test_flash_takes_keys_of_another_length_on_gpu(cuda, monkeypatch):
+    """k / v of 7 tokens against 64 queries (a cross-attention context)
+    run forward and backward through the kernels under autograd, one launch
+    each; the plain version does not run in the kernels' place."""
+    q = torch.randn((2, 64, 2, 8), device=cuda, requires_grad=True)
+    k, v = (torch.randn((2, 7, 2, 8), device=cuda, requires_grad=True) for _ in range(2))
+    ro, _ = tfa.flash_attention_plain(q, k, v, 8 ** -0.5)
     monkeypatch.setattr(tfa, "flash_attention_plain",
                         lambda *a, **kw: pytest.fail("the plain attention ran on the card"))
-    before = tfa.flash_attention.launches
-    with pytest.raises(NotImplementedError, match="one sequence length"):
-        tfa.flash_attention(q, k, v, 8 ** -0.5)
-    assert tfa.flash_attention.launches == before
+    before = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkdv.launches)
+    o, _ = tfa.flash_attention(q, k, v, 8 ** -0.5)
+    o.sum().backward()
+    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkdv.launches) == tuple(n + 1 for n in before)
+    torch.testing.assert_close(o, ro, rtol=0.0, atol=1e-5)
+    assert k.grad.shape == k.shape and v.grad.shape == v.shape
