@@ -1529,11 +1529,9 @@ def _ae_cli_runs(ws, per_step):
         f = fwd(tr)
         expect = {k: steps * per_step[adv_on][k] + val_steps * f[k] for k in counts}
         ld = tr.loss_dict
-        summ = tr.timer.summary()
         log(f"[ae_cli] {gpu}: {run}: adv_on={st['adv_on']}, {steps} train + {val_steps} val "
             f"steps, launches {counts}, predicted {expect}; CLI ms a train step "
-            f"{st['train_s'] * 1e3 / steps:.3f} (StepTimer p50 {summ['p50_s'] * 1e3:.3f} p95 "
-            f"{summ['p95_s'] * 1e3:.3f}); loader wait {st['wait_s'] * 1e3 / steps:.3f} ms and "
+            f"{st['train_s'] * 1e3 / steps:.3f}; loader wait {st['wait_s'] * 1e3 / steps:.3f} ms and "
             f"host-to-device copy {st['copy_s'] * 1e3 / steps:.3f} ms a step; val "
             f"{st['val_s'] * 1e3 / val_steps:.3f} ms a step; saved {st['saved']} (payload "
             f"{st['payload_s']:.3f} s), reconstruction {os.path.basename(st.get('recon', ''))}; "
@@ -1852,11 +1850,9 @@ def _cli_runs(ws, train_counts, train_ms):
         f"{tr.vae.post_quant_conv.Conv_0.weight.dtype}): {ae_same}")
     if not ae_same:
         raise AssertionError("the LDM did not train on the autoencoder phase ae_cli wrote")
-    summ = tr.timer.summary()
     cli_ms = st["train_s"] * 1e3 / steps
     log(f"[cli] {gpu}: CLI ms a train step {cli_ms:.3f} (epoch wall {st['train_s']:.3f} s "
-        f"/ {steps}), StepTimer p50 {summ['p50_s'] * 1e3:.3f} p95 {summ['p95_s'] * 1e3:.3f} "
-        f"mean {summ['mean_s'] * 1e3:.3f}; phase train ms a step {train_ms:.3f}; loader "
+        f"/ {steps}); phase train ms a step {train_ms:.3f}; loader "
         f"queue wait {st['wait_s'] * 1e3 / steps:.3f} ms a step; host-to-device copy "
         f"{st['copy_s'] * 1e3 / steps:.3f} ms a step (host time, pinned + non_blocking); "
         f"val {st['val_s'] * 1e3 / val_steps:.3f} ms a step; interval samples "

@@ -97,9 +97,10 @@ from medical_image_generation_tpu_torch.parallel.sharding import (
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
 from medical_image_generation_tpu_torch.training import plots
 from medical_image_generation_tpu_torch.utils.profiling import (
-    StepTimer,
+    host_syncs,
     maybe_progress,
     profile_trace,
+    span,
 )
 
 
@@ -386,13 +387,14 @@ def batch_to_device(batch, device: torch.device):
     """A loader batch (array or {"image", "class"}) -> (images, labels or
     None) on ``device``, each copied once: through a pinned buffer without
     blocking the host on the card, or directly on the CPU."""
-    imgs, labels = unpack_batch(batch)
-    imgs = torch.as_tensor(imgs)
-    if device.type == "cuda":
-        imgs = imgs.pin_memory().to(device, non_blocking=True)
-    if labels is not None:
-        labels = torch.as_tensor(np.asarray(labels, np.int64)).to(device)
-    return imgs, labels
+    with span("medimgen.batch_to_device"):
+        imgs, labels = unpack_batch(batch)
+        imgs = torch.as_tensor(imgs)
+        if device.type == "cuda":
+            imgs = imgs.pin_memory().to(device, non_blocking=True)
+        if labels is not None:
+            labels = torch.as_tensor(np.asarray(labels, np.int64)).to(device)
+        return imgs, labels
 
 
 def timed_batches(loader, device: torch.device, stats: Dict[str, float],
@@ -483,8 +485,7 @@ class DiffusionTrainer:
 
     def __init__(self, config: dict, unet: torch.nn.Module, spatial_dims: int,
                  device: str | torch.device = "cuda", seed: int = 0,
-                 steps_per_epoch: int = 250, timer_name: str = "train",
-                 mesh: Optional[Mesh] = None):
+                 steps_per_epoch: int = 250, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.config = config
         self.seed = seed
@@ -529,7 +530,6 @@ class DiffusionTrainer:
         self.save_dict: Optional[Dict[str, str]] = None
         self.save_path: Optional[str] = None
         self.train_loader = None  # set by train(); its state goes into last/best
-        self.timer = StepTimer(timer_name)
         self.epoch_stats: list = []  # one dict of host-side seconds an epoch
 
     # ------------------------------------------------------------------ steps
@@ -579,30 +579,37 @@ class DiffusionTrainer:
             return self._train_step(batch, labels, generator, draws)
 
     def _train_step(self, batch, labels, generator, draws):
-        batch = batch.to(self.device)
-        if draws is None:
-            draws = self.make_draws(batch, labels, generator)
-        draws = local_rows(draws, self.mesh)
-        imgs = augment_batch(batch, draws.augment, self.aug_cfg)
-        noisy, target, t = self._noised(imgs, draws)
-        labels_in = None
-        if labels is not None and self.class_cond:
-            labels_in = labels.to(self.device)
-            if draws.drop is not None:
-                labels_in = torch.where(draws.drop.to(self.device),
-                                        torch.full_like(labels_in, self.num_classes), labels_in)
-        for p in self.params:
-            p.grad = None
-        pred = self.unet(noisy, t, class_labels=labels_in)
-        loss = torch.mean((pred.float() - target) ** 2)
-        loss.backward()
-        grads = [p.grad for p in self.params]
-        self.data_axis.all_reduce_mean_([g for g in grads if g is not None])
-        synced = self.opt.step(grads)
-        if self.ema is not None and synced:
-            ema_update(self.ema, self.params, float(self.ema_decay))
-        self.step += 1
-        return self.data_axis.mean(loss.detach())
+        with span("medimgen.train_step"), host_syncs():
+            batch = batch.to(self.device)
+            if draws is None:
+                draws = self.make_draws(batch, labels, generator)
+            draws = local_rows(draws, self.mesh)
+            with span("medimgen.augment"):
+                imgs = augment_batch(batch, draws.augment, self.aug_cfg)
+            with span("medimgen.latent"):
+                noisy, target, t = self._noised(imgs, draws)
+            labels_in = None
+            if labels is not None and self.class_cond:
+                labels_in = labels.to(self.device)
+                if draws.drop is not None:
+                    labels_in = torch.where(draws.drop.to(self.device),
+                                            torch.full_like(labels_in, self.num_classes),
+                                            labels_in)
+            for p in self.params:
+                p.grad = None
+            with span("medimgen.unet_forward"):
+                pred = self.unet(noisy, t, class_labels=labels_in)
+                loss = torch.mean((pred.float() - target) ** 2)
+            with span("medimgen.unet_backward"):
+                loss.backward()
+            with span("medimgen.optimizer"):
+                grads = [p.grad for p in self.params]
+                self.data_axis.all_reduce_mean_([g for g in grads if g is not None])
+                synced = self.opt.step(grads)
+                if self.ema is not None and synced:
+                    ema_update(self.ema, self.params, float(self.ema_decay))
+            self.step += 1
+            return self.data_axis.mean(loss.detach())
 
     @torch.no_grad()
     def val_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
@@ -747,11 +754,9 @@ class DiffusionTrainer:
             t0 = time.perf_counter()
             stats = {"epoch": epoch, "wait_s": 0.0, "copy_s": 0.0}
             losses = []
-            self.timer.start()
             for imgs, labels in timed_batches(train_loader, self.device, stats, show_bar,
                                               f"Epoch {epoch + 1}"):
                 losses.append(self.train_step(imgs, labels))
-                self.timer.tick()
             train_loss = float(torch.stack(losses).mean())  # the epoch's one sync
             stats.update(train_s=time.perf_counter() - t0, steps=len(losses))
 
@@ -771,7 +776,8 @@ class DiffusionTrainer:
             self.loss_dict["val_rec_loss"].append(val_loss)
             print(
                 f"Epoch {epoch + 1}/{self.n_epochs} | loss {train_loss:.4f} | "
-                f"val {val_loss:.4f} | {time.perf_counter() - t0:.1f}s | {self.timer.report()}"
+                f"val {val_loss:.4f} | {time.perf_counter() - t0:.1f}s | "
+                f"{stats['train_s'] * 1e3 / stats['steps']:.1f} ms a train step"
             )
 
             t2 = time.perf_counter()

@@ -98,7 +98,7 @@ from medical_image_generation_tpu_torch.parallel.sharding import (
 from medical_image_generation_tpu_torch.planning.planner import compute_output_size
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
 from medical_image_generation_tpu_torch.training import common, plots
-from medical_image_generation_tpu_torch.utils.profiling import StepTimer, profile_trace
+from medical_image_generation_tpu_torch.utils.profiling import profile_trace
 
 METRICS = ("rec", "perc", "reg", "gen_adv", "disc")
 
@@ -174,7 +174,6 @@ class AutoEncoderTrainer:
         self.save_dict: Optional[Dict[str, str]] = None
         self.save_path: Optional[str] = None
         self.train_loader = None  # set by train(); its state goes into last/best
-        self.timer = StepTimer("ae_train")
         self.epoch_stats: list = []  # one dict of host-side seconds an epoch
 
     def _optimizer(self, params, sched, dims=None):
@@ -408,13 +407,11 @@ class AutoEncoderTrainer:
             adv_on = epoch >= self.warm_up_epochs
             stats = {"epoch": epoch, "adv_on": adv_on, "wait_s": 0.0, "copy_s": 0.0}
             metrics = []
-            self.timer.start()
             # the AE ignores class labels
             for imgs, _ in common.timed_batches(train_loader, self.device, stats, show_bar,
                                                 f"Epoch {epoch + 1}"):
                 m = self.train_step(imgs, adv_on)
                 metrics.append(torch.stack([m[k] for k in METRICS]))
-                self.timer.tick()
             means = dict(zip(METRICS, torch.stack(metrics).mean(0).tolist()))  # one sync
             stats.update(train_s=time.perf_counter() - t0, steps=len(metrics))
 
@@ -440,7 +437,7 @@ class AutoEncoderTrainer:
                 f"val_rec {val_rec:.4f} | perc {means['perc']:.4f} | "
                 f"reg {means['reg']:.3e} | adv {means['gen_adv']:.4f} | "
                 f"disc {means['disc']:.4f} | {time.perf_counter() - t0:.1f}s | "
-                f"{self.timer.report()}"
+                f"{stats['train_s'] * 1e3 / stats['steps']:.1f} ms a train step"
             )
             t2 = time.perf_counter()
             stats.update(self._save_epoch_artifacts(epoch, val_rec, last_pair))

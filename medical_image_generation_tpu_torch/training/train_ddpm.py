@@ -74,7 +74,7 @@ class DDPMTrainer(common.DiffusionTrainer):
     def __init__(self, config: dict, unet: DiffusionUNet, device: str | torch.device = "cuda",
                  seed: int = 0, steps_per_epoch: int = 250, mesh: Optional[Mesh] = None):
         super().__init__(config, unet, config["ddpm_params"]["spatial_dims"], device, seed,
-                         steps_per_epoch, "ddpm_train", mesh)
+                         steps_per_epoch, mesh)
         self.image_shape = ddpm_image_shape(config)
         cc = self.class_cond or {}
         self.guidance_scale = float(cc.get("guidance_scale", 2.0))

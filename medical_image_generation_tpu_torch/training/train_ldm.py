@@ -118,7 +118,7 @@ class LDMTrainer(common.DiffusionTrainer):
                  mesh: Optional[Mesh] = None):
         self.vae_params = common.generator_params(config, latent_space_type)
         super().__init__(config, unet, self.vae_params["spatial_dims"], device, seed,
-                         steps_per_epoch, "ldm_train", mesh)
+                         steps_per_epoch, mesh)
         self.vae = vae.eval().requires_grad_(False)
         self.latent_space_type = latent_space_type
         self.posterior_eps = latent_space_type == "vae"
