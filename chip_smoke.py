@@ -38,9 +38,14 @@ Phases (any failure raises and exits non-zero):
                    compute, fp32 masters) -> clip + AdamW(bf16 mu); 2 warm-up
                    and 10 timed steps with the launch counts the code predicts,
                    a profile of one step (each port kernel's device ms beside
-                   the bound summed over the step's launches), then
-                   save_checkpoint and sample one volume from it through
-                   LDMSampler.from_config.
+                   the bound summed over the step's launches), the peak
+                   memory of the step, the U-Net forward + backward and the
+                   optimizer alone, the optimizer's two kernels at the
+                   U-Net's parameter list against the plain version
+                   (``opt_check``: one clipped and one unclipped step, params,
+                   mu and nu within OPT_RTOL; device ms, bound and the plain
+                   version's ms), then save_checkpoint and sample one volume
+                   from it through LDMSampler.from_config.
 7. ae_parity    -- the tiny 3D config (seeded random weights, fp32, TF32 off)
                    through one stage-1 AE train step with the adversarial
                    loss on the CPU (plain versions) and on the GPU (kernels),
@@ -102,7 +107,8 @@ Phases (any failure raises and exits non-zero):
                    LDM steps, each with ms a step, device busy and idle share
                    (profiler), peak memory, launches held to the prediction,
                    every GroupNorm shape held by phase 11, each kernel's
-                   device ms beside its summed bound, and the parts alone.
+                   device ms beside its summed bound, and the parts alone;
+                   then ``opt_check`` at the 2D U-Net's parameter list.
 13. eval_3d      -- (inside phase 10) the 3D eval's features:
                    FeatureExtractor(spatial_dims=3) on the two volumes the 3D
                    sampling CLI wrote, read back from their .nii.gz, timed.
@@ -265,7 +271,9 @@ phase 17's shapes, ``launches_aug_cond`` an AE step and a conditioned LDM step o
 phase 19, ``step_ms_aug_cond`` their device ms / bound, ``shapes_context`` (shape,
 Sk, ms, bound_ms) at phase 19's context pairs, ``launches_context`` one flagship
 U-Net forward + backward with a 77-token context, ``launches_ring`` phase 20's
-in-process rings, ``launches_dist_step`` a torchrun LDM step) and the device
+in-process rings, ``launches_dist_step`` a torchrun LDM step; the optimizer's
+``sq_norm`` and ``adamw_update`` with their launches on every training path
+and ``opt_check``'s records at the 3D and 2D flagship U-Nets) and the device
 record; the
 card's name and power limit are printed before them.
 """
@@ -321,6 +329,8 @@ GN_PARAM_GRAD_TOL = 1e-4  # dscale, dbias, [P, Q]: max abs error / max |ref|, fp
 PARITY_GRAD_TOL = 1e-4
 PARITY_LOSS_TOL = 1e-5
 LR = 2e-5  # the flagship config's ddpm_learning_rate
+OPT_RTOL = 1e-6  # clip + AdamW kernels vs the plain version driven by their norm (same ops)
+OPT_NORM_RTOL = 1e-5  # the kernels' gradient norm vs the plain one: fp32 summation order
 
 GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship paths, batch 2
     (32768, 256, 32), (32768, 768, 32), (4096, 512, 32), (4096, 1280, 32),
@@ -788,12 +798,13 @@ def _train_config(tiny, spatial_dims=3):
 
 
 def _reset_counts():
+    from medical_image_generation_tpu_torch.ops import adamw
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
-
     from medical_image_generation_tpu_torch.ops import groupnorm as gn
 
     for fn in kernel_counters().values():
         fn.launches = 0
+    adamw.adamw_update.grad_copies = 0
     fa.flash_attention.input_copies = fa.flash_bwd_dq.input_copies = 0
     fa.flash_bwd_dkdv.input_copies = 0
     for fn in (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply):
@@ -802,6 +813,166 @@ def _reset_counts():
 
 def _read_counts():
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def launches(**kw):
+    """A launch count for every kernel counter: ``kw``'s, else 0."""
+    return {k: kw.get(k, 0) for k in kernel_counters()}
+
+
+def opt_launches(*opts):
+    """{kernel: launches} of one step of each optimizer (``common.AdamW``, or
+    anything with its ``params`` and ``clip``) on the card: a launch of each
+    kernel a table of ``ops.adamw.partition``, ``sq_norm`` only under a
+    clip."""
+    from medical_image_generation_tpu_torch.ops import adamw
+
+    out = {"sq_norm": 0, "adamw_update": 0}
+    for opt in opts:
+        n = len(adamw.partition([p.numel() for p in opt.params]))
+        out["sq_norm"] += n if opt.clip else 0
+        out["adamw_update"] += n
+    return out
+
+
+def opt_bounds(*opts):
+    """{kernel: least ms of one step of each optimizer}: ``sq_norm`` reads
+    every gradient once (4 B a parameter), ``adamw_update`` reads g, p, mu
+    and nu and writes p, mu and nu (16 B a parameter and twice mu's item
+    size: 24 with a bf16 mu)."""
+    out = {"sq_norm": 0.0, "adamw_update": 0.0}
+    for opt in opts:
+        n = sum(p.numel() for p in opt.params)
+        out["sq_norm"] += (4 * n if opt.clip else 0) / PEAK_BYTES * 1e3
+        out["adamw_update"] += (20 + 2 * opt.mu[0].element_size()) * n / PEAK_BYTES * 1e3
+    return out
+
+
+def peak_gib(fn):
+    """fn()'s peak allocated device memory, GiB (what it holds included)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _kernel_device_ms(fn, calls=3):
+    """{profile kernel name: (summed device ms, events)} of ``calls``
+    profiled calls of fn after one; the profile first records WARM_LAUNCHES
+    spin kernels, left out, as ``profile_breakdown``'s does. The profiler
+    can drop events, so a caller divides by the events it kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(WARM_LAUNCHES):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
+            ms, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return out
+
+
+def opt_check(label, opt, grads):
+    """The optimizer's kernels at a trainer's parameter list against the
+    plain version. Copies of ``opt``'s params, mu, nu and count take one
+    clipped step (the clip at half the gradients' norm) and one unclipped
+    (at twice it) through ``common.AdamW`` (the kernels), launches counted
+    from just before each; other copies take the plain
+    ``clip_by_global_norm`` + ``adamw_plain_`` on the same ``grads``, the
+    clip decided by the kernels' norm. Held: params, mu and nu within
+    OPT_RTOL of the plain ones, the norm within OPT_NORM_RTOL of the plain
+    ``global_norm`` (summation order), one launch of each kernel a table,
+    no gradient copied, the norm a 0-d device tensor. Then at ``opt``'s clip:
+    each kernel's device ms (profiler) beside its bytes bound, the whole
+    step and the plain version in ms (CUDA events), and the device memory
+    each allocates beyond what it holds. Returns the record."""
+    from medical_image_generation_tpu_torch.ops import adamw as ta
+    from medical_image_generation_tpu_torch.training import common
+
+    def twin():
+        o = common.AdamW([p.detach().clone() for p in opt.params], lambda s: lr, opt.clip,
+                         opt.wd, opt.b1, opt.b2, opt.eps, mu_dtype=opt.mu[0].dtype)
+        torch._foreach_copy_(o.mu, opt.mu)
+        torch._foreach_copy_(o.nu, opt.nu)
+        o.count = opt.count
+        return o
+
+    lr = opt.lr_schedule(opt.count)
+    k, r = twin(), twin()
+    n = sum(p.numel() for p in opt.params)
+    zg = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, opt.params)]
+    norm0 = float(ta.global_norm(zg))
+    rec = {"params": n, "tensors": len(opt.params), "mu_dtype": str(opt.mu[0].dtype),
+           "wd": opt.wd, "norm": norm0}
+    for case, clip in (("clipped", 0.5 * norm0), ("unclipped", 2.0 * norm0)):
+        k.clip = clip
+        torch.cuda.synchronize()
+        before = {name: c.launches for name, c in kernel_counters().items()}
+        copies = ta.adamw_update.grad_copies
+        k.step(grads)
+        torch.cuda.synchronize()
+        got = {name: c.launches - before[name] for name, c in kernel_counters().items()}
+        gs = [g.clone() for g in zg]
+        plain_norm = ta.global_norm(gs)
+        ta.clip_by_global_norm(gs, clip, norm=k.last_norm)
+        ta.adamw_plain_(r.params, gs, r.mu, r.nu, r._hyper())
+        del gs
+        off = sum(int(((a.float() - b.float()).abs() > OPT_RTOL * b.float().abs()).sum())
+                  for a, b in zip(k.params + k.mu + k.nu, r.params + r.mu + r.nu))
+        norm_rel = abs(float(k.last_norm) / float(plain_norm) - 1)
+        rec[case] = dict(launches={n_: v for n_, v in got.items() if v}, elements_off=off,
+                         norm_rel=norm_rel, grad_copies=ta.adamw_update.grad_copies - copies)
+        log(f"[{label}] optimizer {case} (clip {clip:.4g}, norm {norm0:.4g}): kernels vs plain "
+            f"driven by the kernels' norm: {off} of {3 * n:,} params / mu / nu elements off "
+            f"by more than rtol {OPT_RTOL:g}; norm rel_err vs the plain norm {norm_rel:.2e} "
+            f"(tol {OPT_NORM_RTOL:g}); launches {rec[case]['launches']}; gradients copied "
+            f"{rec[case]['grad_copies']}")
+        if (off or norm_rel > OPT_NORM_RTOL or got != launches(**opt_launches(k))
+                or rec[case]["grad_copies"] or k.last_norm.dim() or not k.last_norm.is_cuda):
+            raise AssertionError(f"[{label}] optimizer kernels vs plain, {case}: {rec[case]}, "
+                                 f"launches predicted {opt_launches(k)}")
+    k.clip = r.clip = opt.clip
+    dev = _kernel_device_ms(lambda: k.step(grads))
+    bounds, per = opt_bounds(k), opt_launches(k)
+    for name in ("sq_norm", "adamw_update"):  # ms a step: the mean of the events kept
+        hits = [v for e, v in dev.items() if PORT_KERNELS[name][0] in e]
+        ms, n_ev = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        rec[name] = dict(ms=ms / max(n_ev, 1) * per[name], bound_ms=bounds[name], events=n_ev)
+    rec["other_device_ms"] = sum(ms / n for e, (ms, n) in dev.items() if "adamw_" not in e)
+
+    def plain():
+        gs = [g.clone() for g in zg]
+        ta.clip_by_global_norm(gs, opt.clip)
+        ta.adamw_plain_(r.params, gs, r.mu, r.nu, r._hyper())
+
+    rec["step_ms"] = time_ms(lambda: k.step(grads), 1, 5)
+    rec["plain_ms"] = time_ms(plain, 1, 5)
+    held = torch.cuda.memory_allocated()
+    rec["step_extra_bytes"] = peak_gib(lambda: k.step(grads)) * 2**30 - held
+    rec["plain_extra_bytes"] = peak_gib(plain) * 2**30 - held
+    both = rec["sq_norm"]["ms"] + rec["adamw_update"]["ms"]
+    bound_ms = bounds["sq_norm"] + bounds["adamw_update"]
+    log(f"[{label}] kernels: optimizer at {len(opt.params)} tensors, {n:,} params (mu "
+        f"{opt.mu[0].dtype}, wd {opt.wd:g}, clip {opt.clip:g}): sq_norm ms="
+        f"{rec['sq_norm']['ms']:.4f} bound_ms={bounds['sq_norm']:.4f} | adamw_update ms="
+        f"{rec['adamw_update']['ms']:.4f} bound_ms={bounds['adamw_update']:.4f} | both "
+        f"{both:.4f} ms = {both / bound_ms:.2f}x the bound, other device ms "
+        f"{rec['other_device_ms']:.4f} (profiler) | AdamW.step ms={rec['step_ms']:.4f} "
+        f"plain_ms={rec['plain_ms']:.4f} (the _foreach chain, gradients cloned; CUDA events) | "
+        f"allocated beyond what is held: kernels {rec['step_extra_bytes'] / 2**10:.1f} KiB, "
+        f"plain {rec['plain_extra_bytes'] / 2**30:.3f} GiB")
+    del k, r, zg
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _input_copies():
@@ -875,6 +1046,9 @@ def phase_parity_train():
     x = torch.rand((2, *initial, 1), generator=torch.Generator().manual_seed(5))
     draws = cpu.make_draws(x, generator=torch.Generator().manual_seed(6))
     old = [p.detach().clone() for p in cpu.params]
+    grads = {}
+    for name, tr in (("cpu", cpu), ("gpu", gpu)):
+        _capture_grads(tr.opt, grads, name)
     loss_c = cpu.train_step(x, draws=draws)
     _reset_counts()
     loss_g = gpu.train_step(x.cuda(), draws=draws)
@@ -882,8 +1056,8 @@ def phase_parity_train():
     counts = _read_counts()
     l_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
     names = [n for n, p in cpu.unet.named_parameters() if p.requires_grad]
-    g_err = max(_err(pg.grad.cpu(), pc.grad) / max(pc.grad.abs().max().item(), 1e-30)
-                for pc, pg in zip(cpu.params, gpu.params))
+    g_err = max(_err(gg.cpu(), gc) / max(gc.abs().max().item(), 1e-30)
+                for gc, gg in zip(grads["cpu"], grads["gpu"]))
     # Adam's first update is -lr * (g / (|g| + eps) + wd * p): u = g / (|g| + eps)
     # is about sign(g). Where |u_cpu| > 0.99 the GPU's u agrees to 1e-3; where
     # |g| is near eps the sign hangs on rounding, so those (at most 1%) are
@@ -982,12 +1156,15 @@ def phase_slice(steps=10):
 
 
 def phase_train(warmup=2, steps=10):
-    """The flagship train step; returns the launch counts of the timed steps."""
+    """The flagship train step; returns the launch counts of the timed steps,
+    {kernel: its device ms and bound a step}, ms a step and the optimizer's
+    ``opt_check`` record."""
     from medical_image_generation_tpu_torch.data.augment import augment_batch
     from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
     from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
     from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
     from medical_image_generation_tpu_torch.ops import _build
+    from medical_image_generation_tpu_torch.ops import adamw
     from medical_image_generation_tpu_torch.ops import groupnorm as gn
     from medical_image_generation_tpu_torch.training.sample import (
         LDMSampler,
@@ -1027,7 +1204,7 @@ def phase_train(warmup=2, steps=10):
     per_step = {"flash_attn_fwd": attn_u + attn_e, "flash_attn_bwd_dq": attn_u,
                 "flash_attn_bwd_dkdv": attn_u, "gn_stats_fold": gn_u + gn_e,
                 "gn_affine_act": gn_u + gn_e,
-                "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u}
+                "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u, **opt_launches(trainer.opt)}
 
     p0 = [p.detach().clone() for p in trainer.params[:4]]
     losses = [trainer.train_step(batch) for _ in range(warmup)]
@@ -1041,6 +1218,7 @@ def phase_train(warmup=2, steps=10):
     secs = time.perf_counter() - t0
     counts = _read_counts()
     copies = gn.gn_bwd_apply.grad_copies
+    opt_copies = adamw.adamw_update.grad_copies
     flash_copies = _input_copies()
     scalar = _scalar_stats()
     scalar_bwd = _scalar_bwd()
@@ -1056,7 +1234,8 @@ def phase_train(warmup=2, steps=10):
         f"{counts}, expected {expect}; GroupNorm gradients copied to channels-last: "
         f"{copies / steps:g} a step; flash inputs copied for TMA: {flash_copies}; "
         f"stats+fold launches without 16-byte loads: {scalar}; GroupNorm backward "
-        f"launches with 16-byte loads {vec_bwd}, without {scalar_bwd}")
+        f"launches with 16-byte loads {vec_bwd}, without {scalar_bwd}; gradients the "
+        f"optimizer copied into their param's layout: {opt_copies}")
     ms_step = secs * 1e3 / steps
     log(f"[train] {steps} steps in {secs * 1e3:.1f} ms: {ms_step:.3f} ms per step = "
         f"{1e3 / ms_step:.3f} steps/s; peak memory {peak_gb:.2f} GiB; params changed={changed}; "
@@ -1064,11 +1243,12 @@ def phase_train(warmup=2, steps=10):
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if (counts != expect or attn_u != 11 or gn_u != 46 or gn_e != 13 or flash_copies
-            or scalar or copies or any(scalar_bwd.values())):
+            or scalar or copies or any(scalar_bwd.values()) or opt_copies):
         raise AssertionError(f"launch counts {counts} != expected {expect}, or {flash_copies} "
                              f"flash inputs copied, or {scalar} scalar stats+fold launches, "
                              f"or {copies} GroupNorm gradients copied, or scalar GroupNorm "
-                             f"backward launches {scalar_bwd}")
+                             f"backward launches {scalar_bwd}, or {opt_copies} gradients "
+                             f"the optimizer copied")
     if not changed or trainer.opt.mu[0].dtype != torch.bfloat16:
         raise AssertionError("params unchanged by the steps, or mu not stored in bf16")
 
@@ -1082,8 +1262,15 @@ def phase_train(warmup=2, steps=10):
         torch.mean((unet(z, t).float() - z) ** 2).backward()
 
     fb_ms = time_ms(fwd_bwd, 1, 5)
+    fb_peak = peak_gib(fwd_bwd)
     grads = [p.grad for p in trainer.params]
     opt_ms = time_ms(lambda: trainer.opt.step(grads), 1, 5)
+    peaks = {"step": peak_gb, "U-Net forward+backward alone": fb_peak,
+             "clip+AdamW alone": peak_gib(lambda: trainer.opt.step(grads))}
+    log("[train] peak allocated GiB (what the trainer holds included): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in peaks.items()))
+    opt_rec = opt_check("train", trainer.opt, grads)
+    opt_rec["peaks_gib"] = peaks
     draws = trainer.make_draws(batch)
     aug_ms = time_ms(lambda: augment_batch(batch, draws.augment, trainer.aug_cfg), 1, 5)
     imgs = augment_batch(batch, draws.augment, trainer.aug_cfg)
@@ -1124,15 +1311,15 @@ def phase_train(warmup=2, steps=10):
     if not ok:
         raise AssertionError("sampling from the saved checkpoint failed")
     return counts, {name: dict(step_ms=shares[name], step_bound_ms=b_ms)
-                    for name, b_ms in bounds.items()}, ms_step
+                    for name, b_ms in bounds.items()}, ms_step, opt_rec
 
 
 def step_bounds(trainer, batch):
     """{kernel: least ms the card could take for the kernel's launches in one
     LDM train step} (``module_bounds`` over the U-Net and the frozen
-    encoder)."""
-    return module_bounds([trainer.unet, trainer.vae.encoder],
-                         lambda: trainer.train_step(batch))[0]
+    encoder, ``opt_bounds`` of its optimizer)."""
+    return {**module_bounds([trainer.unet, trainer.vae.encoder],
+                            lambda: trainer.train_step(batch))[0], **opt_bounds(trainer.opt)}
 
 
 WARM_LAUNCHES = 256  # tiny kernels a profile records before the call it reads
@@ -1144,6 +1331,7 @@ PORT_KERNELS = {  # profile name patterns of each port kernel, by its counter's 
     "gn_affine_act": ("::affine_",),
     "gn_bwd_stats": ("gn_bwd_partial_kernel", "gn_bwd_reduce_fold_kernel"),
     "gn_bwd_apply": ("gn_bwd_apply_kernel",),
+    "sq_norm": ("adamw_sq_norm_kernel",), "adamw_update": ("adamw_update_kernel",),
 }
 
 
@@ -1242,8 +1430,9 @@ def ae_per_step(trainer, adv_on):
     every GroupNorm of the encoder and the decoder once forward and once
     backward, and with the adversarial loss the discriminator's three times
     (on the reconstruction for the generator, then on the detached
-    reconstruction and the batch for its own update), each differentiated.
-    No attention: the planner's VAE has none."""
+    reconstruction and the batch for its own update), each differentiated;
+    the generator's optimizer steps, and with the adversarial loss the
+    discriminator's. No attention: the planner's VAE has none."""
     from medical_image_generation_tpu_torch.models.blocks import GroupNorm
 
     def n(mod):
@@ -1251,12 +1440,19 @@ def ae_per_step(trainer, adv_on):
 
     gn = n(trainer.model.encoder) + n(trainer.model.decoder)
     gn += 3 * n(trainer.discriminator) if adv_on else 0
-    return {k: (gn if k.startswith("gn_") else 0) for k in kernel_counters()}
+    return launches(**{k: gn for k in kernel_counters() if k.startswith("gn_")},
+                    **opt_launches(*ae_opts(trainer, adv_on)))
+
+
+def ae_opts(trainer, adv_on):
+    """The optimizers an AE train step steps: the generator's, and with the
+    adversarial loss the discriminator's."""
+    return [trainer.g_opt, trainer.d_opt] if adv_on else [trainer.g_opt]
 
 
 def _capture_grads(opt, store, key):
-    """Wrap opt.step to keep a copy of the gradients it is given (it clips
-    them in place)."""
+    """Wrap opt.step to keep a copy of the gradients it is given (the CPU's
+    plain version clips them in place)."""
     orig = opt.step
 
     def step(grads):
@@ -1324,6 +1520,7 @@ def phase_ae_train(warmup=2, steps=10):
     from medical_image_generation_tpu_torch.data.augment import augment_batch
     from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
     from medical_image_generation_tpu_torch.models.discriminator import least_squares_gan_loss
+    from medical_image_generation_tpu_torch.ops import adamw
     from medical_image_generation_tpu_torch.ops import groupnorm as gn
     from medical_image_generation_tpu_torch.training import common
     from medical_image_generation_tpu_torch.training.train_autoencoder import (
@@ -1372,6 +1569,7 @@ def phase_ae_train(warmup=2, steps=10):
         secs = time.perf_counter() - t0
         counts, scalar, scalar_bwd = _read_counts(), _scalar_stats(), _scalar_bwd()
         copies = gn.gn_bwd_apply.grad_copies
+        opt_copies = adamw.adamw_update.grad_copies
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         losses = {k: [float(m[k]) for m in ms] for k in METRICS}
         expect = {k: v * steps for k, v in per_step[adv_on].items()}
@@ -1381,7 +1579,8 @@ def phase_ae_train(warmup=2, steps=10):
         log(f"[ae_train] {gpu}: adv_on={adv_on} launches per step predicted "
             f"{per_step[adv_on]}; {steps} steps counted {counts}, expected {expect}; stats+fold "
             f"launches without 16-byte loads {scalar}, GroupNorm backward without {scalar_bwd}; "
-            f"GroupNorm gradients copied to channels-last {copies / steps:g} a step")
+            f"GroupNorm gradients copied to channels-last {copies / steps:g} a step; gradients "
+            f"the optimizers copied into their param's layout {opt_copies / steps:g} a step")
         log(f"[ae_train] {gpu}: adv_on={adv_on} {steps} steps in {secs * 1e3:.1f} ms: "
             f"{ms_step:.3f} ms per step = {1e3 / ms_step:.3f} steps/s; peak memory "
             f"{peak_gb:.2f} GiB")
@@ -1392,6 +1591,7 @@ def phase_ae_train(warmup=2, steps=10):
                                  f"GroupNorm launches {scalar} / {scalar_bwd}")
         bounds, shapes = gn_seen([tr.model, tr.discriminator],
                                  lambda: tr.train_step(batch, adv_on))
+        bounds.update(opt_bounds(*ae_opts(tr, adv_on)))
         shapes = {s[1:] for s in shapes}  # (M, C, groups) at batch 2
         missing = shapes - set(GN_SHAPES)
         if missing:
@@ -1500,7 +1700,7 @@ def _ae_cli_runs(ws, per_step):
 
     def fwd(tr):  # a reconstruct: the encoder's and the decoder's GroupNorms, forward only
         n = sum(isinstance(m, GroupNorm) for m in tr.model.modules())
-        return {k: (n if k in ("gn_stats_fold", "gn_affine_act") else 0) for k in kernel_counters()}
+        return launches(gn_stats_fold=n, gn_affine_act=n)
 
     restored = {}
     orig_restore = train_autoencoder.AutoEncoderTrainer._restore
@@ -2161,6 +2361,7 @@ def phase_train_2d(warmup=2, steps=10):
     from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
     from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
     from medical_image_generation_tpu_torch.models.discriminator import least_squares_gan_loss
+    from medical_image_generation_tpu_torch.ops import adamw
     from medical_image_generation_tpu_torch.training import common
     from medical_image_generation_tpu_torch.training.train_autoencoder import (
         METRICS,
@@ -2195,6 +2396,7 @@ def phase_train_2d(warmup=2, steps=10):
         expect = {k: v * steps for k, v in per_step.items()}
         bounds, shapes = gn_seen([tr.model, tr.discriminator],
                                  lambda: tr.train_step(batch, adv_on))
+        bounds.update(opt_bounds(*ae_opts(tr, adv_on)))
         _check_gn_listed("train_2d", shapes)
         busy, shares = profile_breakdown(f"2D AE step adv_on={adv_on}",
                                          lambda: tr.train_step(batch, adv_on))
@@ -2264,7 +2466,8 @@ def phase_train_2d(warmup=2, steps=10):
                           count(tr.vae.encoder, GroupNorm))
     per_step = {"flash_attn_fwd": attn_u, "flash_attn_bwd_dq": attn_u,
                 "flash_attn_bwd_dkdv": attn_u, "gn_stats_fold": gn_u + gn_e,
-                "gn_affine_act": gn_u + gn_e, "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u}
+                "gn_affine_act": gn_u + gn_e, "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u,
+                **opt_launches(tr.opt)}
     log(f"[train_2d] {gpu}: 2D U-Net {cfg['ddpm_params']['num_channels']} params={n_u:,}; "
         f"batch {tuple(batch.shape)} -> crop {tr.aug_cfg.crop_to} -> latent {latent}; "
         f"scale_factor {scale:.5f}; U-Net {attn_u} attention / {gn_u} GroupNorm, encoder "
@@ -2273,6 +2476,7 @@ def phase_train_2d(warmup=2, steps=10):
         raise AssertionError(f"not the planner's 2D LDM config: batch {B}, params {n_u}, "
                              f"latent {latent}")
     ms, peak, counts, losses = _timed_steps(lambda: tr.train_step(batch), warmup, steps)
+    opt_copies = adamw.adamw_update.grad_copies
     losses = [float(v) for v in losses]
     expect = {k: v * steps for k, v in per_step.items()}
     _check_gn_listed("train_2d", gn_seen([tr.unet, tr.vae.encoder],
@@ -2286,8 +2490,9 @@ def phase_train_2d(warmup=2, steps=10):
     for name in per_step:
         log(f"[train_2d] {gpu}: LDM per step: {name} device ms={shares[name]:.4f} bound ms="
             f"{bounds[name]:.4f} ({per_step[name]} launches)")
-    if counts != expect or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"2D LDM step: launches {counts} != {expect}, or losses {losses}")
+    if counts != expect or opt_copies or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"2D LDM step: launches {counts} != {expect}, or {opt_copies} "
+                             f"gradients the optimizer copied, or losses {losses}")
     out["ldm"] = dict(ms=ms, busy=busy, idle=prof["idle_share"], peak=peak, per_step=per_step,
                       step={k: (shares[k], bounds[k]) for k in bounds})
     z = torch.randn(latent, generator=gen, device=dev)
@@ -2311,6 +2516,7 @@ def phase_train_2d(warmup=2, steps=10):
     log(f"[train_2d] {gpu}: LDM parts alone, ms: "
         + "; ".join(f"{k}={v:.3f}" for k, v in times.items()))
     out["ldm_parts"] = times
+    out["opt"] = opt_check("train_2d", tr.opt, grads)
     del tr, grads, imgs
     torch.cuda.empty_cache()
     return out
@@ -2581,7 +2787,9 @@ def ae_launches(cfg, adv_on, remat):
     of a config (the models built on the CPU to count their GroupNorms), as
     ``ae_per_step``; under remat each Encoder / Decoder ResBlock runs its
     two GroupNorm forwards once more in the backward (the recompute), for
-    both policies."""
+    both policies; the optimizers' launches as ``ae_per_step``'s."""
+    from types import SimpleNamespace
+
     from medical_image_generation_tpu_torch.models.blocks import GroupNorm, ResBlock
     from medical_image_generation_tpu_torch.models.discriminator import PatchDiscriminator
     from medical_image_generation_tpu_torch.training import common
@@ -2589,15 +2797,19 @@ def ae_launches(cfg, adv_on, remat):
     def n(mod):
         return sum(isinstance(m, GroupNorm) for m in mod.modules())
 
+    def opt(net):  # what opt_launches reads of the trainer's AdamW over net
+        return SimpleNamespace(params=[p for p in net.parameters() if p.requires_grad],
+                               clip=float(cfg.get("grad_clip_max_norm", 1.0)))
+
     g = common.build_generator(cfg, "vae", torch.float32, device="cpu")
-    gn = n(g.encoder) + n(g.decoder)
+    gn, opts = n(g.encoder) + n(g.decoder), [opt(g)]
     if adv_on:
-        gn += 3 * n(PatchDiscriminator.from_config(cfg["discriminator_params"], device="cpu"))
+        d = PatchDiscriminator.from_config(cfg["discriminator_params"], device="cpu")
+        gn += 3 * n(d)
+        opts.append(opt(d))
     extra = sum(n(b) for b in g.modules() if isinstance(b, ResBlock)) if remat else 0
-    out = {k: 0 for k in kernel_counters()}
-    out.update(gn_stats_fold=gn + extra, gn_affine_act=gn + extra, gn_bwd_stats=gn,
-               gn_bwd_apply=gn)
-    return out
+    return launches(gn_stats_fold=gn + extra, gn_affine_act=gn + extra, gn_bwd_stats=gn,
+                    gn_bwd_apply=gn, **opt_launches(*opts))
 
 
 def phase_plan(ws):
@@ -3119,7 +3331,7 @@ def phase_ddpm_train():
                     "flash_attn_bwd_dkdv": attn,
                     "gn_stats_fold": gn_u + (2 * n_res if remat else 0),
                     "gn_affine_act": gn_u + (2 * n_res if remat else 0),
-                    "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u}
+                    "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u, **opt_launches(tr.opt)}
         with flash_capture() as flash:
             ms, peak, counts, losses = _timed_steps(lambda: tr.train_step(batch), 0, steps)
             losses = [float(v) for v in losses]
@@ -3134,6 +3346,7 @@ def phase_ddpm_train():
                 time_host=False)
             prof = profile_breakdown.last
             bounds, gn_shapes = res[0]
+            bounds.update(opt_bounds(tr.opt))
         log(f"[ddpm_train] {gpu}: {sd}D step at batch {B} (the largest that fits; "
             f"use_checkpointing {remat}): {ms:.1f} ms a step over {steps} steps, device busy "
             f"{busy:.1f} ms, idle share {prof['idle_share']:.4f} (profiler), peak allocated "
@@ -3756,6 +3969,7 @@ def _aug_cond(ws):
     if counts != expect or not all(math.isfinite(v) for vs in losses.values() for v in vs):
         raise AssertionError(f"AE launches {counts} != {expect}, or non-finite losses")
     bounds, shapes = gn_seen([tr.model, tr.discriminator], lambda: tr.train_step(batch, True))
+    bounds.update(opt_bounds(*ae_opts(tr, True)))
     missing = {s[1:] for s in shapes} - set(GN_SHAPES)
     if missing:
         raise AssertionError(f"[aug_cond] AE GroupNorm shapes not held by the kernel phases: "
@@ -3811,7 +4025,7 @@ def _aug_cond(ws):
     if n_params != COND_UNET_PARAMS or len(sts) != 11 or initial != (183, 183, 183):
         raise AssertionError(f"not the conditioned flagship: params {n_params}, {len(sts)} "
                              f"transformers, patch {initial}")
-    per_step = cond_per_step(tr.unet, tr.vae.encoder)
+    per_step = {**cond_per_step(tr.unet, tr.vae.encoder), **opt_launches(tr.opt)}
     ms_step, peak, counts, losses = _timed_steps(lambda: tr.train_step(batch), warmup, steps)
     losses = [float(v) for v in losses]
     expect = {k: v * steps for k, v in per_step.items()}
@@ -3823,6 +4037,7 @@ def _aug_cond(ws):
         raise AssertionError(f"conditioned LDM launches {counts} != {expect}, or non-finite "
                              f"losses {losses}")
     bounds, shapes = module_bounds([tr.unet, tr.vae.encoder], lambda: tr.train_step(batch))
+    bounds.update(opt_bounds(tr.opt))
     missing = {s[1:] for s in shapes} - set(GN_SHAPES)
     if missing:
         raise AssertionError(f"[aug_cond] LDM GroupNorm shapes not held by the kernel phases: "
@@ -3986,9 +4201,9 @@ def _cond_flagship(gpu):
     shapes = gn_seen([enc], enc_step)[1]
     enc_counts = _read_counts()
     a_e, g_e = n(enc, AttentionBlock), n(enc, GroupNorm)
-    enc_expect = {"flash_attn_fwd": a_e, "flash_attn_bwd_dq": a_e, "flash_attn_bwd_dkdv": a_e,
-                  "gn_stats_fold": g_e, "gn_affine_act": g_e, "gn_bwd_stats": g_e,
-                  "gn_bwd_apply": g_e}
+    enc_expect = launches(flash_attn_fwd=a_e, flash_attn_bwd_dq=a_e, flash_attn_bwd_dkdv=a_e,
+                          gn_stats_fold=g_e, gn_affine_act=g_e, gn_bwd_stats=g_e,
+                          gn_bwd_apply=g_e)
     finite = all(torch.isfinite(p.grad).all() for p in enc.parameters())
     del enc
     unet = DiffusionUNet.from_config(dict(ddpm_p, with_conditioning=True), dtype=torch.bfloat16,
@@ -4282,9 +4497,9 @@ def _cond_context_flagship(gpu):
     x = torch.randn((2, 32, 32, 32, ddpm_p["in_channels"]), generator=gen, device=dev)
     cot = torch.randn((2, 32, 32, 32, ddpm_p["out_channels"]), generator=gen, device=dev)
     t = torch.tensor([17, 901], device=dev)
-    expect = {"flash_attn_fwd": n_ca, "flash_attn_bwd_dq": n_ca, "flash_attn_bwd_dkdv": n_ca,
-              "gn_stats_fold": n_gn, "gn_affine_act": n_gn, "gn_bwd_stats": n_gn,
-              "gn_bwd_apply": n_gn}
+    expect = launches(flash_attn_fwd=n_ca, flash_attn_bwd_dq=n_ca, flash_attn_bwd_dkdv=n_ca,
+                      gn_stats_fold=n_gn, gn_affine_act=n_gn, gn_bwd_stats=n_gn,
+                      gn_bwd_apply=n_gn)
     plain_calls = []
     originals = {nm: getattr(fa, nm) for nm in ("flash_attention_plain", "flash_bwd_dq_plain",
                                                 "flash_bwd_dkdv_plain")}
@@ -4635,7 +4850,7 @@ def main() -> int:
         phase_parity_train()
     FLASH_CHECKED.update(parity_shapes)
     phase_slice()
-    counts, per_step, train_ms = phase_train()
+    counts, per_step, train_ms, opt_3d = phase_train()
     done("train")
     with flash_capture() as parity_shapes:
         phase_ae_parity()
@@ -4712,6 +4927,25 @@ def main() -> int:
                         "launches_context": aug_cond["context"]["launches"][name],
                         "launches_ring": {label: r["launches"][name]
                                           for label, r in dist["ring"].items()},
+                        "launches_dist_step": dist["step"]["launches"][name]})
+    for name in ("sq_norm", "adamw_update"):  # clip + AdamW: no TPU kernel to replace
+        kernels.append({"name": name, "route": "cuda", "source": src + "adamw.cu",
+                        "replaces": None, "launches": counts[name], **per_step[name],
+                        "flagship_3d": opt_3d[name], "flagship_2d": t2d["opt"][name],
+                        "optimizer_check": {"3d": opt_3d, "2d": t2d["opt"]},
+                        "cli_launches": cli_counts[name],
+                        "ae_launches": ae[True]["counts"][name],
+                        "launches_2d": {"ldm_step": t2d["ldm"]["per_step"][name],
+                                        "ae_step": t2d["ae_1"]["per_step"][name]},
+                        "step_ms_2d": {"ldm": t2d["ldm"]["step"][name],
+                                       "ae": t2d["ae_1"]["step"][name]},
+                        "launches_plan": {rung: plan[rung][name] for rung in REMAT_RUNGS},
+                        "launches_ddpm": {"step_2d": ddpm[2]["per_step"][name],
+                                          "step_3d": ddpm[3]["per_step"][name],
+                                          "cli_epoch_2d": ddpm_cli[2][name],
+                                          "cli_epoch_3d": ddpm_cli[3][name]},
+                        "launches_aug_cond": {"ae_step": aug_cond["ae"]["per_step"][name],
+                                              "ldm_step": aug_cond["ldm"]["per_step"][name]},
                         "launches_dist_step": dist["step"]["launches"][name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,13 +12,15 @@ import torch
 def kernel_counters() -> dict:
     """{kernel name: wrapper}; each wrapper's ``launches`` counts the
     launches of its kernel on the card."""
+    from medical_image_generation_tpu_torch.ops import adamw
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
     from medical_image_generation_tpu_torch.ops import groupnorm as gn
 
     return {"flash_attn_fwd": fa.flash_attention, "flash_attn_bwd_dq": fa.flash_bwd_dq,
             "flash_attn_bwd_dkdv": fa.flash_bwd_dkdv, "gn_stats_fold": gn.stats_fold,
             "gn_affine_act": gn.affine_act,
-            "gn_bwd_stats": gn.gn_bwd_stats, "gn_bwd_apply": gn.gn_bwd_apply}
+            "gn_bwd_stats": gn.gn_bwd_stats, "gn_bwd_apply": gn.gn_bwd_apply,
+            "sq_norm": adamw.sq_norm, "adamw_update": adamw.adamw_update}
 
 
 @torch.no_grad()

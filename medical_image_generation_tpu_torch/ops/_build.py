@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "groupnorm", "groupnorm_bwd")
+SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "groupnorm", "groupnorm_bwd", "adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

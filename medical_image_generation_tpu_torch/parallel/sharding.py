@@ -46,8 +46,8 @@ itself, where GSPMD handles them silently:
   under any (data, model) layout.
 
 The trainers' gradient norm adds the sharded leaves' squares over the model
-axis and counts replicated leaves once (``training/common.py``
-``global_norm``).
+axis and counts replicated leaves once (``ops/adamw.py`` ``global_norm``
+and, on CUDA, ``sq_norm``'s two sums).
 """
 
 from __future__ import annotations

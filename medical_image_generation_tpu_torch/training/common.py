@@ -1,18 +1,20 @@
 """Optimizer, learning-rate schedules and EMA of the port's trainers.
 
 Port of ``medical_image_generation_tpu/training/common.py`` (:26-137) in
-optax's semantics, written with ``torch._foreach_*`` ops:
+optax's semantics:
 
-* ``clip_by_global_norm``: ``where(norm < max, g, g / norm * max)``, optax's
-  form (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm and
-  differs);
+* ``clip_by_global_norm`` (from ``ops/adamw.py``): ``where(norm < max, g,
+  g / norm * max)``, optax's form (``torch.nn.utils.clip_grad_norm_`` adds
+  1e-6 to the norm and differs);
 * ``AdamW``: optax ``adamw`` (``scale_by_adam``, decoupled weight decay,
   ``-lr`` scaling) with the first moment stored in ``mu_dtype`` (bf16 for the
   diffusion trainers). As in ``optax.scale_by_adam``, the update uses the
   fp32 moment and only the stored copy is rounded; the decay ``b1 * mu`` is
   a product in the stored dtype with ``b1`` rounded to it, as optax's type
   promotion does (0.8984375 in bf16). ``torch.optim.AdamW``
-  cannot hold a bf16 moment beside fp32 params, hence this class;
+  cannot hold a bf16 moment beside fp32 params, hence this class. The clip
+  and the update are two kernel passes on CUDA and ``torch._foreach_*`` ops
+  on the CPU (``ops/adamw.py``);
 * ``make_lr_schedule``: constant, ``LinearLR`` and ``PolynomialLR``, stepped
   per optimizer step with ``total_iters`` counted in epochs, as the JAX
   package does;
@@ -85,6 +87,8 @@ from medical_image_generation_tpu_torch.data.loader import unpack_batch
 from medical_image_generation_tpu_torch.diffusion.schedule import NoiseSchedule
 from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from medical_image_generation_tpu_torch.models.vqvae import VQVAE
+from medical_image_generation_tpu_torch.ops import adamw as adamw_ops
+from medical_image_generation_tpu_torch.ops.adamw import clip_by_global_norm
 from medical_image_generation_tpu_torch.parallel.comm import AxisGroup
 from medical_image_generation_tpu_torch.parallel.mesh import Mesh, data_axis_rows, get_mesh
 from medical_image_generation_tpu_torch.parallel.sharding import (
@@ -97,6 +101,7 @@ from medical_image_generation_tpu_torch.parallel.sharding import (
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
 from medical_image_generation_tpu_torch.training import plots
 from medical_image_generation_tpu_torch.utils.profiling import (
+    count,
     host_syncs,
     maybe_progress,
     profile_trace,
@@ -136,43 +141,17 @@ def mu_dtype_from_config(config) -> Optional[torch.dtype]:
     raise ValueError(f"unknown adam_mu_dtype {name!r}")
 
 
-def global_norm(tensors: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
-                axis: Optional[AxisGroup] = None) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, fp32, on the device.
-    Under the Megatron layout (``sharded``: which tensors are this rank's
-    shards, ``axis``: the model axis) the sharded tensors' squares are
-    summed over the axis and the replicated ones counted once, so every
-    rank gets the norm of the whole gradient."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    if axis is None or axis.trivial or not sharded or not any(sharded):
-        return torch.linalg.vector_norm(torch.stack(norms))
-    sq = torch.stack(norms) ** 2
-    mask = torch.tensor(list(sharded), device=sq.device)
-    part = torch.stack([sq[mask].sum(), sq[~mask].sum()])
-    axis.sum_(part[:1])
-    return part.sum().sqrt()
-
-
-@torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
-                        sharded: Optional[Sequence[bool]] = None,
-                        axis: Optional[AxisGroup] = None) -> torch.Tensor:
-    """Clip in place in optax's form; returns the norm before clipping. No
-    host synchronisation: the choice is made on the device."""
-    norm = global_norm(grads, sharded, axis)
-    keep = norm < max_norm
-    one = torch.ones((), dtype=norm.dtype, device=norm.device)
-    torch._foreach_div_(grads, torch.where(keep, one, norm))
-    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
-    return norm
-
-
 class AdamW:
     """optax ``chain(clip_by_global_norm(clip), adamw(lr, b1, b2, eps,
     weight_decay, mu_dtype))`` over a list of params (or ``adam`` when
     ``weight_decay`` is 0). ``step(grads)`` updates the params in place.
     ``sharded`` / ``norm_axis``: the Megatron layout's shards and model axis,
-    for the clip's norm (``global_norm``)."""
+    for the clip's norm (``ops.adamw.global_norm``).
+
+    CUDA params take the two kernel passes of ``ops/adamw.py`` (``sq_norm``,
+    then ``adamw_update``; between them the all-reduce of the sharded sum
+    over ``norm_axis``), which leave the gradients as they were; CPU params
+    take the plain ``_foreach`` version, which clips them in place."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr_schedule: Callable[[int], float],
                  clip: Optional[float] = 1.0, weight_decay: float = 0.0, b1: float = 0.9,
@@ -187,6 +166,18 @@ class AdamW:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0  # updates applied so far
+        self._plan = None  # the kernels' tables (ops.adamw.Plan), made at the first CUDA step
+
+    def _hyper(self) -> adamw_ops.Hyper:
+        """This step's scalars; counts the step."""
+        lr = self.lr_schedule(self.count)
+        self.count += 1
+        # As in optax, b1 * mu is a product in the stored moment's dtype, with
+        # b1 itself rounded to it (bf16: 0.8984375).
+        b1_mu = float(torch.tensor(self.b1, dtype=self.mu[0].dtype)) if self.mu else self.b1
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(self.count))
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(self.count))
+        return adamw_ops.Hyper(lr, self.b1, self.b2, self.eps, self.wd, b1_mu, bc1, bc2)
 
     @torch.no_grad()
     def step(self, grads: List[Optional[torch.Tensor]]) -> bool:
@@ -194,32 +185,35 @@ class AdamW:
         class embedding of a step without labels) counts as zeros, as
         ``jax.grad`` gives optax: the param is still decayed. Returns True
         (every step updates the params)."""
+        if self.params and self.params[0].is_cuda:
+            return self._step_kernels(grads)
         grads = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
                  for g, p in zip(grads, self.params)]
         if self.clip:
             self.last_norm = clip_by_global_norm(grads, self.clip, self.sharded, self.norm_axis)
-        lr = self.lr_schedule(self.count)
-        self.count += 1
-        b1, b2 = self.b1, self.b2
-        # mu = (1 - b1) g + b1 mu, summed in fp32. As in optax, b1 * mu is a
-        # product in the stored moment's dtype, with b1 itself rounded to it
-        # (bf16: 0.8984375).
-        b1_mu = float(torch.tensor(b1, dtype=self.mu[0].dtype)) if self.mu else b1
-        mu = [m.float() for m in torch._foreach_mul(self.mu, b1_mu)]
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2))
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(self.count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(self.count))
-        denom = torch._foreach_div(self.nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, denom)
-        if self.wd:
-            torch._foreach_add_(upd, torch._foreach_mul(self.params, self.wd))
-        torch._foreach_add_(self.params, torch._foreach_mul(upd, -lr))
-        torch._foreach_copy_(self.mu, mu)  # stored moment: rounded to mu_dtype
+        adamw_ops.adamw_plain_(self.params, grads, self.mu, self.nu, self._hyper())
+        return True
+
+    def _step_kernels(self, grads: List[Optional[torch.Tensor]]) -> bool:
+        """Three launches: ``sq_norm``'s scratch zeroed, ``sq_norm``,
+        ``adamw_update`` (each kernel once more a further
+        ``ops.adamw.MAX_TENSORS`` tensors). The plan is made again when a
+        param was given other storage."""
+        plan = self._plan
+        if plan is None or plan.param_ptrs != [p.data_ptr() for p in self.params]:
+            plan = self._plan = adamw_ops.Plan(self.params, self.mu, self.nu, self.sharded)
+        copies = plan.set_grads(grads)  # gradients copied into their param's layout
+        sums = None
+        if self.clip:
+            sums = adamw_ops.sq_norm(plan)
+            if (self.norm_axis is not None and not self.norm_axis.trivial and self.sharded
+                    and any(self.sharded)):
+                self.norm_axis.sum_(sums[:1])
+        norm = adamw_ops.adamw_update(plan, self._hyper(), sums, self.clip)
+        del copies  # enqueued: the stream orders any reuse of their memory after the kernels
+        if self.clip:
+            self.last_norm = norm
+        count("adamw_kernel_steps")
         return True
 
     def state(self) -> Dict[str, Any]:
@@ -272,7 +266,7 @@ class MultiSteps:
         if self.mini_step + 1 < self.every_k:
             self.mini_step += 1
             return False
-        self.inner.step(self.acc)  # clips the mean in place, then AdamW
+        self.inner.step(self.acc)  # clip + AdamW on the mean (the CPU's clips it in place)
         torch._foreach_zero_(self.acc)
         self.mini_step = 0
         return True

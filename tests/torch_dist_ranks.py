@@ -1,6 +1,7 @@
-"""Rank functions of the port's multi-process CPU tests
-(``tests/test_torch_parallel.py``, ``tests/test_torch_ring.py``), and the
-spawner that runs them.
+"""Rank functions of the port's multi-process tests
+(``tests/test_torch_parallel.py``, ``tests/test_torch_ring.py`` on the CPU,
+``tests/test_torch_adamw.py``'s sharded norm on the card), and the spawner
+that runs them.
 
 ``Ranks(fn, world, tmp_dir, *args)`` starts ``world`` processes with the
 ``spawn`` method and ``join()`` collects their results; each joins a gloo
@@ -279,3 +280,20 @@ def ring_checks(rank, world, inp):
     # the data axis around the Megatron collectives and the ring's
     out["ddpm_2x2"] = _ddpm_step(inp["ddpm"], meshes[2])[0]
     return out
+
+
+def adamw_sharded_step(rank, world, params_by_rank, grads_by_rank, sharded):
+    """One clipped AdamW step on the card (the optimizer's kernels) with the
+    Megatron layout's norm over a model axis of ``world`` ranks: this rank's
+    params and gradients, ``sharded`` the tensors that are this rank's
+    shards. Returns (the norm, the params after the step) on the CPU."""
+    from medical_image_generation_tpu_torch.parallel.comm import AxisGroup
+    from medical_image_generation_tpu_torch.training import common
+
+    dev = torch.device("cuda")
+    params = [p.to(dev) for p in params_by_rank[rank]]
+    grads = [g.to(dev) for g in grads_by_rank[rank]]
+    opt = common.AdamW(params, lambda s: 1e-3, 1.0, 1e-2, mu_dtype=torch.bfloat16,
+                       sharded=sharded, norm_axis=AxisGroup(dist.group.WORLD, rank, world))
+    opt.step(grads)
+    return float(opt.last_norm), [p.cpu() for p in params]
