@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch / CUDA port on one GPU.
 
     python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --maisi    # phases 1-3 and 21 alone
 
 Phases (any failure raises and exits non-zero):
 
@@ -254,6 +255,23 @@ Phases (any failure raises and exits non-zero):
                    parameter sums equal, and the ring at (1, 262144, 1, 512)
                    over model = 2 against the whole-sequence kernels; with one
                    card it says so.
+21. maisi        -- (after phase 12) MAISI's diffusion U-Net
+                   (benchmark/configs/maisi_ct3d.json: [64, 128, 256, 512],
+                   heads of 32 at levels 2 and 3, the region and spacing
+                   embeddings): the flash forward, dQ and dK/dV at its two
+                   sites, (1, 32768, 8, 32) and (1, 4096, 16, 32), bf16 and
+                   fp32, against the chunked plain references of phase 17,
+                   with ms, the bound, the plain version's ms over every row
+                   (a chunk of query rows at a time) and SDPA's; then
+                   LDMTrainer on precomputed latents (bf16, seeded weights,
+                   batch 1 of a 4 x 128^3 latent with its conditioning): one
+                   step counted from launch counts set to 0 just before it,
+                   held to the prediction (11 of each flash kernel, 56 of
+                   each GroupNorm kernel, the optimizer's tables), every
+                   flash call at a shape a phase held and every GroupNorm
+                   shape in GN_SHAPES (phases 2-3), no input copied and
+                   every GroupNorm launch with 16-byte loads; ms a step
+                   (CUDA events) and the step's peak memory.
 Every flash forward and backward of every phase is recorded with q's shape
 and the keys' length, and the run fails at the end if one ran at a (shape,
 Sk) no kernel phase (or the CPU-vs-GPU parity phases) held against its plain
@@ -273,8 +291,9 @@ Sk, ms, bound_ms) at phase 19's context pairs, ``launches_context`` one flagship
 U-Net forward + backward with a 77-token context, ``launches_ring`` phase 20's
 in-process rings, ``launches_dist_step`` a torchrun LDM step; the optimizer's
 ``sq_norm`` and ``adamw_update`` with their launches on every training path
-and ``opt_check``'s records at the 3D and 2D flagship U-Nets) and the device
-record; the
+and ``opt_check``'s records at the 3D and 2D flagship U-Nets; ``launches_maisi``
+phase 21's step and ``shapes_maisi`` (shape, dtype, ms, bound_ms, plain_ms,
+library_ms) at its flash sites) and the device record; the
 card's name and power limit are printed before them.
 """
 
@@ -332,7 +351,7 @@ LR = 2e-5  # the flagship config's ddpm_learning_rate
 OPT_RTOL = 1e-6  # clip + AdamW kernels vs the plain version driven by their norm (same ops)
 OPT_NORM_RTOL = 1e-5  # the kernels' gradient norm vs the plain one: fp32 summation order
 
-GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship paths, batch 2
+GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship and MAISI paths, batch 2
     (32768, 256, 32), (32768, 768, 32), (4096, 512, 32), (4096, 1280, 32),
     (512, 768, 32), (512, 1536, 32), (32768, 128, 16), (262144, 64, 16),
     (2097152, 32, 16),
@@ -344,7 +363,11 @@ GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship paths, batch 
     # the U-Net's other widths (the up path's concatenations, the levels' first
     # blocks), which phase aug_cond's LDM step checks against this list
     (32768, 512, 32), (4096, 256, 32), (4096, 768, 32), (4096, 1024, 32),
-    (512, 512, 32), (512, 1280, 32)]
+    (512, 512, 32), (512, 1280, 32),
+    # MAISI's U-Net (phase maisi) at a 128^3 latent: 2 to 12 channels a group
+    (2097152, 64, 32), (2097152, 128, 32), (2097152, 192, 32), (262144, 64, 32),
+    (262144, 128, 32), (262144, 192, 32), (262144, 256, 32), (262144, 384, 32),
+    (32768, 128, 32), (32768, 384, 32)]
 FLASH_SHAPES = [(2, 4096, 1, 512), (2, 512, 1, 768), (2, 1000, 3, 96)]  # (B, S, H, D)
 FLAGSHIP_FLASH = FLASH_SHAPES[:2]  # the U-Net's two attention sites
 FLASH_TILE = 32  # keys a tile of the forward kernel, queries a tile of the dK/dV kernel
@@ -3431,7 +3454,8 @@ def sdpa_ms(q, k, v, scale, iters, do=None):
         return None
 
 
-def _flash_ddpm_case(B, S, H, D, dt, gen, cpu_gen, backward, timed=True):
+def _flash_ddpm_case(B, S, H, D, dt, gen, cpu_gen, backward, timed=True,
+                     label="kernels_ddpm"):
     """One DDPM flash shape against the chunked plain references: the lse
     over every query and key, o and dQ at four query tiles, dK / dV at four
     key tiles summed over every query, delta over every row; same bits
@@ -3527,7 +3551,7 @@ def _flash_ddpm_case(B, S, H, D, dt, gen, cpu_gen, backward, timed=True):
                         f"{lib_b:.3f} (fwd+bwd {both:.3f} minus fwd {lib:.3f})")
                      + (" (one timed call after one warm call)" if big else ""))
     if not ok:
-        raise AssertionError(f"[kernels_ddpm] flash kernels disagree with their plain versions: "
+        raise AssertionError(f"[{label}] flash kernels disagree with their plain versions: "
                              f"{line}")
     return rec, line
 
@@ -4824,6 +4848,129 @@ def phase_dist():
     return out
 
 
+MAISI_FLASH = [(1, 32768, 8, 32), (1, 4096, 16, 32)]  # MAISI's sites at a 128^3 latent
+MAISI_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                            "maisi_ct3d.json")
+PLAIN_CHUNK = 4096  # query rows a chunk of the plain versions timed at MAISI's sites
+
+
+def _plain_ms(q, k, v, do, scale):
+    """ms of the plain forward and of the plain backward (dQ pass, then the
+    dK/dV pass over every key) over every query row, PLAIN_CHUNK rows at a
+    time: the whole fp32 scores of (1, 32768, 8, 32) would take 34 GB."""
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, _ = q.shape
+    o, lse = fa.flash_attention(q, k, v, scale)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(B * H, S)
+    keys = torch.arange(S, device=q.device)
+
+    def fwd():
+        for i in range(0, S, PLAIN_CHUNK):
+            fa.flash_attention_plain(q[:, i:i + PLAIN_CHUNK], k, v, scale)
+
+    def bwd():
+        for i in range(0, S, PLAIN_CHUNK):
+            rows = slice(i, i + PLAIN_CHUNK)
+            lse_rows = lse.reshape(B, H, S)[:, :, rows].reshape(B * H, -1)
+            fa.flash_bwd_dq_plain(q[:, rows], k, v, o[:, rows], lse_rows, do[:, rows], scale)
+        fa.flash_bwd_dkdv_plain_chunked(q, k, v, do, lse, delta, scale, keys, PLAIN_CHUNK)
+
+    return time_ms(fwd, 1, 3), time_ms(bwd, 1, 3)
+
+
+def phase_maisi():
+    """MAISI's flash sites against the plain versions, then one LDM step on
+    precomputed latents at its published widths; returns {"kernels":
+    {kernel: [record]}, "per_step": {kernel: launches}, "step_ms", "peak_gib"}."""
+    import torch.nn.functional as F
+
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
+    from medical_image_generation_tpu_torch.ops import adamw
+    from medical_image_generation_tpu_torch.ops import groupnorm as gn
+    from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer
+
+    gpu = card()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    cpu_gen = torch.Generator().manual_seed(42)
+    t_phase = time.perf_counter()
+    kernels = {}
+    for shape in MAISI_FLASH:
+        for dt in (torch.bfloat16, torch.float32):
+            rec, line = _flash_ddpm_case(*shape, dt, gen, cpu_gen, True, label="maisi")
+            if dt == torch.bfloat16:
+                q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                               for _ in range(4))
+                fwd_ms, bwd_ms = _plain_ms(q, k, v, do, shape[3] ** -0.5)
+                del q, k, v, do
+                rec["flash_attn_fwd"]["plain_ms"] = fwd_ms
+                for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkdv"):
+                    rec[name]["plain_ms"] = bwd_ms  # the two plain passes together
+                line += (f" | plain (fp32, {PLAIN_CHUNK} query rows a chunk, every row) fwd "
+                         f"ms={fwd_ms:.3f} bwd (dQ + dK/dV) ms={bwd_ms:.3f}")
+            log(f"[maisi] {gpu}: flash {line} OK")
+            for name, r in rec.items():
+                kernels.setdefault(name, []).append(r)
+            torch.cuda.empty_cache()
+    flash_checked("fwd", MAISI_FLASH)
+    flash_checked("bwd", MAISI_FLASH)
+
+    with open(MAISI_CONFIG) as f:
+        cfg = json.load(f)["config"]
+    dev = torch.device("cuda")
+    trainer = LDMTrainer.from_config(cfg, None, device=dev, dtype=torch.bfloat16, seed=0,
+                                     latent_space_type="precomputed")
+    randomize_(trainer.unet, 4331)  # every layer, the zero-initialised output conv too
+    unet = trainer.unet
+    z = torch.randn((1, 128, 128, 128, 4), generator=gen, device=dev)
+    scale_factor, _ = trainer.probe_latent(z)
+    cond = {"top_region_index_tensor": F.one_hot(torch.tensor([1]), 4).float(),
+            "bottom_region_index_tensor": F.one_hot(torch.tensor([2]), 4).float(),
+            "spacing_tensor": torch.tensor([[0.8, 0.8, 2.5]])}
+    attn = sum(isinstance(m, AttentionBlock) for m in unet.modules())
+    n_gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
+    per_step = {"flash_attn_fwd": attn, "flash_attn_bwd_dq": attn, "flash_attn_bwd_dkdv": attn,
+                "gn_stats_fold": n_gn, "gn_affine_act": n_gn, "gn_bwd_stats": n_gn,
+                "gn_bwd_apply": n_gn, **opt_launches(trainer.opt)}
+    expect = launches(**per_step)
+    n_params = sum(p.numel() for p in trainer.params)
+    trainer.train_step(z, cond=cond)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with flash_capture() as seen, gn_recorder() as gns:
+        _reset_counts()
+        gn.gn_bwd_apply.grad_copies = 0
+        loss = trainer.train_step(z, cond=cond)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    copies = (_input_copies(), gn.gn_bwd_apply.grad_copies, adamw.adamw_update.grad_copies)
+    scalar, scalar_bwd = _scalar_stats(), _scalar_bwd()
+    step_ms = time_ms(lambda: trainer.train_step(z, cond=cond), 1, 3)
+    expect_seen = {(kind, s, s[1]) for kind in ("fwd", "bwd") for s in MAISI_FLASH}
+    missing = seen - FLASH_CHECKED
+    gn_missing = {s[1:] for s in gns} - set(GN_SHAPES)
+    finite = math.isfinite(float(loss))
+    log(f"[maisi] {gpu}: LDMTrainer on precomputed latents, U-Net "
+        f"{cfg['ddpm_params']['num_channels']} with heads of 32 ({n_params:,} params, bf16, "
+        f"seeded weights), batch 1 of (128, 128, 128, 4), scale_factor {scale_factor:.5f}: "
+        f"loss {float(loss):.5f}; one step's launches {counts} (predicted {expect}: "
+        f"{attn} attention, {n_gn} GroupNorm); flash calls {sorted(seen)} (unchecked "
+        f"{sorted(missing)}); GroupNorm shapes {len(gns)} (not in GN_SHAPES "
+        f"{sorted(gn_missing)}); copies (flash inputs, GroupNorm gradients, optimizer "
+        f"gradients) {copies}; launches without 16-byte loads: stats+fold {scalar}, backward "
+        f"{scalar_bwd}; {step_ms:.3f} ms a step (CUDA events, median of 3); peak "
+        f"{peak:.3f} GiB")
+    if (counts != expect or attn != 11 or n_gn != 56 or seen != expect_seen or missing
+            or gn_missing or any(copies) or scalar or any(scalar_bwd.values()) or not finite):
+        raise AssertionError("[maisi] the step's launches, flash or GroupNorm shapes, copies "
+                             "or loss are not as predicted (see the line above)")
+    del trainer, unet, z
+    torch.cuda.empty_cache()
+    log(f"[maisi] {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"kernels": kernels, "per_step": per_step, "step_ms": step_ms, "peak_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4841,6 +4988,13 @@ def main() -> int:
     flash_checked("fwd", FLASH_SHAPES)
     rec.update(phase_kernels_bwd())
     flash_checked("bwd", FLASH_SHAPES)
+    if "--maisi" in sys.argv[1:]:
+        maisi = phase_maisi()
+        check_flash_listed()
+        log(f"[env] total {time.perf_counter() - t0:.1f} s")
+        print(card())
+        print(json.dumps({"maisi": maisi}))
+        return 0
     rec_2d, worst_2d = phase_kernels_2d()
     flash_checked("fwd", FLASH_SHAPES_2D + FLASH_FWD_SHAPES_2D)
     flash_checked("bwd", FLASH_SHAPES_2D)
@@ -4858,6 +5012,8 @@ def main() -> int:
     ae, ae_per = phase_ae_train()
     t2d = phase_train_2d()
     done("train_2d")
+    maisi = phase_maisi()
+    done("maisi")
     ddpm = phase_ddpm_train()
     done("ddpm_train")
     rec_ddpm = phase_kernels_ddpm(ddpm)
@@ -4927,7 +5083,11 @@ def main() -> int:
                         "launches_context": aug_cond["context"]["launches"][name],
                         "launches_ring": {label: r["launches"][name]
                                           for label, r in dist["ring"].items()},
-                        "launches_dist_step": dist["step"]["launches"][name]})
+                        "launches_dist_step": dist["step"]["launches"][name],
+                        "launches_maisi": maisi["per_step"][name],
+                        "shapes_maisi": [{k: r[k] for k in ("shape", "dtype", "ms", "bound_ms",
+                                                            "plain_ms", "library_ms")}
+                                         for r in maisi["kernels"].get(name, [])]})
     for name in ("sq_norm", "adamw_update"):  # clip + AdamW: no TPU kernel to replace
         kernels.append({"name": name, "route": "cuda", "source": src + "adamw.cu",
                         "replaces": None, "launches": counts[name], **per_step[name],
@@ -4946,7 +5106,8 @@ def main() -> int:
                                           "cli_epoch_3d": ddpm_cli[3][name]},
                         "launches_aug_cond": {"ae_step": aug_cond["ae"]["per_step"][name],
                                               "ldm_step": aug_cond["ldm"]["per_step"][name]},
-                        "launches_dist_step": dist["step"]["launches"][name]})
+                        "launches_dist_step": dist["step"]["launches"][name],
+                        "launches_maisi": maisi["per_step"][name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

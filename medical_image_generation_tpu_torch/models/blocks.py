@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from medical_image_generation_tpu_torch.ops.attention import dot_product_attention
 from medical_image_generation_tpu_torch.ops.groupnorm import channels_last_format, group_norm
+from medical_image_generation_tpu_torch.utils.profiling import span
 
 
 def _per_axis(value, ndim: int):
@@ -165,7 +166,7 @@ class ResBlock(nn.Module):
 class AttentionBlock(nn.Module):
     """GroupNorm -> fused QKV projection (split q, k, v) -> attention over
     the flattened grid with scale head_dim^-0.5 -> output projection ->
-    residual add."""
+    residual add. The forward is the span ``medimgen.attention``."""
 
     def __init__(self, channels: int, num_head_channels: int = -1, norm_num_groups: int = 32,
                  norm_eps: float = 1e-6, dtype=torch.float32, param_dtype=None, device=None):
@@ -179,6 +180,10 @@ class AttentionBlock(nn.Module):
         self.tp = None  # the model axis (parallel/comm.AxisGroup) when sharded
 
     def forward(self, x):
+        with span("medimgen.attention"):
+            return self._forward(x)
+
+    def _forward(self, x):
         B, C = x.shape[:2]
         spatial = x.shape[2:]
         h = self.GroupNorm_0(x)

@@ -41,6 +41,21 @@ the backward. Attention blocks and spatial transformers are not
 rematerialised, as in JAX. The flag changes no parameter name and no
 result; under ``no_grad`` (sampling) it does nothing.
 
+MAISI's conditioning (MONAI ``DiffusionModelUNetMaisi``, the U-Net of the
+``maisi_ct_generative`` bundle): ``include_top_region_index_input``,
+``include_bottom_region_index_input`` and ``include_spacing_input`` each add
+an fp32 MLP ``Linear(n, ted) -> SiLU -> Linear(ted, ted)`` (ted = 4 x
+``num_channels[0]``; n = 4 body regions as a one-hot, or the 3 voxel
+spacings) named as MONAI names it (``top_region_index_layer``,
+``bottom_region_index_layer``, ``spacing_layer``). Their outputs are
+concatenated after the time MLP's (after the class embedding is added), in
+that order, so every ResBlock's projection takes ted times one plus their
+number. ``forward`` takes them as ``top_region_index_tensor``,
+``bottom_region_index_tensor`` and ``spacing_tensor`` ((B, 4), (B, 4), (B,
+3)). They are registered after every other module, so the parameter names
+and their order are those of the U-Net without them, and with all three off
+the module is exactly the U-Net without them.
+
 ``DiffusionEncoder`` (JAX :288-347) is the down path with a global average
 pool and a linear head: a timestep-conditioned classifier.
 """
@@ -176,7 +191,10 @@ class DiffusionUNet(nn.Module):
     ``dtype``) holds the conv / linear weights: fp32 for training with bf16
     compute. ``context_dim`` (needs ``with_conditioning``) sizes the
     transformers' key / value projections for ``forward``'s (B, Sk,
-    context_dim) context; None maps each site's own channels."""
+    context_dim) context; None maps each site's own channels. The three
+    ``include_*`` flags add MAISI's embedding MLPs (module docstring)."""
+
+    EMBEDDINGS = (("top_region_index", 4), ("bottom_region_index", 4), ("spacing", 3))
 
     def __init__(self, spatial_dims=3, in_channels=8, out_channels=8,
                  num_channels=(256, 512, 768), attention_levels=(False, True, True),
@@ -185,7 +203,10 @@ class DiffusionUNet(nn.Module):
                  kernel_sizes=((3, 3, 3),) * 3, paddings=((1, 1, 1),) * 3,
                  num_class_embeds: Optional[int] = None, use_checkpointing: bool = False,
                  with_conditioning: bool = False, transformer_num_layers: int = 1,
-                 context_dim: Optional[int] = None, dtype=torch.float32, param_dtype=None,
+                 context_dim: Optional[int] = None,
+                 include_top_region_index_input: bool = False,
+                 include_bottom_region_index_input: bool = False,
+                 include_spacing_input: bool = False, dtype=torch.float32, param_dtype=None,
                  device=None):
         super().__init__()
         if context_dim is not None and not with_conditioning:
@@ -202,12 +223,16 @@ class DiffusionUNet(nn.Module):
         sd, G = spatial_dims, norm_num_groups
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         ted = num_channels[0] * 4
+        included = (include_top_region_index_input, include_bottom_region_index_input,
+                    include_spacing_input)
+        self.embeddings = tuple(e for e, on in zip(self.EMBEDDINGS, included) if on)
         self.Dense_0 = nn.Linear(num_channels[0], ted, device=device)  # fp32 time MLP
         self.Dense_1 = nn.Linear(ted, ted, device=device)
         if num_class_embeds is not None:
             self.Embed_0 = nn.Embedding(num_class_embeds, ted, device=device)
         self.ConvND_0 = ConvND(in_channels, num_channels[0], kernel_sizes[0], strides[0],
                                paddings[0], sd, **kw)
+        emb_ch = ted * (1 + len(self.embeddings))  # what each ResBlock projects
 
         def attn(level, ch):
             hc = num_head_channels[level]
@@ -222,7 +247,7 @@ class DiffusionUNet(nn.Module):
         skip_ch = [ch_in]
         for level, ch in enumerate(num_channels):
             for _ in range(nrb[level]):
-                setattr(self, f"ResBlock_{rb}", ResBlock(ch_in, ch, G, 1e-6, sd, ted, **kw))
+                setattr(self, f"ResBlock_{rb}", ResBlock(ch_in, ch, G, 1e-6, sd, emb_ch, **kw))
                 rb += 1
                 ch_in = ch
                 if attention_levels[level]:
@@ -235,15 +260,15 @@ class DiffusionUNet(nn.Module):
                                    paddings[level + 1], sd, **kw))
                 skip_ch.append(ch)
         ch = num_channels[-1]
-        setattr(self, f"ResBlock_{rb}", ResBlock(ch, ch, G, 1e-6, sd, ted, **kw))
+        setattr(self, f"ResBlock_{rb}", ResBlock(ch, ch, G, 1e-6, sd, emb_ch, **kw))
         setattr(self, f"{self.attn_name}_{ab}", attn(n - 1, ch))
-        setattr(self, f"ResBlock_{rb + 1}", ResBlock(ch, ch, G, 1e-6, sd, ted, **kw))
+        setattr(self, f"ResBlock_{rb + 1}", ResBlock(ch, ch, G, 1e-6, sd, emb_ch, **kw))
         rb, ab = rb + 2, ab + 1
         for i, level in enumerate(reversed(range(n))):
             ch = num_channels[level]
             for _ in range(nrb[level] + 1):
                 setattr(self, f"ResBlock_{rb}",
-                        ResBlock(ch_in + skip_ch.pop(), ch, G, 1e-6, sd, ted, **kw))
+                        ResBlock(ch_in + skip_ch.pop(), ch, G, 1e-6, sd, emb_ch, **kw))
                 rb += 1
                 ch_in = ch
                 if attention_levels[level]:
@@ -255,12 +280,17 @@ class DiffusionUNet(nn.Module):
         self.ConvND_1 = ConvND(num_channels[0], out_channels, 3, 1, 1, sd, **kw)
         nn.init.zeros_(self.ConvND_1.Conv_0.weight)  # zero-initialised output conv
         nn.init.zeros_(self.ConvND_1.Conv_0.bias)
+        for name, n_in in self.embeddings:  # fp32, as the time MLP
+            setattr(self, f"{name}_layer", nn.Sequential(
+                nn.Linear(n_in, ted, device=device), nn.SiLU(),
+                nn.Linear(ted, ted, device=device)))
 
     @staticmethod
     def from_config(params: dict, dtype=torch.bfloat16, param_dtype=None, device=None,
                     context_dim: Optional[int] = None) -> "DiffusionUNet":
         """The U-Net of the planner's ddpm_params (``cross_attention_dim`` sizes
-        nothing, as in JAX); ``context_dim`` as in ``DiffusionUNet``."""
+        nothing, as in JAX), or of MAISI's with its ``include_*`` keys;
+        ``context_dim`` as in ``DiffusionUNet``."""
         return DiffusionUNet(
             spatial_dims=params["spatial_dims"],
             in_channels=params["in_channels"],
@@ -278,18 +308,26 @@ class DiffusionUNet(nn.Module):
             with_conditioning=bool(params.get("with_conditioning", False)),
             transformer_num_layers=int(params.get("transformer_num_layers", 1)),
             context_dim=context_dim,
+            include_top_region_index_input=bool(
+                params.get("include_top_region_index_input", False)),
+            include_bottom_region_index_input=bool(
+                params.get("include_bottom_region_index_input", False)),
+            include_spacing_input=bool(params.get("include_spacing_input", False)),
             dtype=dtype,
             param_dtype=param_dtype,
             device=device,
         )
 
     def forward(self, x, timesteps, context=None, class_labels=None,
-                down_block_additional_residuals=None, mid_block_additional_residual=None):
+                down_block_additional_residuals=None, mid_block_additional_residual=None,
+                **embedding_inputs):
         d = self.dtype
         temb = timestep_embedding(timesteps, self.num_channels[0])
         temb = self.Dense_1(F.silu(self.Dense_0(temb)))
         if class_labels is not None and hasattr(self, "Embed_0"):
             temb = temb + self.Embed_0(class_labels)
+        if self.embeddings or embedding_inputs:
+            temb = torch.cat([temb, *self._embed(embedding_inputs)], dim=1)
         temb = temb.to(d)
 
         def res_block(i, h):
@@ -337,6 +375,17 @@ class DiffusionUNet(nn.Module):
 
         h = self.ConvND_1(self.GroupNorm_0(h, silu=True))
         return to_public(h).float()
+
+    def _embed(self, inputs: dict) -> list:
+        """The MAISI embeddings of ``inputs`` ({``<name>_tensor``: (B, n)}),
+        in the order of ``EMBEDDINGS``; every one the model includes must be
+        given, and no other."""
+        want = {f"{name}_tensor" for name, _ in self.embeddings}
+        if set(inputs) != want:
+            raise ValueError(f"this U-Net takes the embedding inputs {sorted(want)}, "
+                             f"got {sorted(inputs)}")
+        return [getattr(self, f"{name}_layer")(inputs[f"{name}_tensor"].float())
+                for name, _ in self.embeddings]
 
 
 class DiffusionEncoder(nn.Module):

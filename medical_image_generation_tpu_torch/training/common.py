@@ -470,11 +470,18 @@ class DiffusionTrainer:
       latent probe), ``_host_state`` / ``load_payload`` for more state,
       ``_after_samples(val_loader, stats)`` after the interval samples.
 
-    ``posterior_eps`` says whether a step draws posterior noise, and
-    ``samples_3d`` how many volumes the interval samples take in 3D (16
-    images in 2D)."""
+    ``posterior_eps`` says whether a step draws posterior noise,
+    ``augments`` whether it augments its batch (``augment`` is then None in
+    its draws), and ``samples_3d`` how many volumes the interval samples
+    take in 3D (16 images in 2D).
+
+    ``cond`` ({name: (B, n) tensor}, this rank's rows, as ``labels`` are)
+    goes to the U-Net as keyword inputs: MAISI's region and spacing
+    embeddings (``models/diffusion_unet.py``). AdamW's decoupled weight
+    decay is ``ddpm_weight_decay`` (default 1e-2)."""
 
     posterior_eps = False
+    augments = True
     samples_3d = 1
 
     def __init__(self, config: dict, unet: torch.nn.Module, spatial_dims: int,
@@ -507,7 +514,8 @@ class DiffusionTrainer:
             make_lr_schedule(float(config.get("ddpm_learning_rate", 2e-5)),
                              config.get("lr_scheduler"), config.get("lr_scheduler_params"),
                              steps_per_epoch),
-            clip=self.clip, weight_decay=1e-2, mu_dtype=mu_dtype_from_config(config),
+            clip=self.clip, weight_decay=float(config.get("ddpm_weight_decay", 1e-2)),
+            mu_dtype=mu_dtype_from_config(config),
             sharded=[d is not None for d in self.shard_dims],
             norm_axis=AxisGroup.of(self.mesh, "model"))
         if self.grad_accum > 1:
@@ -547,8 +555,8 @@ class DiffusionTrainer:
         gen = generator or self.generator
         host = host_generator or self.host_generator
         return TrainDraws(
-            augment=make_draws(self.aug_cfg, B, batch.shape[-1], batch.dim() - 2, host, gen,
-                               tuple(batch.shape[1:-1])),
+            augment=(make_draws(self.aug_cfg, B, batch.shape[-1], batch.dim() - 2, host, gen,
+                                tuple(batch.shape[1:-1])) if self.augments else None),
             eps=(torch.randn(shape, device=self.device, generator=gen)
                  if self.posterior_eps else None),
             t=torch.randint(0, self.schedule.num_train_timesteps, (B,), generator=host),
@@ -565,21 +573,25 @@ class DiffusionTrainer:
                 self.schedule.training_target(z, noise, t), t)
 
     def train_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
-                   draws: Optional[TrainDraws] = None) -> torch.Tensor:
+                   draws: Optional[TrainDraws] = None,
+                   cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """One optimizer step on this rank's rows (B, *spatial_in, C) of the
-        global batch, in [0, 1]; ``draws`` are the global batch's. Returns
-        the global batch's loss (fp32 device scalar)."""
+        global batch, in [0, 1]; ``draws`` are the global batch's, ``cond``
+        this rank's rows. Returns the global batch's loss (fp32 device
+        scalar)."""
         with self.mesh:
-            return self._train_step(batch, labels, generator, draws)
+            return self._train_step(batch, labels, generator, draws, cond)
 
-    def _train_step(self, batch, labels, generator, draws):
+    def _train_step(self, batch, labels, generator, draws, cond):
         with span("medimgen.train_step"), host_syncs():
             batch = batch.to(self.device)
+            cond = {k: v.to(self.device) for k, v in (cond or {}).items()}
             if draws is None:
                 draws = self.make_draws(batch, labels, generator)
             draws = local_rows(draws, self.mesh)
             with span("medimgen.augment"):
-                imgs = augment_batch(batch, draws.augment, self.aug_cfg)
+                imgs = (augment_batch(batch, draws.augment, self.aug_cfg) if self.augments
+                        else batch)
             with span("medimgen.latent"):
                 noisy, target, t = self._noised(imgs, draws)
             labels_in = None
@@ -592,7 +604,7 @@ class DiffusionTrainer:
             for p in self.params:
                 p.grad = None
             with span("medimgen.unet_forward"):
-                pred = self.unet(noisy, t, class_labels=labels_in)
+                pred = self.unet(noisy, t, class_labels=labels_in, **cond)
                 loss = torch.mean((pred.float() - target) ** 2)
             with span("medimgen.unet_backward"):
                 loss.backward()
@@ -608,17 +620,19 @@ class DiffusionTrainer:
     @torch.no_grad()
     def val_step(self, batch, labels=None, generator: Optional[torch.Generator] = None,
                  draws: Optional[TrainDraws] = None,
-                 host_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 host_generator: Optional[torch.Generator] = None,
+                 cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """The global batch's loss on this rank's rows of a final-size batch:
-        no augmentation, no label dropout."""
+        no augmentation, no label dropout; ``cond`` as in ``train_step``."""
         batch = batch.to(self.device)
+        cond = {k: v.to(self.device) for k, v in (cond or {}).items()}
         if draws is None:
             draws = self.make_draws(batch, None, generator, host_generator)
         draws = local_rows(draws, self.mesh)
         noisy, target, t = self._noised(batch, draws)
         lab = labels.to(self.device) if labels is not None and self.class_cond else None
         with self.mesh:
-            pred = self.unet(noisy, t, class_labels=lab)
+            pred = self.unet(noisy, t, class_labels=lab, **cond)
         return self.data_axis.mean(torch.mean((pred.float() - target) ** 2))
 
     # ---------------------------------------------------------------- sampling

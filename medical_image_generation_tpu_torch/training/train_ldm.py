@@ -64,6 +64,18 @@ over the cached ``FeatureExtractor``'s features, SSIM / MS-SSIM (window
 the MMD of the same features. The metrics and their seconds (sampling,
 features, pairwise) go into the epoch's ``epoch_stats``.
 
+``latent_space_type="precomputed"`` trains on latents a stage-1 model
+computed beforehand, as MAISI's bundle does (``diff_model_create_training_data``
+writes them, ``diff_model_train`` reads them): no autoencoder is built or
+run, a loader batch is (B, *latent spatial, latent channels) in the loader's
+layout and is the clean latent as it is (no augmentation: a transformation
+switched on in ``ddpm_transformations`` is refused), ``probe_latent`` sets
+``scale_factor = 1 / std(z)`` of the first batch (``torch.std``'s unbiased
+estimate, MAISI's ``calculate_scale_factor``), and a step scales and noises
+it under ``medimgen.latent``. ``train_step(..., cond=...)`` passes MAISI's
+region and spacing inputs to the U-Net. Sampling needs the decoder and is
+refused in this mode.
+
 Not ported, and refused before the first step: the augmentations that
 ``data/augment.py`` lacks.
 """
@@ -105,22 +117,34 @@ from medical_image_generation_tpu_torch.training.common import TrainDraws  # noq
 from medical_image_generation_tpu_torch.training.sample import LDMSampler
 
 
+AUGMENT_KEYS = ("rotation", "scaling", "mirror", "brightness", "contrast", "gamma",
+                "gaussian_noise", "gaussian_blur", "low_resolution", "elastic")
+
+
 class LDMTrainer(common.DiffusionTrainer):
     """Stage-2 latent diffusion trainer over a frozen KL-VAE (or VQ-VAE, with
-    ``latent_space_type="vq"``), held as ``vae``. Build with
-    ``from_config``."""
+    ``latent_space_type="vq"``), held as ``vae``, or on precomputed latents
+    (``"precomputed"``, ``vae`` None). Build with ``from_config``."""
 
     samples_3d = 2
 
-    def __init__(self, config: dict, unet: DiffusionUNet, vae: AutoencoderKL | VQVAE,
+    def __init__(self, config: dict, unet: DiffusionUNet, vae: AutoencoderKL | VQVAE | None,
                  device: str | torch.device = "cuda", seed: int = 0,
                  steps_per_epoch: int = 250, latent_space_type: str = "vae",
                  mesh: Optional[Mesh] = None):
-        self.vae_params = common.generator_params(config, latent_space_type)
-        super().__init__(config, unet, self.vae_params["spatial_dims"], device, seed,
-                         steps_per_epoch, mesh)
-        self.vae = vae.eval().requires_grad_(False)
+        precomputed = latent_space_type == "precomputed"
+        if precomputed:
+            on = [k for k in AUGMENT_KEYS if config.get("ddpm_transformations", {}).get(k)]
+            if on:
+                raise ValueError(f"precomputed latents are not augmented: switch off {on}")
+        self.vae_params = (None if precomputed
+                           else common.generator_params(config, latent_space_type))
+        super().__init__(config, unet, config["ddpm_params"]["spatial_dims"] if precomputed
+                         else self.vae_params["spatial_dims"], device, seed, steps_per_epoch,
+                         mesh)
+        self.vae = None if precomputed else vae.eval().requires_grad_(False)
         self.latent_space_type = latent_space_type
+        self.augments = not precomputed
         self.posterior_eps = latent_space_type == "vae"
         if latent_space_type == "vq":
             codebook = self.vae.quantizer.codebook
@@ -137,7 +161,8 @@ class LDMTrainer(common.DiffusionTrainer):
         """U-Net with fp32 master params computing in ``dtype`` (flax-style
         initialisation from ``seed``, or ``unet_state``), and the frozen
         KL-VAE (VQ-VAE for ``vq``) from ``vae_state`` (computing in
-        ``dtype``); the trainer on ``mesh`` (default: the config's)."""
+        ``dtype``; None for ``precomputed``); the trainer on ``mesh``
+        (default: the config's)."""
         dev = resolve_device(device)
         ddpm_params = dict(config["ddpm_params"])
         cc = config.get("class_conditioning") or None
@@ -150,14 +175,18 @@ class LDMTrainer(common.DiffusionTrainer):
             common.init_like_flax_(unet)
         else:
             unet.load_state_dict(unet_state)
-        vae = common.build_generator(config, latent_space_type, dtype, device=dev)
-        vae.load_state_dict(vae_state)
+        vae = None
+        if latent_space_type != "precomputed":
+            vae = common.build_generator(config, latent_space_type, dtype, device=dev)
+            vae.load_state_dict(vae_state)
         return LDMTrainer(config, unet, vae, dev, seed, steps_per_epoch, latent_space_type, mesh)
 
     # ----------------------------------------------------------------- latent
 
     def latent_shape_of(self, batch):
         """(B, *latent spatial, latent_channels) of a loader batch."""
+        if self.vae is None:
+            return tuple(batch.shape)  # the batch is the latent
         lat = compute_output_size(self._final_spatial(batch),
                                   self.vae_params["downsample_parameters"])
         ch = (self.vae_params["latent_channels"] if self.latent_space_type == "vae"
@@ -166,13 +195,16 @@ class LDMTrainer(common.DiffusionTrainer):
 
     def _encode(self, imgs, eps):
         """Stage-2 latent of a batch, before scaling: a posterior sample
-        (KL-VAE) or the pre-quantization latent (VQ-VAE)."""
+        (KL-VAE), the pre-quantization latent (VQ-VAE), or the batch itself
+        (precomputed)."""
+        if self.vae is None:
+            return imgs
         if self.latent_space_type == "vae":
             return self.vae.encode_stage_2_inputs(imgs, eps)
         return self.vae.encode_stage_2_inputs(imgs)
 
     def _scale(self, z):
-        if self.latent_space_type == "vae":
+        if self.latent_space_type != "vq":
             return z * self.scale_factor
         lo, hi = self.codebook_min, self.codebook_max
         return 2 * (z - lo) / (hi - lo) - 1
@@ -183,7 +215,8 @@ class LDMTrainer(common.DiffusionTrainer):
         1e-8)`` from one (center-cropped) batch. The posterior noise comes
         from ``generator``, else from a generator seeded 0 (the JAX probe's
         ``PRNGKey(0)``), never from the training stream. The VQ latent
-        keeps ``scale_factor`` 1 (its range is the codebook's). In a
+        keeps ``scale_factor`` 1 (its range is the codebook's); precomputed
+        latents take MAISI's ``1 / std(z)`` (unbiased, no epsilon). In a
         data-parallel run ``batch`` is this rank's rows: the noise is drawn
         for the global batch and the latents are gathered over the data
         axis, so every rank gets the one-process probe's numbers."""
@@ -199,6 +232,8 @@ class LDMTrainer(common.DiffusionTrainer):
         z = self.data_axis.all_gather(self._encode(batch, eps), 0)
         if self.latent_space_type == "vae":
             self.scale_factor = float(1.0 / (z.std(correction=0) + 1e-8))
+        elif self.vae is None:
+            self.scale_factor = float(1.0 / z.std())
         self.latent_shape = tuple(z.shape)
         return self.scale_factor, self.latent_shape
 
@@ -219,6 +254,9 @@ class LDMTrainer(common.DiffusionTrainer):
         ``LDMSampler`` with the sampling weights."""
         if self.latent_shape is None:
             raise RuntimeError("call probe_latent first: sampling needs the latent shape")
+        if self.vae is None:
+            raise NotImplementedError("sampling decodes through the autoencoder: a trainer "
+                                      "on precomputed latents has none")
         cc = self.class_cond or {}
         with self.sampling_weights() as unet:
             out = LDMSampler(unet, self.vae, self.schedule, self.scale_factor, self.latent_shape,

@@ -34,9 +34,11 @@ FLASH_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2**-7, 2**-10)}
 
 # (B, S, H, D): the U-Net's two sites, ragged S, head dims whose 64-column
 # chunks do not fill the last CTA of a cluster (8, 96, 640), and D % 8 != 0
-# (the bf16 kernels then run on zero-padded copies).
+# (the bf16 kernels then run on zero-padded copies); MAISI's level-3 and mid
+# block site (16 heads of 32: one 64-column chunk half padding, the second
+# warpgroup's all padding).
 FLASH_SHAPES = [(2, 64, 2, 8), (1, 1000, 1, 96), (2, 512, 1, 768), (2, 4096, 1, 512),
-                (1, 300, 1, 640), (1, 50, 2, 20)]
+                (1, 300, 1, 640), (1, 50, 2, 20), (1, 4096, 16, 32)]
 
 
 @pytest.mark.cuda
@@ -440,10 +442,12 @@ def test_chunked_flash_references_equal_the_plain_versions(B, S, H, D, chunk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,D", [(1, 32768, 1, 768), (1, 16384, 1, 512)])
+@pytest.mark.parametrize("B,S,H,D", [(1, 32768, 1, 768), (1, 16384, 1, 512),
+                                     (1, 32768, 8, 32)])
 def test_flash_kernels_at_ddpm_lengths_match_the_chunked_references_on_gpu(cuda, B, S, H, D):
     """bf16 at two of the pixel-space DDPM's attention lengths (3D level 2,
-    2D level 1): the lse over every row against the chunked reference, o and
+    2D level 1) and at MAISI's level-2 site (8 heads of 32 over 32^3
+    tokens): the lse over every row against the chunked reference, o and
     dQ at three query tiles, dK / dV at three key tiles summed over every
     query, delta over every row; the tolerances above."""
     q, k, v, do = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, torch.bfloat16)

@@ -19,6 +19,13 @@ from medical_image_generation_tpu_torch.utils import profiling
 PHASES = ["medimgen.augment", "medimgen.latent", "medimgen.unet_forward",
           "medimgen.unet_backward", "medimgen.optimizer"]
 NAMES = {"medimgen.batch_to_device", "medimgen.train_step", *PHASES}
+ATTN = "medimgen.attention"  # each attention block's forward, inside the U-Net forward
+
+
+def n_attn(tr):
+    from medical_image_generation_tpu_torch.models.blocks import AttentionBlock
+
+    return sum(isinstance(m, AttentionBlock) for m in tr.unet.modules())
 
 
 @pytest.fixture
@@ -71,8 +78,14 @@ def test_train_step_phases_under_the_profiler(kind):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _step(tr, batch)
     recs = sorted(profiling.records(), key=lambda r: r.start_s)
+    attn = [r for r in recs if r.name == ATTN]
+    recs = [r for r in recs if r.name != ATTN]
     assert [r.name for r in recs] == ["medimgen.batch_to_device", "medimgen.train_step",
                                       *PHASES]
+    fwd = recs[2 + PHASES.index("medimgen.unet_forward")]
+    assert len(attn) == n_attn(tr) > 0
+    assert all(a.parent == "medimgen.unet_forward" and fwd.start_s <= a.start_s
+               and a.end_s <= fwd.end_s for a in attn)
     root, step, phases = recs[0], recs[1], recs[2:]
     assert root.parent is None and step.parent is None
     assert root.end_s <= step.start_s
@@ -80,12 +93,14 @@ def test_train_step_phases_under_the_profiler(kind):
     assert step.start_s <= phases[0].start_s and phases[-1].end_s <= step.end_s
     assert all(a.end_s <= b.start_s for a, b in zip(phases, phases[1:]))
     assert all(r.events is None for r in recs)  # no CUDA events on the CPU
+    assert all(r.events is None for r in attn)
     out = profiling.read()
-    assert {k: v["n"] for k, v in out["spans"].items()} == dict.fromkeys(NAMES, 1)
+    assert {k: v["n"] for k, v in out["spans"].items()} == {**dict.fromkeys(NAMES, 1),
+                                                            ATTN: len(attn)}
     assert all(v["stream_s"] is None and v["host_s"] > 0 for v in out["spans"].values())
     assert out["counters"] == {"host_syncs": 0}
     seen = {e.name: e for e in prof.events() if e.name.startswith("medimgen.")}
-    assert set(seen) == NAMES
+    assert set(seen) == NAMES | {ATTN}
     for e in seen.values():
         assert e.device_type == torch.autograd.DeviceType.CPU
         assert not e.is_user_annotation
@@ -94,13 +109,14 @@ def test_train_step_phases_under_the_profiler(kind):
 def test_recorder_keeps_the_last_spans_only(monkeypatch):
     tr = _trainer("ldm")
     batch = _batch(tr)
-    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder(max_spans=len(NAMES)))
+    per_step = len(NAMES) + n_attn(tr)
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder(max_spans=per_step))
     with profile(activities=[ProfilerActivity.CPU]):
         for _ in range(3):
             _step(tr, batch)
     recs = profiling.records()
-    assert len(recs) == len(NAMES)
-    assert {r.name for r in recs} == NAMES  # the last step's
+    assert len(recs) == per_step
+    assert {r.name for r in recs} == NAMES | {ATTN}  # the last step's
     monkeypatch.undo()
     with profile(activities=[ProfilerActivity.CPU]):
         for i in range(profiling.MAX_SPANS + 100):
@@ -145,7 +161,9 @@ def test_no_span_reaches_the_device_timeline_on_gpu(cuda):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     assert dev and not any(n.startswith("medimgen.") for n in dev)
     spans = profiling.read()["spans"]
-    assert set(spans) == NAMES
+    assert set(spans) == NAMES | {ATTN}
+    # the attention blocks lie inside the U-Net's forward on its stream
+    assert 0 < spans[ATTN]["stream_s"] <= spans["medimgen.unet_forward"]["stream_s"]
     # children lie inside the step on one stream
     step = spans["medimgen.train_step"]["stream_s"]
     assert 0 < sum(spans[p]["stream_s"] for p in PHASES) <= step
