@@ -420,11 +420,14 @@ def phase_build():
 
 
 def check_hgmma(build):
-    """Every instantiation of the bf16 flash forward, dQ and dK/dV kernels
-    must issue HGMMA (wgmma) in its SASS."""
+    """Every instantiation of the bf16 flash forward, dQ and dK/dV kernels,
+    wide and narrow, must issue HGMMA (wgmma) in its SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for lib, kernel in (("flash_attn_fwd", "flash_fwd_bf16"), ("flash_attn_bwd", "flash_bwd_dq_bf16"),
-                        ("flash_attn_bwd", "flash_bwd_dkdv_bf16")):
+                        ("flash_attn_bwd", "flash_bwd_dkdv_bf16"),
+                        ("flash_attn_narrow_fwd", "flash_fwd_narrow_bf16"),
+                        ("flash_attn_narrow_bwd", "flash_bwd_dq_narrow_bf16"),
+                        ("flash_attn_narrow_bwd", "flash_bwd_dkdv_narrow_bf16")):
         sass = subprocess.run([tool, "--dump-sass", build.lib_path(lib)], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         counts, cur = {}, None
@@ -1103,8 +1106,11 @@ def phase_parity_train():
     if not (l_err <= PARITY_LOSS_TOL and g_err <= PARITY_GRAD_TOL and u_err <= 1e-3
             and n_off <= 0.01 * n_all):
         raise AssertionError("tiny-config train-step CPU/GPU parity failed")
-    if not all(v > 0 for v in counts.values()):
-        raise AssertionError(f"a kernel did not launch in the GPU train step: {counts}")
+    # fp32: every kernel but the narrow flash ones (bf16 only), which stay at 0
+    wide = {k: v for k, v in counts.items() if not k.endswith("_narrow")}
+    if not all(wide.values()) or any(counts[k] for k in counts if k not in wide):
+        raise AssertionError(f"a kernel did not launch in the GPU train step, or a narrow one "
+                             f"did: {counts}")
 
 
 def phase_slice(steps=10):
@@ -1224,10 +1230,10 @@ def phase_train(warmup=2, steps=10):
 
     attn_u, gn_u = count(unet, AttentionBlock), count(unet, GroupNorm)
     attn_e, gn_e = count(vae.encoder, AttentionBlock), count(vae.encoder, GroupNorm)
-    per_step = {"flash_attn_fwd": attn_u + attn_e, "flash_attn_bwd_dq": attn_u,
-                "flash_attn_bwd_dkdv": attn_u, "gn_stats_fold": gn_u + gn_e,
-                "gn_affine_act": gn_u + gn_e,
-                "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u, **opt_launches(trainer.opt)}
+    per_step = launches(flash_attn_fwd=attn_u + attn_e, flash_attn_bwd_dq=attn_u,
+                        flash_attn_bwd_dkdv=attn_u, gn_stats_fold=gn_u + gn_e,
+                        gn_affine_act=gn_u + gn_e, gn_bwd_stats=gn_u, gn_bwd_apply=gn_u,
+                        **opt_launches(trainer.opt))
 
     p0 = [p.detach().clone() for p in trainer.params[:4]]
     losses = [trainer.train_step(batch) for _ in range(warmup)]
@@ -1310,6 +1316,8 @@ def phase_train(warmup=2, steps=10):
         raise AssertionError(f"port kernels launched in the step but read 0 ms in its profile "
                              f"(PORT_KERNELS patterns out of date?): {unseen}")
     for name, b_ms in bounds.items():
+        if not b_ms:  # a kernel the step does not run (the narrow flash kernels here)
+            continue
         log(f"[train] per step: {name} device ms={shares[name]:.4f} bound ms (summed over the "
             f"step's {per_step[name]} launches)={b_ms:.4f} ratio={shares[name] / b_ms:.2f}")
 
@@ -1350,12 +1358,25 @@ WARM_LAUNCHES = 256  # tiny kernels a profile records before the call it reads
 PORT_KERNELS = {  # profile name patterns of each port kernel, by its counter's name
     "flash_attn_fwd": ("flash_fwd",), "flash_attn_bwd_dq": ("flash_bwd_dq",),
     "flash_attn_bwd_dkdv": ("flash_bwd_dkdv",),
+    "flash_attn_fwd_narrow": ("flash_fwd_narrow",),
+    "flash_attn_bwd_dq_narrow": ("flash_bwd_dq_narrow",),
+    "flash_attn_bwd_dkdv_narrow": ("flash_bwd_dkdv_narrow",),
     "gn_stats_fold": ("stats_partial", "stats_reduce_fold"),
     "gn_affine_act": ("::affine_",),
     "gn_bwd_stats": ("gn_bwd_partial_kernel", "gn_bwd_reduce_fold_kernel"),
     "gn_bwd_apply": ("gn_bwd_apply_kernel",),
     "sq_norm": ("adamw_sq_norm_kernel",), "adamw_update": ("adamw_update_kernel",),
 }
+
+
+def _owners(name):
+    """The port kernels whose longest matching pattern is the longest that
+    matches ``name`` (a narrow flash kernel also matches its wide
+    counterpart's shorter pattern, whose counter counts both designs)."""
+    best = {k: max((len(p) for p in pats if p in name), default=0)
+            for k, pats in PORT_KERNELS.items()}
+    top = max(best.values())
+    return [k for k, n in best.items() if n and n == top]
 
 
 def profile_breakdown(label, fn, time_host=True):
@@ -1400,8 +1421,7 @@ def profile_breakdown(label, fn, time_host=True):
         by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     busy = sum(v[0] for v in by_name.values()) / 1e3
     span = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)) / 1e3
-    owners = {n: [k for k, pats in PORT_KERNELS.items() if any(p in n for p in pats)]
-              for n in by_name}
+    owners = {n: _owners(n) for n in by_name}
     shared = {n: ks for n, ks in owners.items() if len(ks) > 1}
     if shared:
         raise AssertionError(f"[profile] {label}: kernels matched by two port kernels' "
@@ -2487,10 +2507,10 @@ def phase_train_2d(warmup=2, steps=10):
 
     attn_u, gn_u, gn_e = (count(tr.unet, AttentionBlock), count(tr.unet, GroupNorm),
                           count(tr.vae.encoder, GroupNorm))
-    per_step = {"flash_attn_fwd": attn_u, "flash_attn_bwd_dq": attn_u,
-                "flash_attn_bwd_dkdv": attn_u, "gn_stats_fold": gn_u + gn_e,
-                "gn_affine_act": gn_u + gn_e, "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u,
-                **opt_launches(tr.opt)}
+    per_step = launches(flash_attn_fwd=attn_u, flash_attn_bwd_dq=attn_u,
+                        flash_attn_bwd_dkdv=attn_u, gn_stats_fold=gn_u + gn_e,
+                        gn_affine_act=gn_u + gn_e, gn_bwd_stats=gn_u, gn_bwd_apply=gn_u,
+                        **opt_launches(tr.opt))
     log(f"[train_2d] {gpu}: 2D U-Net {cfg['ddpm_params']['num_channels']} params={n_u:,}; "
         f"batch {tuple(batch.shape)} -> crop {tr.aug_cfg.crop_to} -> latent {latent}; "
         f"scale_factor {scale:.5f}; U-Net {attn_u} attention / {gn_u} GroupNorm, encoder "
@@ -3240,6 +3260,8 @@ def module_bounds(nets, fn):
     finally:
         for h in handles:
             h.remove()
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
+
     ms = {k: 0.0 for k in kernel_counters()}
     for calls, grad in ((seen, False), (grads.values(), True)):
         for mod, shape, isz in calls:
@@ -3250,14 +3272,16 @@ def module_bounds(nets, fn):
                         ms[k] += v
             else:
                 fl, n, bhs = B * mod.num_heads * M * M * mod.head_dim, B * M * C, B * M
+                dt = torch.bfloat16 if isz == 2 else torch.float32
+                nar = "_narrow" if fa.takes_narrow(dt, mod.head_dim) else ""  # the design run
                 if not grad:
-                    ms["flash_attn_fwd"] += bound(4 * fl, 4 * n * isz + 4 * bhs,
-                                                  PEAK_BF16_FLOPS)[0]
+                    ms["flash_attn_fwd" + nar] += bound(4 * fl, 4 * n * isz + 4 * bhs,
+                                                        PEAK_BF16_FLOPS)[0]
                 else:
-                    ms["flash_attn_bwd_dq"] += bound(6 * fl, 6 * n * isz + 8 * bhs,
-                                                     PEAK_BF16_FLOPS)[0]
-                    ms["flash_attn_bwd_dkdv"] += bound(8 * fl, 6 * n * isz + 8 * bhs,
-                                                       PEAK_BF16_FLOPS)[0]
+                    ms["flash_attn_bwd_dq" + nar] += bound(6 * fl, 6 * n * isz + 8 * bhs,
+                                                           PEAK_BF16_FLOPS)[0]
+                    ms["flash_attn_bwd_dkdv" + nar] += bound(8 * fl, 6 * n * isz + 8 * bhs,
+                                                             PEAK_BF16_FLOPS)[0]
     shapes = {(sh[0], math.prod(sh[2:]), sh[1], m.num_groups) for m, sh, _ in seen
               if isinstance(m, GroupNorm)}
     return ms, shapes
@@ -3350,11 +3374,11 @@ def phase_ddpm_train():
         tr.unet.remat = "full" if remat else None
         batch = torch.rand((B, *initial, 1), generator=gen, device=dev)
         steps = DDPM_STEPS[sd]
-        per_step = {"flash_attn_fwd": attn, "flash_attn_bwd_dq": attn,
-                    "flash_attn_bwd_dkdv": attn,
-                    "gn_stats_fold": gn_u + (2 * n_res if remat else 0),
-                    "gn_affine_act": gn_u + (2 * n_res if remat else 0),
-                    "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u, **opt_launches(tr.opt)}
+        per_step = launches(flash_attn_fwd=attn, flash_attn_bwd_dq=attn,
+                            flash_attn_bwd_dkdv=attn,
+                            gn_stats_fold=gn_u + (2 * n_res if remat else 0),
+                            gn_affine_act=gn_u + (2 * n_res if remat else 0),
+                            gn_bwd_stats=gn_u, gn_bwd_apply=gn_u, **opt_launches(tr.opt))
         with flash_capture() as flash:
             ms, peak, counts, losses = _timed_steps(lambda: tr.train_step(batch), 0, steps)
             losses = [float(v) for v in losses]
@@ -3926,9 +3950,9 @@ def cond_per_step(unet, encoder):
 
     fl = n(unet, CrossAttention) + n(unet, AttentionBlock)
     gn_u, gn_e = n(unet, GroupNorm), n(encoder, GroupNorm)
-    return {"flash_attn_fwd": fl + n(encoder, AttentionBlock), "flash_attn_bwd_dq": fl,
-            "flash_attn_bwd_dkdv": fl, "gn_stats_fold": gn_u + gn_e,
-            "gn_affine_act": gn_u + gn_e, "gn_bwd_stats": gn_u, "gn_bwd_apply": gn_u}
+    return launches(flash_attn_fwd=fl + n(encoder, AttentionBlock), flash_attn_bwd_dq=fl,
+                    flash_attn_bwd_dkdv=fl, gn_stats_fold=gn_u + gn_e, gn_affine_act=gn_u + gn_e,
+                    gn_bwd_stats=gn_u, gn_bwd_apply=gn_u)
 
 
 def phase_aug_cond(ws):
@@ -4070,6 +4094,8 @@ def _aug_cond(ws):
                                      lambda: tr.train_step(batch))
     prof = profile_breakdown.last
     for name, b_ms in bounds.items():
+        if not b_ms:  # a kernel the step does not run (the narrow flash kernels here)
+            continue
         log(f"[aug_cond] {gpu}: conditioned LDM per step: {name} device ms={shares[name]:.4f} "
             f"bound ms (summed over the step's {per_step[name]} launches)={b_ms:.4f} ratio="
             f"{shares[name] / b_ms:.2f}")
@@ -4849,6 +4875,7 @@ def phase_dist():
 
 
 MAISI_FLASH = [(1, 32768, 8, 32), (1, 4096, 16, 32)]  # MAISI's sites at a 128^3 latent
+PEAK_EXP = 3.9e12  # exponentials a second on the special-function units (16 a clock an SM)
 MAISI_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
                             "maisi_ct3d.json")
 PLAIN_CHUNK = 4096  # query rows a chunk of the plain versions timed at MAISI's sites
@@ -4880,13 +4907,16 @@ def _plain_ms(q, k, v, do, scale):
 
 
 def phase_maisi():
-    """MAISI's flash sites against the plain versions, then one LDM step on
-    precomputed latents at its published widths; returns {"kernels":
-    {kernel: [record]}, "per_step": {kernel: launches}, "step_ms", "peak_gib"}."""
+    """MAISI's flash sites (the narrow kernels) against the plain versions,
+    beside SDPA, the tensor-core bound and the exponentials' bound, then one
+    LDM step on precomputed latents at its published widths; returns
+    {"kernels": {kernel: [record]}, "per_step": {kernel: launches}, "step_ms",
+    "peak_gib"}."""
     import torch.nn.functional as F
 
     from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
     from medical_image_generation_tpu_torch.ops import adamw
+    from medical_image_generation_tpu_torch.ops import flash_attention as fa
     from medical_image_generation_tpu_torch.ops import groupnorm as gn
     from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer
 
@@ -4897,14 +4927,26 @@ def phase_maisi():
     kernels = {}
     for shape in MAISI_FLASH:
         for dt in (torch.bfloat16, torch.float32):
+            before = {k: c.launches for k, c in kernel_counters().items()}
             rec, line = _flash_ddpm_case(*shape, dt, gen, cpu_gen, True, label="maisi")
+            ran = {k: c.launches - before[k] for k, c in kernel_counters().items()
+                   if k.startswith("flash") and c.launches > before[k]}
+            narrow = fa.takes_narrow(dt, shape[3])
+            if narrow != {f"{k}_narrow" for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                                                  "flash_attn_bwd_dkdv")}.issubset(ran):
+                raise AssertionError(f"[maisi] {shape} {dt}: launches {ran}, narrow kernels "
+                                     f"expected: {narrow}")
+            if narrow:  # the records are the narrow kernels'
+                exp_ms = shape[0] * shape[2] * shape[1] ** 2 / PEAK_EXP * 1e3
+                rec = {f"{k}_narrow": dict(r, exp_bound_ms=exp_ms) for k, r in rec.items()}
+                line += f" | exp bound ms={exp_ms:.3f} a pass; launches {ran}"
             if dt == torch.bfloat16:
                 q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
                                for _ in range(4))
                 fwd_ms, bwd_ms = _plain_ms(q, k, v, do, shape[3] ** -0.5)
                 del q, k, v, do
-                rec["flash_attn_fwd"]["plain_ms"] = fwd_ms
-                for name in ("flash_attn_bwd_dq", "flash_attn_bwd_dkdv"):
+                rec["flash_attn_fwd_narrow"]["plain_ms"] = fwd_ms
+                for name in ("flash_attn_bwd_dq_narrow", "flash_attn_bwd_dkdv_narrow"):
                     rec[name]["plain_ms"] = bwd_ms  # the two plain passes together
                 line += (f" | plain (fp32, {PLAIN_CHUNK} query rows a chunk, every row) fwd "
                          f"ms={fwd_ms:.3f} bwd (dQ + dK/dV) ms={bwd_ms:.3f}")
@@ -4930,8 +4972,9 @@ def phase_maisi():
     attn = sum(isinstance(m, AttentionBlock) for m in unet.modules())
     n_gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
     per_step = {"flash_attn_fwd": attn, "flash_attn_bwd_dq": attn, "flash_attn_bwd_dkdv": attn,
-                "gn_stats_fold": n_gn, "gn_affine_act": n_gn, "gn_bwd_stats": n_gn,
-                "gn_bwd_apply": n_gn, **opt_launches(trainer.opt)}
+                "flash_attn_fwd_narrow": attn, "flash_attn_bwd_dq_narrow": attn,
+                "flash_attn_bwd_dkdv_narrow": attn, "gn_stats_fold": n_gn, "gn_affine_act": n_gn,
+                "gn_bwd_stats": n_gn, "gn_bwd_apply": n_gn, **opt_launches(trainer.opt)}
     expect = launches(**per_step)
     n_params = sum(p.numel() for p in trainer.params)
     trainer.train_step(z, cond=cond)  # warm
@@ -4955,9 +4998,9 @@ def phase_maisi():
         f"{cfg['ddpm_params']['num_channels']} with heads of 32 ({n_params:,} params, bf16, "
         f"seeded weights), batch 1 of (128, 128, 128, 4), scale_factor {scale_factor:.5f}: "
         f"loss {float(loss):.5f}; one step's launches {counts} (predicted {expect}: "
-        f"{attn} attention, {n_gn} GroupNorm); flash calls {sorted(seen)} (unchecked "
-        f"{sorted(missing)}); GroupNorm shapes {len(gns)} (not in GN_SHAPES "
-        f"{sorted(gn_missing)}); copies (flash inputs, GroupNorm gradients, optimizer "
+        f"{attn} attention, each pass on the narrow kernels, {n_gn} GroupNorm); flash calls "
+        f"{sorted(seen)} (unchecked {sorted(missing)}); GroupNorm shapes {len(gns)} (not in "
+        f"GN_SHAPES {sorted(gn_missing)}); copies (flash inputs, GroupNorm gradients, optimizer "
         f"gradients) {copies}; launches without 16-byte loads: stats+fold {scalar}, backward "
         f"{scalar_bwd}; {step_ms:.3f} ms a step (CUDA events, median of 3); peak "
         f"{peak:.3f} GiB")
@@ -5087,6 +5130,17 @@ def main() -> int:
                         "launches_maisi": maisi["per_step"][name],
                         "shapes_maisi": [{k: r[k] for k in ("shape", "dtype", "ms", "bound_ms",
                                                             "plain_ms", "library_ms")}
+                                         for r in maisi["kernels"].get(name, [])]})
+    for name, source, replaces in (
+            ("flash_attn_fwd_narrow", "flash_attn_narrow_fwd.cu", "pallas_attention.py:153"),
+            ("flash_attn_bwd_dq_narrow", "flash_attn_narrow_bwd.cu", "pallas_attention.py:326"),
+            ("flash_attn_bwd_dkdv_narrow", "flash_attn_narrow_bwd.cu", "pallas_attention.py:326")):
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": jax_ops + replaces, "launches": counts[name],
+                        "launches_maisi": maisi["per_step"][name],
+                        "shapes_maisi": [{k: r[k] for k in ("shape", "dtype", "ms", "bound_ms",
+                                                            "exp_bound_ms", "plain_ms",
+                                                            "library_ms")}
                                          for r in maisi["kernels"].get(name, [])]})
     for name in ("sq_norm", "adamw_update"):  # clip + AdamW: no TPU kernel to replace
         kernels.append({"name": name, "route": "cuda", "source": src + "adamw.cu",

@@ -3,8 +3,13 @@ plain versions, and the ``torch.autograd.Function`` that joins them.
 
 Ports of the TPU kernels ``_flash_forward`` (``medical_image_generation_tpu/
 ops/pallas_attention.py:144-184``) and ``_flash_backward`` (``:310-358``).
-The kernels are ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``;
-their source notes give the designs and the bounds.
+The kernels are ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``
+(the wide design, which splits the head dim over warpgroups and clusters),
+and ``csrc/flash_attn_narrow_fwd.cu`` and ``csrc/flash_attn_narrow_bwd.cu``
+(the narrow design, one warpgroup holding all of a head dim up to 64); their
+source notes give the designs and the bounds. ``takes_narrow`` says which
+design a call takes: bf16 at a head dim padded to at most 64 the narrow one,
+everything else the wide one.
 
 ``flash_attention(q, k, v, scale)`` takes BSHD tensors (batch, seq, heads,
 head_dim) and returns ``(o, lse)``: o in BSHD (contiguous, q's dtype) and the
@@ -25,7 +30,8 @@ matrix cannot be held.
 CPU tensors go to the plain versions; CUDA tensors launch the kernels or
 raise. Launch counters: ``flash_attention.launches`` (forward),
 ``flash_bwd_dq.launches`` and ``flash_bwd_dkdv.launches`` (the two backward
-passes). The bf16 kernels load through TMA, which needs 16-byte aligned
+passes) count every launch, ``narrow_launches`` beside each those of the
+narrow design. The bf16 kernels load through TMA, which needs 16-byte aligned
 bases and D and strides in multiples of 8 elements; inputs that are not are
 copied first (``tma_inputs``), and the copies are counted in
 ``flash_attention.input_copies``, ``flash_bwd_dq.input_copies`` and
@@ -42,6 +48,14 @@ import torch
 from medical_image_generation_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+NARROW_MAX_D = 64  # padded head dims the narrow kernels take (csrc/flash_narrow.cuh)
+
+
+def takes_narrow(dtype, D: int) -> bool:
+    """Whether a CUDA call at head dim D launches the narrow kernels: bf16
+    whose D', D padded to a multiple of 8 as ``tma_inputs`` pads it, is at
+    most NARROW_MAX_D. fp32 and wider heads take the wide kernels."""
+    return dtype == torch.bfloat16 and -(-D // 8) * 8 <= NARROW_MAX_D
 
 
 def flash_attention_plain(q, k, v, scale: float):
@@ -167,6 +181,26 @@ def _lib_fwd():
 
 
 @functools.cache
+def _lib_narrow_fwd():
+    lib = _build.load("flash_attn_narrow_fwd")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.medimgen_flash_narrow_fwd.argtypes = (
+        [vp] * 5 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp])
+    lib.medimgen_flash_narrow_fwd.restype = i32
+    return lib
+
+
+@functools.cache
+def _lib_narrow_bwd():
+    lib = _build.load("flash_attn_narrow_bwd")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.medimgen_flash_narrow_bwd_dq, lib.medimgen_flash_narrow_bwd_dkdv):
+        fn.argtypes = [vp] * 8 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp]
+        fn.restype = i32
+    return lib
+
+
+@functools.cache
 def _lib_bwd():
     lib = _build.load("flash_attn_bwd")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -223,34 +257,45 @@ def _fwd(q, k, v, scale: float):
         return flash_attention_plain(q, k, v, scale)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    lib = _lib_fwd()
     dt = _DTYPES[q.dtype]
-    _check_smem(lib.medimgen_flash_attn_smem_bytes(D, dt), D, "the flash forward")
+    narrow = takes_narrow(q.dtype, D)
+    if narrow:
+        launch = _lib_narrow_fwd().medimgen_flash_narrow_fwd
+    else:
+        lib = _lib_fwd()
+        _check_smem(lib.medimgen_flash_attn_smem_bytes(D, dt), D, "the flash forward")
+        launch = lib.medimgen_flash_attn_fwd
     Dk = D
     if q.dtype == torch.bfloat16:
         (q, k, v), Dk, n_copies = tma_inputs(D, q, k, v)
         flash_attention.input_copies += n_copies
     o = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
-    err = lib.medimgen_flash_attn_fwd(
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, H, Sq, Sk, Dk, dt, *_strides(q, k, v),
         float(scale), int(_vec_ok(Dk, q.element_size(), q, k, v)),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attn_fwd launch")
+    _build.check(err, f"{launch.__name__} launch")
     flash_attention.launches += 1
+    flash_attention.narrow_launches += narrow
     return (o if Dk == D else o[..., :D].contiguous()), lse
 
 
-def _bwd_args(q, k, v, o, lse, do):
+def _bwd_args(q, k, v, o, lse, do, narrow: bool):
+    """(library, dtype code, vec, stream) of a backward pass: the narrow
+    library, or the wide one once it has room for head dim D."""
     B, S, H, D = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o and dO must be {tuple(q.shape)} in {q.dtype}")
     if lse.shape != (B * H, S) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 ({B * H}, {S})")
-    lib = _lib_bwd()
     dt = _DTYPES[q.dtype]
-    _check_smem(lib.medimgen_flash_attn_bwd_smem_bytes(D, dt), D, "the flash backward")
+    if narrow:
+        lib = _lib_narrow_bwd()
+    else:
+        lib = _lib_bwd()
+        _check_smem(lib.medimgen_flash_attn_bwd_smem_bytes(D, dt), D, "the flash backward")
     vec = _vec_ok(D, q.element_size(), q, k, v, o, do)
     return lib, dt, vec, torch.cuda.current_stream(q.device).cuda_stream
 
@@ -264,7 +309,9 @@ def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, o, lse, do, scale)
     B, Sq, H, D = q.shape
-    lib, dt, vec, stream = _bwd_args(q, k, v, o, lse, do)
+    narrow = takes_narrow(q.dtype, D)
+    lib, dt, vec, stream = _bwd_args(q, k, v, o, lse, do, narrow)
+    launch = lib.medimgen_flash_narrow_bwd_dq if narrow else lib.medimgen_flash_attn_bwd_dq
     Dk = D
     if q.dtype == torch.bfloat16:
         (q, k, v, o, do), Dk, n_copies = tma_inputs(D, q, k, v, o, do)
@@ -272,13 +319,14 @@ def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
         vec = True
     dq = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     delta = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
-    err = lib.medimgen_flash_attn_bwd_dq(
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[1], Dk, dt, *_strides(q, k, v),
         float(scale),
         int(vec), stream)
-    _build.check(err, "flash_attn_bwd dq launch")
+    _build.check(err, f"{launch.__name__} launch")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.narrow_launches += narrow
     return (dq if Dk == D else dq[..., :D].contiguous()), delta
 
 
@@ -289,7 +337,9 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
         return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    lib, dt, vec, stream = _bwd_args(q, k, v, do, lse, do)
+    narrow = takes_narrow(q.dtype, D)
+    lib, dt, vec, stream = _bwd_args(q, k, v, do, lse, do, narrow)
+    launch = lib.medimgen_flash_narrow_bwd_dkdv if narrow else lib.medimgen_flash_attn_bwd_dkdv
     if delta.shape != lse.shape or delta.dtype != torch.float32 or not delta.is_contiguous():
         raise ValueError(f"delta must be contiguous fp32 {tuple(lse.shape)}")
     Dk = D
@@ -299,13 +349,14 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
         vec = True
     dk = torch.empty((B, Sk, H, Dk), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    err = lib.medimgen_flash_attn_bwd_dkdv(
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, Dk, dt,
         *_strides(q, k, v),
         float(scale), int(vec), stream)
-    _build.check(err, "flash_attn_bwd dkdv launch")
+    _build.check(err, f"{launch.__name__} launch")
     flash_bwd_dkdv.launches += 1
+    flash_bwd_dkdv.narrow_launches += narrow
     if Dk != D:
         dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
@@ -348,6 +399,9 @@ def flash_attention(q, k, v, scale: float):
 flash_attention.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
+flash_attention.narrow_launches = 0
+flash_bwd_dq.narrow_launches = 0
+flash_bwd_dkdv.narrow_launches = 0
 flash_attention.input_copies = 0
 flash_bwd_dq.input_copies = 0
 flash_bwd_dkdv.input_copies = 0

@@ -553,3 +553,111 @@ def test_flash_takes_keys_of_another_length_on_gpu(cuda, monkeypatch):
             tfa.flash_bwd_dkdv.launches) == tuple(n + 1 for n in before)
     torch.testing.assert_close(o, ro, rtol=0.0, atol=1e-5)
     assert k.grad.shape == k.shape and v.grad.shape == v.shape
+
+
+# The narrow design (csrc/flash_attn_narrow_*.cu): bf16 at head dims that
+# tma_inputs pads to at most 64. D = 20 runs on copies padded to 24.
+NARROW_DS = [8, 16, 20, 32, 40, 64]
+
+
+def _narrow_inputs(layout, B, Sq, Sk, H, D, device):
+    """q, k, v (bf16) contiguous, or as strided views of a fused projection:
+    the thirds of one QKV tensor when Sk == Sq, else q alone and k, v the
+    halves of one KV tensor (a context's projection)."""
+    if layout == "contiguous":
+        return (torch.from_numpy(nd((B, S, H, D), s)).to(device, torch.bfloat16)
+                for s, S in ((60, Sq), (61, Sk), (62, Sk)))
+    if Sk == Sq:
+        qkv = torch.from_numpy(nd((B, Sq, 3 * H * D), 63)).to(device, torch.bfloat16)
+        return (qkv[..., i * H * D:(i + 1) * H * D].view(B, Sq, H, D) for i in range(3))
+    q = torch.from_numpy(nd((B, Sq, H, D), 64)).to(device, torch.bfloat16)
+    kv = torch.from_numpy(nd((B, Sk, 2 * H * D), 65)).to(device, torch.bfloat16)
+    return (q, *(kv[..., i * H * D:(i + 1) * H * D].view(B, Sk, H, D) for i in range(2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "fused"])
+@pytest.mark.parametrize("Sk", [1, 77, 1000])
+@pytest.mark.parametrize("D", NARROW_DS)
+def test_narrow_flash_kernels_match_plain_on_gpu(cuda, D, Sk, layout):
+    """Forward, dQ and dK/dV of the narrow design at batch 2, a ragged 1000
+    queries and keys of 1, 77 or 1000 tokens, q, k and v contiguous or
+    strided views of a fused projection: one narrow launch of each kernel,
+    each within the tolerances above of its plain version (o plus the bound
+    of rounding P to bf16; with one key dq and dk vanish and are held to
+    their rounding bound of 0), delta within fp32 summation order, and the
+    same bits on a second run."""
+    B, Sq, H = 2, 1000, 2
+    q, k, v = _narrow_inputs(layout, B, Sq, Sk, H, D, cuda)
+    do = torch.from_numpy(nd((B, Sq, H, D), 66)).to(cuda, torch.bfloat16)
+    scale = D ** -0.5
+    counters = (tfa.flash_attention, tfa.flash_bwd_dq, tfa.flash_bwd_dkdv)
+    before = tuple(c.narrow_launches for c in counters)
+    o, lse = tfa.flash_attention(q, k, v, scale)
+    ro, rlse = tfa.flash_attention_plain(q, k, v, scale)
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    bound = atol + rtol * ro.float().abs() + _p_rounding_bound(q, k, v, scale)
+    assert bool(((o.float() - ro.float()).abs() <= bound).all())
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    dq, delta = tfa.flash_bwd_dq(q, k, v, ro, rlse, do, scale)
+    dk, dv = tfa.flash_bwd_dkdv(q, k, v, do, rlse, delta, scale)
+    assert tuple(c.narrow_launches for c in counters) == tuple(n + 1 for n in before)
+    r_dq, r_delta = tfa.flash_bwd_dq_plain(q, k, v, ro, rlse, do, scale)
+    r_dk, r_dv = tfa.flash_bwd_dkdv_plain(q, k, v, do, rlse, r_delta, scale)
+    _close(delta, r_delta, 1e-5, 1e-5)
+    bounds = _single_key_bounds(q, k, v, do, scale) if Sk == 1 else (None, None)
+    for g, r, t, b in ((dq, r_dq, q, bounds[0]), (dk, r_dk, k, bounds[1]), (dv, r_dv, v, None)):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16
+        if b is None:
+            _close(g, r, *FLASH_BWD_TOL[torch.bfloat16])
+        else:
+            assert bool(((g.float() - r.float()).abs() <= 2 * b).all())
+    again = (*tfa.flash_attention(q, k, v, scale), *tfa.flash_bwd_dq(q, k, v, ro, rlse, do, scale),
+             *tfa.flash_bwd_dkdv(q, k, v, do, rlse, delta, scale))
+    assert all(torch.equal(a, b) for a, b in zip((o, lse, dq, delta, dk, dv), again))
+
+
+@pytest.mark.parametrize("dtype,D,narrow", [
+    (torch.bfloat16, 8, True), (torch.bfloat16, 20, True), (torch.bfloat16, 32, True),
+    (torch.bfloat16, 57, True), (torch.bfloat16, 64, True), (torch.bfloat16, 65, False),
+    (torch.bfloat16, 72, False), (torch.bfloat16, 96, False), (torch.bfloat16, 512, False),
+    (torch.bfloat16, 768, False), (torch.float32, 8, False), (torch.float32, 32, False),
+    (torch.float32, 64, False)])
+def test_takes_narrow_by_the_padded_head_dim(dtype, D, narrow):
+    """The narrow kernels take bf16 whose head dim, padded as tma_inputs pads
+    it, is at most 64; wider heads and fp32 take the wide kernels."""
+    assert tfa.takes_narrow(dtype, D) == narrow
+    x = torch.zeros((1, 4, 1, D), dtype=torch.bfloat16)
+    _, Dp, _ = tfa.tma_inputs(D, x)
+    assert tfa.takes_narrow(torch.bfloat16, D) == (Dp <= tfa.NARROW_MAX_D)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_bwd_dq", "flash_bwd_dkdv"])
+def test_narrow_counters_are_left_alone_by_the_plain_path(name):
+    """Each wrapper has a narrow_launches counter beside launches; on the CPU
+    (the plain versions) neither moves."""
+    fn = getattr(tfa, name)
+    before = (fn.launches, fn.narrow_launches)
+    assert isinstance(before[1], int)
+    q, k, v, do = (torch.from_numpy(nd((1, 16, 2, 32), s)).to(torch.bfloat16) for s in range(4))
+    o, lse = tfa.flash_attention(q, k, v, 32 ** -0.5)
+    _, delta = tfa.flash_bwd_dq(q, k, v, o, lse, do, 32 ** -0.5)
+    tfa.flash_bwd_dkdv(q, k, v, do, lse, delta, 32 ** -0.5)
+    assert (fn.launches, fn.narrow_launches) == before
+
+
+def test_narrow_counters_start_at_zero():
+    """A fresh process imports the wrappers with every counter at 0, and the
+    kernel counter table lists the narrow kernels beside the wide ones."""
+    import subprocess
+    import sys
+
+    code = ("from medical_image_generation_tpu_torch.bench import kernel_counters\n"
+            "c = kernel_counters()\n"
+            "names = [k for k in c if k.startswith('flash')]\n"
+            "print(names, [c[k].launches for k in names])\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=300).stdout.strip().splitlines()[-1]
+    names = ["flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv",
+             "flash_attn_fwd_narrow", "flash_attn_bwd_dq_narrow", "flash_attn_bwd_dkdv_narrow"]
+    assert out == f"{names} {[0] * 6}"
