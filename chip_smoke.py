@@ -312,7 +312,8 @@ import time
 
 import torch
 
-from medical_image_generation_tpu_torch.bench import kernel_counters, randomize_
+from medical_image_generation_tpu_torch.bench import randomize_
+from medical_image_generation_tpu_torch.ops import kernels as kernel_table
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12    # H100 SXM fp32 (non-tensor) rate
@@ -408,7 +409,7 @@ def phase_build():
     t0 = time.perf_counter()
     codec = threading.Thread(target=volstore.codec_in_use)  # g++, beside the nvcc builds
     codec.start()
-    logs = _build.build_all()
+    logs = _build.build_all(kernel_table.SOURCES)
     codec.join()
     log(f"[build] {len(logs)} libraries built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
@@ -423,11 +424,8 @@ def check_hgmma(build):
     """Every instantiation of the bf16 flash forward, dQ and dK/dV kernels,
     wide and narrow, must issue HGMMA (wgmma) in its SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for lib, kernel in (("flash_attn_fwd", "flash_fwd_bf16"), ("flash_attn_bwd", "flash_bwd_dq_bf16"),
-                        ("flash_attn_bwd", "flash_bwd_dkdv_bf16"),
-                        ("flash_attn_narrow_fwd", "flash_fwd_narrow_bf16"),
-                        ("flash_attn_narrow_bwd", "flash_bwd_dq_narrow_bf16"),
-                        ("flash_attn_narrow_bwd", "flash_bwd_dkdv_narrow_bf16")):
+    for lib, kernel in ((k.source, dn) for k in kernel_table.KERNELS.values()
+                        for dn in k.device_names if dn.startswith("flash_") and "bf16" in dn):
         sass = subprocess.run([tool, "--dump-sass", build.lib_path(lib)], capture_output=True,
                               text=True, timeout=300, check=True).stdout
         counts, cur = {}, None
@@ -551,9 +549,9 @@ def phase_kernels():
             x = (torch.randn((B, M, C), generator=gen, device="cuda") * 1.3 + 0.7).to(dt)
             w = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
             b = 0.1 * torch.randn(C, generator=gen, device="cuda")
-            vec0 = gn.stats_fold.vector_launches
+            vec0 = kernel_table.read("gn_stats_fold.vector_launches")
             st, A, bb = gn.stats_fold(x, w, b, G, 1e-6)
-            vec_path = gn.stats_fold.vector_launches == vec0 + 1
+            vec_path = kernel_table.read("gn_stats_fold.vector_launches") == vec0 + 1
             st_ref, rA, rbb = gn.stats_fold_plain(x, w, b, G, 1e-6)
             # no float atomics, fixed summation order
             st_same = all(torch.equal(u, v) for u, v in
@@ -721,11 +719,12 @@ def phase_kernels_bwd():
             b = 0.1 * torch.randn(C, generator=gen, device="cuda")
             st, A, bb = gn.stats_fold_plain(x, w, b, G, 1e-6)
             for silu in (False, True):
-                vec0 = (gn.gn_bwd_stats.vector_launches, gn.gn_bwd_apply.vector_launches)
+                vec0 = _vector_launches()
                 coef, ds, db = gn.gn_bwd_stats(x, g, A, bb, st, w, G, 1e-6, silu)
                 dx = gn.gn_bwd_apply(x, g, A, bb, coef, silu)
-                vec_path = (gn.gn_bwd_stats.vector_launches,
-                            gn.gn_bwd_apply.vector_launches) == (vec0[0] + 1, vec0[1] + 1)
+                vec = _vector_launches()
+                vec_path = (vec["gn_bwd_stats"], vec["gn_bwd_apply"]) == (
+                    vec0["gn_bwd_stats"] + 1, vec0["gn_bwd_apply"] + 1)
                 r_coef, r_ds, r_db = gn.gn_bwd_stats_plain(x, g, A, bb, st, w, G, 1e-6, silu)
                 r_dx = gn.gn_bwd_apply_plain(x, g, A, bb, r_coef, silu)
                 # no float atomics, fixed summation order: coef, dscale, dbias, dx the
@@ -823,27 +822,21 @@ def _train_config(tiny, spatial_dims=3):
     return create_config_dict(flagship_dataset(tiny, spatial_dims), [0], 1, vae_p, ddpm_p)
 
 
-def _reset_counts():
-    from medical_image_generation_tpu_torch.ops import adamw
-    from medical_image_generation_tpu_torch.ops import flash_attention as fa
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
-
-    for fn in kernel_counters().values():
-        fn.launches = 0
-    adamw.adamw_update.grad_copies = 0
-    fa.flash_attention.input_copies = fa.flash_bwd_dq.input_copies = 0
-    fa.flash_bwd_dkdv.input_copies = 0
-    for fn in (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply):
-        fn.vector_launches = 0
-
-
-def _read_counts():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
-
-
 def launches(**kw):
-    """A launch count for every kernel counter: ``kw``'s, else 0."""
-    return {k: kw.get(k, 0) for k in kernel_counters()}
+    """A launch count for every kernel of the table: ``kw``'s, else 0."""
+    return {k: kw.get(k, 0) for k in kernel_table.KERNELS}
+
+
+def _vector_launches():
+    """{kernel: launches that took 16-byte loads} of the kernels counting them."""
+    return {k: kernel_table.read(f"{k}.vector_launches") for k in kernel_table.KERNELS
+            if f"{k}.vector_launches" in kernel_table.SIDE_COUNTS}
+
+
+def _scalar_launches():
+    """{kernel: launches since the last reset that did not take the 16-byte
+    loads} of the GroupNorm kernels that have both paths."""
+    return {k: kernel_table.read(k) - n for k, n in _vector_launches().items()}
 
 
 def opt_launches(*opts):
@@ -942,11 +935,11 @@ def opt_check(label, opt, grads):
     for case, clip in (("clipped", 0.5 * norm0), ("unclipped", 2.0 * norm0)):
         k.clip = clip
         torch.cuda.synchronize()
-        before = {name: c.launches for name, c in kernel_counters().items()}
-        copies = ta.adamw_update.grad_copies
+        before = kernel_table.launches()
+        copies = kernel_table.read("adamw_update.grad_copies")
         k.step(grads)
         torch.cuda.synchronize()
-        got = {name: c.launches - before[name] for name, c in kernel_counters().items()}
+        got = {name: n - before[name] for name, n in kernel_table.launches().items()}
         gs = [g.clone() for g in zg]
         plain_norm = ta.global_norm(gs)
         ta.clip_by_global_norm(gs, clip, norm=k.last_norm)
@@ -956,7 +949,8 @@ def opt_check(label, opt, grads):
                   for a, b in zip(k.params + k.mu + k.nu, r.params + r.mu + r.nu))
         norm_rel = abs(float(k.last_norm) / float(plain_norm) - 1)
         rec[case] = dict(launches={n_: v for n_, v in got.items() if v}, elements_off=off,
-                         norm_rel=norm_rel, grad_copies=ta.adamw_update.grad_copies - copies)
+                         norm_rel=norm_rel,
+                         grad_copies=kernel_table.read("adamw_update.grad_copies") - copies)
         log(f"[{label}] optimizer {case} (clip {clip:.4g}, norm {norm0:.4g}): kernels vs plain "
             f"driven by the kernels' norm: {off} of {3 * n:,} params / mu / nu elements off "
             f"by more than rtol {OPT_RTOL:g}; norm rel_err vs the plain norm {norm_rel:.2e} "
@@ -970,7 +964,7 @@ def opt_check(label, opt, grads):
     dev = _kernel_device_ms(lambda: k.step(grads))
     bounds, per = opt_bounds(k), opt_launches(k)
     for name in ("sq_norm", "adamw_update"):  # ms a step: the mean of the events kept
-        hits = [v for e, v in dev.items() if PORT_KERNELS[name][0] in e]
+        hits = [v for e, v in dev.items() if kernel_table.owner(e) == name]
         ms, n_ev = sum(h[0] for h in hits), sum(h[1] for h in hits)
         rec[name] = dict(ms=ms / max(n_ev, 1) * per[name], bound_ms=bounds[name], events=n_ev)
     rec["other_device_ms"] = sum(ms / n for e, (ms, n) in dev.items() if "adamw_" not in e)
@@ -1001,31 +995,6 @@ def opt_check(label, opt, grads):
     return rec
 
 
-def _input_copies():
-    """Inputs the flash wrappers had to copy before TMA could load them."""
-    from medical_image_generation_tpu_torch.ops import flash_attention as fa
-
-    return (fa.flash_attention.input_copies + fa.flash_bwd_dq.input_copies
-            + fa.flash_bwd_dkdv.input_copies)
-
-
-def _scalar_stats():
-    """Stats + fold launches since the last reset that did not take the
-    16-byte loads."""
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
-
-    return gn.stats_fold.launches - gn.stats_fold.vector_launches
-
-
-def _scalar_bwd():
-    """{GroupNorm backward wrapper: launches since the last reset that did not
-    take the 16-byte loads}."""
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
-
-    return {name: fn.launches - fn.vector_launches
-            for name, fn in (("gn_bwd_stats", gn.gn_bwd_stats), ("gn_bwd_apply", gn.gn_bwd_apply))}
-
-
 def phase_parity():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1036,10 +1005,10 @@ def phase_parity():
     with torch.no_grad():
         eps_cpu, img_cpu = unet(x, t), vae.decode(x)
         unet_g, vae_g = copy.deepcopy(unet).cuda(), copy.deepcopy(vae).cuda()
-        _reset_counts()
+        kernel_table.reset()
         eps_gpu, img_gpu = unet_g(x.cuda(), t.cuda()), vae_g.decode(x.cuda())
         torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = kernel_table.launches()
     fwd = ("flash_attn_fwd", "gn_stats_fold", "gn_affine_act")
     tol = 1e-4  # fp32 everywhere (TF32 off); summation order only
     e1 = _err(eps_gpu.cpu(), eps_cpu) / max(1.0, eps_cpu.abs().max().item())
@@ -1076,10 +1045,10 @@ def phase_parity_train():
     for name, tr in (("cpu", cpu), ("gpu", gpu)):
         _capture_grads(tr.opt, grads, name)
     loss_c = cpu.train_step(x, draws=draws)
-    _reset_counts()
+    kernel_table.reset()
     loss_g = gpu.train_step(x.cuda(), draws=draws)
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = kernel_table.launches()
     l_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
     names = [n for n, p in cpu.unet.named_parameters() if p.requires_grad]
     g_err = max(_err(gg.cpu(), gc) / max(gc.abs().max().item(), 1e-30)
@@ -1140,14 +1109,14 @@ def phase_slice(steps=10):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    _reset_counts()
+    kernel_table.reset()
     t0 = time.perf_counter()
     images = sampler.sample(B, sampler="ddim", num_inference_steps=steps, generator=gen)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = _read_counts()
-    copies = _input_copies()
-    scalar = _scalar_stats()
+    counts = kernel_table.launches()
+    copies = kernel_table.total("input_copies")
+    scalar = _scalar_launches()
 
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     expect = {k: 0 for k in counts}
@@ -1157,15 +1126,15 @@ def phase_slice(steps=10):
     log(f"[slice] launches per U-Net forward: flash {flash_per_fwd}, GroupNorm {gn_per_fwd}; "
         f"per decode: GroupNorm {gn_per_decode}; {steps} DDIM steps + decode: counted "
         f"{counts}, expected {expect}; flash inputs copied for TMA: {copies}; stats+fold "
-        f"launches without 16-byte loads: {scalar}")
+        f"GroupNorm launches without 16-byte loads: {scalar}")
     finite = bool(torch.isfinite(torch.from_numpy(images)).all())
     shape_ok = images.shape == (B, *image, 1)
     spread = float(images.std())
     log(f"[slice] images shape={images.shape} finite={finite} min={images.min():.4f} "
         f"max={images.max():.4f} std={spread:.4f}")
-    if counts != expect or flash_per_fwd != 11 or copies or scalar:
+    if counts != expect or flash_per_fwd != 11 or copies or any(scalar.values()):
         raise AssertionError(f"launch counts {counts} != expected {expect}, or {copies} "
-                             f"flash inputs copied, or {scalar} scalar stats+fold launches")
+                             f"flash inputs copied, or scalar GroupNorm launches {scalar}")
     if not (finite and shape_ok and spread > 0):
         raise AssertionError("sampled volumes are not finite / of the expected shape")
 
@@ -1193,8 +1162,6 @@ def phase_train(warmup=2, steps=10):
     from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
     from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
     from medical_image_generation_tpu_torch.ops import _build
-    from medical_image_generation_tpu_torch.ops import adamw
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
     from medical_image_generation_tpu_torch.training.sample import (
         LDMSampler,
         load_torch_checkpoint,
@@ -1239,20 +1206,16 @@ def phase_train(warmup=2, steps=10):
     losses = [trainer.train_step(batch) for _ in range(warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    gn.gn_bwd_apply.grad_copies = 0
+    kernel_table.reset()
     t0 = time.perf_counter()
     losses += [trainer.train_step(batch) for _ in range(steps)]
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = _read_counts()
-    copies = gn.gn_bwd_apply.grad_copies
-    opt_copies = adamw.adamw_update.grad_copies
-    flash_copies = _input_copies()
-    scalar = _scalar_stats()
-    scalar_bwd = _scalar_bwd()
-    vec_bwd = {"gn_bwd_stats": gn.gn_bwd_stats.vector_launches,
-               "gn_bwd_apply": gn.gn_bwd_apply.vector_launches}
+    counts = kernel_table.launches()
+    copies = kernel_table.read("gn_bwd_apply.grad_copies")
+    opt_copies = kernel_table.read("adamw_update.grad_copies")
+    flash_copies = kernel_table.total("input_copies")
+    scalar, vec = _scalar_launches(), _vector_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
     expect = {k: v * steps for k, v in per_step.items()}
@@ -1262,8 +1225,7 @@ def phase_train(warmup=2, steps=10):
         f"GroupNorm; encoder: {attn_e} attention, {gn_e} GroupNorm); {steps} steps counted "
         f"{counts}, expected {expect}; GroupNorm gradients copied to channels-last: "
         f"{copies / steps:g} a step; flash inputs copied for TMA: {flash_copies}; "
-        f"stats+fold launches without 16-byte loads: {scalar}; GroupNorm backward "
-        f"launches with 16-byte loads {vec_bwd}, without {scalar_bwd}; gradients the "
+        f"GroupNorm launches with 16-byte loads {vec}, without {scalar}; gradients the "
         f"optimizer copied into their param's layout: {opt_copies}")
     ms_step = secs * 1e3 / steps
     log(f"[train] {steps} steps in {secs * 1e3:.1f} ms: {ms_step:.3f} ms per step = "
@@ -1272,12 +1234,11 @@ def phase_train(warmup=2, steps=10):
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if (counts != expect or attn_u != 11 or gn_u != 46 or gn_e != 13 or flash_copies
-            or scalar or copies or any(scalar_bwd.values()) or opt_copies):
+            or any(scalar.values()) or copies or opt_copies):
         raise AssertionError(f"launch counts {counts} != expected {expect}, or {flash_copies} "
-                             f"flash inputs copied, or {scalar} scalar stats+fold launches, "
-                             f"or {copies} GroupNorm gradients copied, or scalar GroupNorm "
-                             f"backward launches {scalar_bwd}, or {opt_copies} gradients "
-                             f"the optimizer copied")
+                             f"flash inputs copied, or scalar GroupNorm launches {scalar}, "
+                             f"or {copies} GroupNorm gradients copied, or {opt_copies} "
+                             f"gradients the optimizer copied")
     if not changed or trainer.opt.mu[0].dtype != torch.bfloat16:
         raise AssertionError("params unchanged by the steps, or mu not stored in bf16")
 
@@ -1314,7 +1275,7 @@ def phase_train(warmup=2, steps=10):
     unseen = [name for name, n in per_step.items() if n and not shares[name] > 0]
     if unseen:
         raise AssertionError(f"port kernels launched in the step but read 0 ms in its profile "
-                             f"(PORT_KERNELS patterns out of date?): {unseen}")
+                             f"(device names of ops/kernels.py out of date?): {unseen}")
     for name, b_ms in bounds.items():
         if not b_ms:  # a kernel the step does not run (the narrow flash kernels here)
             continue
@@ -1355,30 +1316,6 @@ def step_bounds(trainer, batch):
 
 WARM_LAUNCHES = 256  # tiny kernels a profile records before the call it reads
 
-PORT_KERNELS = {  # profile name patterns of each port kernel, by its counter's name
-    "flash_attn_fwd": ("flash_fwd",), "flash_attn_bwd_dq": ("flash_bwd_dq",),
-    "flash_attn_bwd_dkdv": ("flash_bwd_dkdv",),
-    "flash_attn_fwd_narrow": ("flash_fwd_narrow",),
-    "flash_attn_bwd_dq_narrow": ("flash_bwd_dq_narrow",),
-    "flash_attn_bwd_dkdv_narrow": ("flash_bwd_dkdv_narrow",),
-    "gn_stats_fold": ("stats_partial", "stats_reduce_fold"),
-    "gn_affine_act": ("::affine_",),
-    "gn_bwd_stats": ("gn_bwd_partial_kernel", "gn_bwd_reduce_fold_kernel"),
-    "gn_bwd_apply": ("gn_bwd_apply_kernel",),
-    "sq_norm": ("adamw_sq_norm_kernel",), "adamw_update": ("adamw_update_kernel",),
-}
-
-
-def _owners(name):
-    """The port kernels whose longest matching pattern is the longest that
-    matches ``name`` (a narrow flash kernel also matches its wide
-    counterpart's shorter pattern, whose counter counts both designs)."""
-    best = {k: max((len(p) for p in pats if p in name), default=0)
-            for k, pats in PORT_KERNELS.items()}
-    top = max(best.values())
-    return [k for k, n in best.items() if n and n == top]
-
-
 def profile_breakdown(label, fn, time_host=True):
     """One call under torch.profiler: device time by kernel, the port
     kernels' share, and the device's busy share of the call's wall time
@@ -1386,9 +1323,10 @@ def profile_breakdown(label, fn, time_host=True):
     A trace started cold can miss its first kernels, so the profiler first
     records WARM_LAUNCHES `torch.cuda._sleep` kernels (`spin_kernel`, which
     no path of the port launches) and a sync; they are left out of what is
-    read. Launch counts are checked on the wrappers' counters, which miss
-    nothing; each profile pattern is one kernel a wrapper call, so the
-    profile may show fewer (events it dropped, logged) but never more.
+    read. Launch counts are checked on the kernel table's counters, which
+    miss nothing; a launch runs each of its kernel's device names at most
+    once (``device_launches`` of them in all), so the profile may show fewer
+    (events it dropped, logged) but never more.
     ``time_host=False`` skips the unprofiled call that times the host's
     enqueue (for calls of tens of seconds). Returns (device busy ms, {port
     kernel: device ms})."""
@@ -1401,14 +1339,14 @@ def profile_breakdown(label, fn, time_host=True):
         fn()
         host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    _reset_counts()
+    kernel_table.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(WARM_LAUNCHES):
             torch.cuda._sleep(100)
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = kernel_table.launches()
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     kern = [e for e in dev if "spin_kernel" not in e.name]
     log(f"[profile] {label}: warm-up kernels recorded {len(dev) - len(kern)} of "
@@ -1421,26 +1359,23 @@ def profile_breakdown(label, fn, time_host=True):
         by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     busy = sum(v[0] for v in by_name.values()) / 1e3
     span = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)) / 1e3
-    owners = {n: _owners(n) for n in by_name}
-    shared = {n: ks for n, ks in owners.items() if len(ks) > 1}
-    if shared:
-        raise AssertionError(f"[profile] {label}: kernels matched by two port kernels' "
-                             f"patterns: {shared}")
-    shares = {k: sum(v[0] for n, v in by_name.items() if owners[n] == [k]) / 1e3
-              for k in PORT_KERNELS}
-    by_pattern = {p: (sum(v[1] for n, v in by_name.items() if p in n),
-                      sum(v[0] for n, v in by_name.items() if p in n) / 1e3)
-                  for pats in PORT_KERNELS.values() for p in pats}
+    owners = {n: kernel_table.owner(n) for n in by_name}
+    shares = {k: sum(v[0] for n, v in by_name.items() if owners[n] == k) / 1e3
+              for k in kernel_table.KERNELS}
+    entries = kernel_table.KERNELS.values()
+    by_device = {dn: (sum(v[1] for n, v in by_name.items() if dn in n),
+                      sum(v[0] for n, v in by_name.items() if dn in n) / 1e3)
+                 for k in entries for dn in k.device_names}
     log(f"[profile] {label}: {len(kern)} kernels, device busy {busy:.3f} ms over a "
         f"{span:.3f} ms span (idle share {1 - busy / span:.3f}); host enqueue "
         f"{host_ms:.3f} ms; port kernels ms {({k: round(v, 3) for k, v in shares.items()})}")
     log(f"[profile] {label}: port kernels by name, launches and summed ms "
-        f"{({p: (n, round(ms, 4)) for p, (n, ms) in by_pattern.items() if n})}")
-    counted = {p: counts[k] for k, pats in PORT_KERNELS.items() for p in pats}
-    dropped = {p: counted[p] - by_pattern[p][0] for p in counted}
+        f"{({dn: (n, round(ms, 4)) for dn, (n, ms) in by_device.items() if n})}")
+    dropped = {k.name: counts[k.name] * k.device_launches
+               - sum(by_device[dn][0] for dn in k.device_names) for k in entries}
     log(f"[profile] {label}: wrapper launches {counts}; port kernels the profile dropped "
-        f"{sum(dropped.values())} {({p: n for p, n in dropped.items() if n})}")
-    extra = {p: -n for p, n in dropped.items() if n < 0}
+        f"{sum(dropped.values())} {({k: n for k, n in dropped.items() if n})}")
+    extra = kernel_table.beyond_launches(counts, {dn: n for dn, (n, _) in by_device.items()})
     stale = [n for n in by_name if "::fold_kernel" in n or "stats_reduce_kernel" in n]
     if extra or stale:
         raise AssertionError(f"[profile] {label}: port kernels beyond their wrappers' "
@@ -1483,7 +1418,7 @@ def ae_per_step(trainer, adv_on):
 
     gn = n(trainer.model.encoder) + n(trainer.model.decoder)
     gn += 3 * n(trainer.discriminator) if adv_on else 0
-    return launches(**{k: gn for k in kernel_counters() if k.startswith("gn_")},
+    return launches(**{k: gn for k in kernel_table.KERNELS if k.startswith("gn_")},
                     **opt_launches(*ae_opts(trainer, adv_on)))
 
 
@@ -1534,10 +1469,10 @@ def phase_ae_parity():
         _capture_grads(tr.g_opt, grads, name + "_g")
         _capture_grads(tr.d_opt, grads, name + "_d")
     m_c = cpu.train_step(x, True, draws=draws)
-    _reset_counts()
+    kernel_table.reset()
     m_g = gpu.train_step(x.cuda(), True, draws=draws)
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = kernel_table.launches()
     expect = ae_per_step(gpu, True)
     l_err = max(abs(m_g[k].item() - m_c[k].item()) / abs(m_c[k].item()) for k in METRICS)
     g_err = {net: max(_err(g.cpu(), c) / max(c.abs().max().item(), 1e-30)
@@ -1563,8 +1498,6 @@ def phase_ae_train(warmup=2, steps=10):
     from medical_image_generation_tpu_torch.data.augment import augment_batch
     from medical_image_generation_tpu_torch.data.patches import compute_initial_patch_size
     from medical_image_generation_tpu_torch.models.discriminator import least_squares_gan_loss
-    from medical_image_generation_tpu_torch.ops import adamw
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
     from medical_image_generation_tpu_torch.training import common
     from medical_image_generation_tpu_torch.training.train_autoencoder import (
         METRICS,
@@ -1604,15 +1537,14 @@ def phase_ae_train(warmup=2, steps=10):
             tr.train_step(batch, adv_on)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
-        gn.gn_bwd_apply.grad_copies = 0
+        kernel_table.reset()
         t0 = time.perf_counter()
         ms = [tr.train_step(batch, adv_on) for _ in range(steps)]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts, scalar, scalar_bwd = _read_counts(), _scalar_stats(), _scalar_bwd()
-        copies = gn.gn_bwd_apply.grad_copies
-        opt_copies = adamw.adamw_update.grad_copies
+        counts, scalar = kernel_table.launches(), _scalar_launches()
+        copies = kernel_table.read("gn_bwd_apply.grad_copies")
+        opt_copies = kernel_table.read("adamw_update.grad_copies")
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         losses = {k: [float(m[k]) for m in ms] for k in METRICS}
         expect = {k: v * steps for k, v in per_step[adv_on].items()}
@@ -1620,8 +1552,8 @@ def phase_ae_train(warmup=2, steps=10):
         log(f"[ae_train] {gpu}: adv_on={adv_on} losses (first, last) "
             f"{({k: (round(v[0], 5), round(v[-1], 5)) for k, v in losses.items()})}")
         log(f"[ae_train] {gpu}: adv_on={adv_on} launches per step predicted "
-            f"{per_step[adv_on]}; {steps} steps counted {counts}, expected {expect}; stats+fold "
-            f"launches without 16-byte loads {scalar}, GroupNorm backward without {scalar_bwd}; "
+            f"{per_step[adv_on]}; {steps} steps counted {counts}, expected {expect}; GroupNorm "
+            f"launches without 16-byte loads {scalar}; "
             f"GroupNorm gradients copied to channels-last {copies / steps:g} a step; gradients "
             f"the optimizers copied into their param's layout {opt_copies / steps:g} a step")
         log(f"[ae_train] {gpu}: adv_on={adv_on} {steps} steps in {secs * 1e3:.1f} ms: "
@@ -1629,9 +1561,9 @@ def phase_ae_train(warmup=2, steps=10):
             f"{peak_gb:.2f} GiB")
         if not all(math.isfinite(v) for vs in losses.values() for v in vs):
             raise AssertionError(f"non-finite AE loss: {losses}")
-        if counts != expect or scalar or any(scalar_bwd.values()):
+        if counts != expect or any(scalar.values()):
             raise AssertionError(f"AE launches {counts} != expected {expect}, or scalar "
-                                 f"GroupNorm launches {scalar} / {scalar_bwd}")
+                                 f"GroupNorm launches {scalar}")
         bounds, shapes = gn_seen([tr.model, tr.discriminator],
                                  lambda: tr.train_step(batch, adv_on))
         bounds.update(opt_bounds(*ae_opts(tr, adv_on)))
@@ -1757,7 +1689,7 @@ def _ae_cli_runs(ws, per_step):
     for run, extra in (("epoch 1", ["--set", "n_epochs=1"]),
                        ("-c to epoch 2", ["-c", "--set", "n_epochs=2"])):
         adv_on = run != "epoch 1"
-        _reset_counts()
+        kernel_table.reset()
         train_autoencoder.AutoEncoderTrainer._restore = checked_restore
         try:
             t0 = time.perf_counter()
@@ -1766,7 +1698,7 @@ def _ae_cli_runs(ws, per_step):
             run_s = time.perf_counter() - t0
         finally:
             train_autoencoder.AutoEncoderTrainer._restore = orig_restore
-        counts = _read_counts()
+        counts = kernel_table.launches()
         st = tr.epoch_stats[0]
         steps, val_steps = st["steps"], st["val_steps"]
         f = fwd(tr)
@@ -2061,12 +1993,12 @@ def _cli_runs(ws, train_counts, train_ms):
 
     # ---- medimgen_torch_train_ldm: one epoch, interval sampling, last + best
     argv = ["099", "train-val-test", "3d", "--set", "val_plot_interval=1"]
-    _reset_counts()
+    kernel_table.reset()
     t0 = time.perf_counter()
     tr = _run_main(train_ldm.run_cli, argv + ["--set", "n_epochs=1"])
     torch.cuda.synchronize()
     run1_s = time.perf_counter() - t0
-    counts = _read_counts()
+    counts = kernel_table.launches()
     st = tr.epoch_stats[0]
     steps, val_steps = st["steps"], st["val_steps"]
     attn_u = sum(isinstance(m, AttentionBlock) for m in tr.unet.modules())
@@ -2356,7 +2288,7 @@ def gn_seen(nets, fn):
     finally:
         for h in handles:
             h.remove()
-    ms = {k: 0.0 for k in kernel_counters()}
+    ms = dict.fromkeys(kernel_table.KERNELS, 0.0)
     for shape, isz, _, grad in seen:
         for k, v in gn_bounds_ms(shape, isz, grad).items():
             ms[k] += v
@@ -2373,22 +2305,19 @@ def _check_gn_listed(label, shapes):
 def _timed_steps(step, warmup, steps):
     """(ms a step, peak GiB, launch counts, outputs) of ``steps`` calls of
     step() after ``warmup``."""
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
-
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    gn.gn_bwd_apply.grad_copies = 0
+    kernel_table.reset()
     t0 = time.perf_counter()
     outs = [step() for _ in range(steps)]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    if _input_copies() or _scalar_stats() or any(_scalar_bwd().values()):
-        raise AssertionError(f"flash inputs copied {_input_copies()}, scalar GroupNorm "
-                             f"launches {_scalar_stats()} / {_scalar_bwd()}")
-    return ms, torch.cuda.max_memory_allocated() / 2**30, _read_counts(), outs
+    copies, scalar = kernel_table.total("input_copies"), _scalar_launches()
+    if copies or any(scalar.values()):
+        raise AssertionError(f"flash inputs copied {copies}, scalar GroupNorm launches {scalar}")
+    return ms, torch.cuda.max_memory_allocated() / 2**30, kernel_table.launches(), outs
 
 
 def phase_train_2d(warmup=2, steps=10):
@@ -2404,7 +2333,6 @@ def phase_train_2d(warmup=2, steps=10):
     from medical_image_generation_tpu_torch.models.autoencoder_kl import AutoencoderKL
     from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
     from medical_image_generation_tpu_torch.models.discriminator import least_squares_gan_loss
-    from medical_image_generation_tpu_torch.ops import adamw
     from medical_image_generation_tpu_torch.training import common
     from medical_image_generation_tpu_torch.training.train_autoencoder import (
         METRICS,
@@ -2519,7 +2447,7 @@ def phase_train_2d(warmup=2, steps=10):
         raise AssertionError(f"not the planner's 2D LDM config: batch {B}, params {n_u}, "
                              f"latent {latent}")
     ms, peak, counts, losses = _timed_steps(lambda: tr.train_step(batch), warmup, steps)
-    opt_copies = adamw.adamw_update.grad_copies
+    opt_copies = kernel_table.read("adamw_update.grad_copies")
     losses = [float(v) for v in losses]
     expect = {k: v * steps for k, v in per_step.items()}
     _check_gn_listed("train_2d", gn_seen([tr.unet, tr.vae.encoder],
@@ -2577,7 +2505,7 @@ def _eval_prediction(tr, n, steps):
     chunks = -(-n // 16)
     gn = (chunks * (steps * count(tr.unet, GroupNorm) + count(tr.vae.decoder, GroupNorm))
           + 2 * count(tr.feature_extractor.module, GroupNorm))
-    out = {k: 0 for k in kernel_counters()}
+    out = dict.fromkeys(kernel_table.KERNELS, 0)
     out.update(flash_attn_fwd=chunks * steps * count(tr.unet, AttentionBlock),
                gn_stats_fold=gn, gn_affine_act=gn)
     return out
@@ -2613,12 +2541,13 @@ def phase_cli_2d(ws):
 
     def counted_eval(self, *a, **k):
         extractor = self.feature_extractor  # built before the hooks go on
-        c0, res = _read_counts(), []
+        c0, res = kernel_table.launches(), []
         t0 = time.perf_counter()
         bounds, shapes = gn_seen([self.unet, self.vae.decoder, extractor.module],
                                  lambda: res.append(orig_eval(self, *a, **k)))
         evals.append(dict(metrics=res[0], secs=time.perf_counter() - t0, bounds=bounds,
-                          shapes=shapes, counts={n: c - c0[n] for n, c in _read_counts().items()},
+                          shapes=shapes,
+                          counts={n: c - c0[n] for n, c in kernel_table.launches().items()},
                           expect=_eval_prediction(self, 100, CLI_DDIM_STEPS)))
         return res[0]
 
@@ -2679,13 +2608,13 @@ def phase_cli_2d(ws):
     attn_u = sum(isinstance(x, AttentionBlock) for x in tr.unet.modules())
     gn_ud = (1000 * sum(isinstance(x, GroupNorm) for x in tr.unet.modules())
              + sum(isinstance(x, GroupNorm) for x in tr.vae.decoder.modules()))
-    _reset_counts()
+    kernel_table.reset()
     t0 = time.perf_counter()
     chunk = tr.sample_images(16, sampler="ddpm",
                              generator=torch.Generator(device="cuda").manual_seed(777))
     torch.cuda.synchronize()
     chunk_s = time.perf_counter() - t0
-    counts = _read_counts()
+    counts = kernel_table.launches()
     nonsample = sum(v for k, v in m["seconds"].items() if k != "sampling")
     log(f"[cli_2d] {gpu}: one 16-sample chunk of the full 1000-step DDPM trajectory: "
         f"{chunk_s:.2f} s ({chunk_s:.4f} ms a step x1000), images {chunk.shape} finite "
@@ -2733,11 +2662,11 @@ def eval_3d_call(out_dir):
     fe = FeatureExtractor(spatial_dims=3)
     fe(vols)  # warm-up
     torch.cuda.synchronize()
-    _reset_counts()
+    kernel_table.reset()
     t0 = time.perf_counter()
     feats = fe(vols)
     secs = time.perf_counter() - t0
-    counts = _read_counts()
+    counts = kernel_table.launches()
     bounds, shapes = gn_seen([fe.module], lambda: fe(vols))
     _check_gn_listed("eval_3d", shapes)
     n_gn = sum(isinstance(x, GroupNorm) for x in fe.module.modules())
@@ -2924,10 +2853,10 @@ def _plan_run(ws):
 
     def recorded_trial(config, batch_size, use_checkpointing=False, remat_policy="acts",
                        device="cuda"):
-        c0 = _read_counts()
+        c0 = kernel_table.launches()
         out = orig_trial(config, batch_size, use_checkpointing, remat_policy, device)
         trials.append(dict(out, cfg=config, batch=batch_size, remat=use_checkpointing,
-                           counts={k: v - c0[k] for k, v in _read_counts().items()}))
+                           counts={k: v - c0[k] for k, v in kernel_table.launches().items()}))
         return out
 
     t0 = time.perf_counter()
@@ -2999,9 +2928,9 @@ def _plan_run(ws):
     n = memory.TRIAL_STEPS
     meas = {}
     for rung, (remat, policy) in REMAT_RUNGS.items():
-        _reset_counts()
+        kernel_table.reset()
         t = memory.trial_ae_step(cfg3, 2, remat, policy)
-        counts = _read_counts()
+        counts = kernel_table.launches()
         per = ae_launches(cfg3, True, remat)
         meas[rung] = dict(t, per_step={k: v // n for k, v in counts.items()})
         log(f"[plan] {gpu}: 3D AE step, batch 2, adversarial loss, remat {rung}: peak reserved "
@@ -3077,13 +3006,13 @@ def _plan_run(ws):
             "--set", f"vae_params.remat_policy={policy}"]
     loaders = functools.partial(loader_mod.get_data_loaders, train_steps=PLAN_TRAIN_STEPS,
                                 val_steps=PLAN_VAL_STEPS)
-    _reset_counts()
+    kernel_table.reset()
     t0 = time.perf_counter()
     with mock.patch.object(train_autoencoder, "get_data_loaders", loaders):
         tr = _run_main(train_autoencoder.run_cli, argv)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts, st, ld = _read_counts(), tr.epoch_stats[0], tr.loss_dict
+    counts, st, ld = kernel_table.launches(), tr.epoch_stats[0], tr.loss_dict
     n_fwd = sum(isinstance(m, GroupNorm) for m in tr.model.modules())
     per = ae_launches(cfg3, True, True)
     expect = {k: st["steps"] * v + st["val_steps"] * (n_fwd if k in ("gn_stats_fold",
@@ -3262,7 +3191,7 @@ def module_bounds(nets, fn):
             h.remove()
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
 
-    ms = {k: 0.0 for k in kernel_counters()}
+    ms = dict.fromkeys(kernel_table.KERNELS, 0.0)
     for calls, grad in ((seen, False), (grads.values(), True)):
         for mod, shape, isz in calls:
             B, C, M = shape[0], shape[1], math.prod(shape[2:])
@@ -3422,9 +3351,9 @@ def phase_ddpm_train():
                 x = torch.randn((n, *tr.image_shape), generator=gen, device=dev)
                 t = torch.full((n,), 500, device=dev, dtype=torch.long)
                 unet(x, t)
-                _reset_counts()
+                kernel_table.reset()
                 fwd_ms = time_ms(lambda: unet(x, t), 0, 1)
-                samples[n] = {"ms": fwd_ms, "counts": _read_counts()}
+                samples[n] = {"ms": fwd_ms, "counts": kernel_table.launches()}
                 log(f"[ddpm_train] {gpu}: {sd}D sampling forward at batch {n}: {fwd_ms:.1f} ms "
                     f"(a 50-step DDIM trajectory ~{50 * fwd_ms / 1e3:.1f} s); launches "
                     f"{samples[n]['counts']}")
@@ -3603,7 +3532,7 @@ def _gn_case(B, M, C, G, dt, gen, label):
     w = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
     b = 0.1 * torch.randn(C, generator=gen, device="cuda")
     rows = max(1, GN_REF_CHUNK // (B * C))
-    vec0 = [f.vector_launches for f in (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply)]
+    vec0 = _vector_launches()
     st, A, bb = gn.stats_fold(x, w, b, G, 1e-6)
     same = all(torch.equal(u, v) for u, v in zip((st, A, bb), gn.stats_fold(x, w, b, G, 1e-6)))
     st_ref = sum(gn.channel_stats_plain(x[:, r:r + rows]) for r in range(0, M, rows))
@@ -3648,8 +3577,7 @@ def _gn_case(B, M, C, G, dt, gen, label):
         prel = max(prel, p)
         ok = ok and over <= at * rmax and p <= GN_PARAM_GRAD_TOL
         del dx
-    vec = [f.vector_launches - v0 for f, v0 in zip(
-        (gn.stats_fold, gn.gn_bwd_stats, gn.gn_bwd_apply), vec0)]
+    vec = [n - vec0[k] for k, n in _vector_launches().items()]
     vec_ok = vec == [2, 4, 4]
     torch.cuda.synchronize()
     line = (f"B={B} M={M} C={C} G={G} {str(dt)[6:]}: stats rel_err={srel:.3e} A/b rel_err="
@@ -3747,7 +3675,7 @@ def _ddpm_yaml(root, task, key, remat):
 def _ddpm_cli_prediction(info, steps, val_steps, samples):
     """Launches of one DDPM CLI epoch: ``steps`` train steps, ``val_steps``
     validation forwards and ``samples`` sampling forwards."""
-    fwd = {k: 0 for k in kernel_counters()}
+    fwd = dict.fromkeys(kernel_table.KERNELS, 0)
     fwd.update(flash_attn_fwd=info["per_step"]["flash_attn_fwd"],
                gn_stats_fold=info["per_step"]["gn_bwd_stats"],
                gn_affine_act=info["per_step"]["gn_bwd_stats"])
@@ -3786,12 +3714,12 @@ def phase_ddpm_cli(ws, ddpm):
                                     val_steps=val_steps)
         with mock.patch.object(train_ddpm, "get_data_loaders", loaders), \
                 gn_recorder() as gn_seen_cli:
-            _reset_counts()
+            kernel_table.reset()
             t0 = time.perf_counter()
             tr = _run_main(train_ddpm.run_cli, argv + first)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
-            counts = _read_counts()
+            counts = kernel_table.launches()
             st = tr.epoch_stats[0]
             n_samples = 50 if sd == 2 else 0
             expect = _ddpm_cli_prediction(info, steps, val_steps, n_samples)
@@ -4145,11 +4073,11 @@ def _cond_parity(gpu):
         res = {}
         for name, net, dv in (("cpu", enc, "cpu"), ("gpu", enc_g, "cuda")):
             xi = x.detach().to(dv, copy=True).requires_grad_()
-            _reset_counts()
+            kernel_table.reset()
             logits = net(xi, t.to(dv))
             (logits * cot.to(dv)).sum().backward()
             torch.cuda.synchronize()
-            launches[f"encoder_{name}"] = _read_counts()
+            launches[f"encoder_{name}"] = kernel_table.launches()
             res[name] = [logits.detach().cpu(), xi.grad.cpu()] + [
                 p.grad.cpu() for p in net.parameters()]
         errs["encoder"] = max(_err(a, b) / max(b.abs().max().item(), 1e-30)
@@ -4168,12 +4096,12 @@ def _cond_parity(gpu):
             ref = unet(x, t, down_block_additional_residuals=down,
                        mid_block_additional_residual=mid)
             plain = unet(x, t)
-            _reset_counts()
+            kernel_table.reset()
             got = unet_g(x.cuda(), t.cuda(),
                          down_block_additional_residuals=[r.cuda() for r in down],
                          mid_block_additional_residual=mid.cuda())
             torch.cuda.synchronize()
-        launches["unet_gpu"] = _read_counts()
+        launches["unet_gpu"] = kernel_table.launches()
         errs["unet_controlnet"] = _err(got.cpu(), ref) / max(1.0, ref.abs().max().item())
         moved = _err(plain, ref)
         tol = 1e-4  # fp32 everywhere (TF32 off); summation order only
@@ -4247,9 +4175,9 @@ def _cond_flagship(gpu):
         enc(x, t).float().square().sum().backward()
 
     enc_ms = time_ms(enc_step, 1, 3)
-    _reset_counts()
+    kernel_table.reset()
     shapes = gn_seen([enc], enc_step)[1]
-    enc_counts = _read_counts()
+    enc_counts = kernel_table.launches()
     a_e, g_e = n(enc, AttentionBlock), n(enc, GroupNorm)
     enc_expect = launches(flash_attn_fwd=a_e, flash_attn_bwd_dq=a_e, flash_attn_bwd_dkdv=a_e,
                           gn_stats_fold=g_e, gn_affine_act=g_e, gn_bwd_stats=g_e,
@@ -4266,9 +4194,9 @@ def _cond_flagship(gpu):
         fwd = lambda: unet(x, t, down_block_additional_residuals=down,  # noqa: E731
                            mid_block_additional_residual=mid)
         u_ms = time_ms(fwd, 1, 3)
-        _reset_counts()
+        kernel_table.reset()
         shapes |= gn_seen([unet], fwd)[1]
-        u_counts = _read_counts()
+        u_counts = kernel_table.launches()
         y = fwd()
     c_u, g_u = n(unet, CrossAttention), n(unet, GroupNorm)
     u_expect = {k: 0 for k in u_counts}
@@ -4361,7 +4289,7 @@ def _context_case(shape, Sk, dt, gen):
     q, do = (torch.randn(shape, generator=gen, device="cuda").to(dt) for _ in range(2))
     k, v = (torch.randn((B, Sk, H, D), generator=gen, device="cuda").to(dt) for _ in range(2))
     scale = D ** -0.5
-    n0 = {k_: f.launches for k_, f in kernel_counters().items()}
+    n0 = kernel_table.launches()
     o, lse = fa.flash_attention(q, k, v, scale)
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
     dq, delta = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, scale)
@@ -4369,7 +4297,7 @@ def _context_case(shape, Sk, dt, gen):
     r_dq, r_delta = fa.flash_bwd_dq_plain(q, k, v, o_ref, lse_ref, do, scale)
     r_dk, r_dv = fa.flash_bwd_dkdv_plain(q, k, v, do, lse_ref, r_delta, scale)
     torch.cuda.synchronize()
-    launched = {k_: f.launches - n0[k_] for k_, f in kernel_counters().items()}
+    launched = {k_: n - n0[k_] for k_, n in kernel_table.launches().items()}
     p_bound = p_rounding_bound(q, k, v, scale) if dt == torch.bfloat16 else 0.0
     rtol, atol = FLASH_TOL[dt]
     res = {"o": held(o, o_ref, atol + rtol * o_ref.float().abs(), p_bound)}
@@ -4496,11 +4424,11 @@ def _cond_context_parity(gpu):
         res, launches = {}, {}
         for name, net, dv in (("cpu", unet, "cpu"), ("gpu", copy.deepcopy(unet).cuda(), "cuda")):
             xi, ci = (a.to(dv, copy=True).requires_grad_() for a in (x, ctx))
-            _reset_counts()
+            kernel_table.reset()
             out = net(xi, t.to(dv), context=ci)
             (out * cot.to(dv)).sum().backward()
             torch.cuda.synchronize()
-            launches[name] = _read_counts()
+            launches[name] = kernel_table.launches()
             res[name] = [out.detach().cpu(), xi.grad.cpu(), ci.grad.cpu()] + [
                 p.grad.cpu() for p in net.parameters()]
         err = max(_err(a, b) / max(b.abs().max().item(), 1e-30)
@@ -4580,10 +4508,10 @@ def _cond_context_flagship(gpu):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             with flash_capture() as seen, gn_recorder() as gns:
-                _reset_counts()
+                kernel_table.reset()
                 y = step()
                 torch.cuda.synchronize()
-                counts = _read_counts()
+                counts = kernel_table.launches()
             peak = torch.cuda.max_memory_allocated() / 2**30
             fwd_t, bwd_t = [], []
             for _ in range(3):
@@ -4691,10 +4619,10 @@ def _ring_case(shape, n, gen):
     # in turns, whole / ring / ring / whole, each pass once a turn; the counts
     # are of the first ring forward and backward
     (o_ref, lse_ref), w1 = timed(whole_fwd)
-    _reset_counts()
+    kernel_table.reset()
     fwd, r1 = timed(ring_fwd)
     bwd, rb1 = timed(ring_bwd)
-    launches = _read_counts()
+    launches = kernel_table.launches()
     del bwd
     fwd, r2 = timed(ring_fwd)
     _, w2 = timed(whole_fwd)
@@ -4915,9 +4843,7 @@ def phase_maisi():
     import torch.nn.functional as F
 
     from medical_image_generation_tpu_torch.models.blocks import AttentionBlock, GroupNorm
-    from medical_image_generation_tpu_torch.ops import adamw
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
-    from medical_image_generation_tpu_torch.ops import groupnorm as gn
     from medical_image_generation_tpu_torch.training.train_ldm import LDMTrainer
 
     gpu = card()
@@ -4927,15 +4853,17 @@ def phase_maisi():
     kernels = {}
     for shape in MAISI_FLASH:
         for dt in (torch.bfloat16, torch.float32):
-            before = {k: c.launches for k, c in kernel_counters().items()}
+            before = kernel_table.launches()
             rec, line = _flash_ddpm_case(*shape, dt, gen, cpu_gen, True, label="maisi")
-            ran = {k: c.launches - before[k] for k, c in kernel_counters().items()
-                   if k.startswith("flash") and c.launches > before[k]}
+            ran = {k: n - before[k] for k, n in kernel_table.launches().items()
+                   if k.startswith("flash") and n > before[k]}
             narrow = fa.takes_narrow(dt, shape[3])
-            if narrow != {f"{k}_narrow" for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
-                                                  "flash_attn_bwd_dkdv")}.issubset(ran):
-                raise AssertionError(f"[maisi] {shape} {dt}: launches {ran}, narrow kernels "
-                                     f"expected: {narrow}")
+            design = {k + ("_narrow" if narrow else "") for k in ("flash_attn_fwd",
+                                                                  "flash_attn_bwd_dq",
+                                                                  "flash_attn_bwd_dkdv")}
+            if set(ran) != design:
+                raise AssertionError(f"[maisi] {shape} {dt}: launches {ran}, expected of "
+                                     f"{sorted(design)} alone")
             if narrow:  # the records are the narrow kernels'
                 exp_ms = shape[0] * shape[2] * shape[1] ** 2 / PEAK_EXP * 1e3
                 rec = {f"{k}_narrow": dict(r, exp_bound_ms=exp_ms) for k, r in rec.items()}
@@ -4971,8 +4899,7 @@ def phase_maisi():
             "spacing_tensor": torch.tensor([[0.8, 0.8, 2.5]])}
     attn = sum(isinstance(m, AttentionBlock) for m in unet.modules())
     n_gn = sum(isinstance(m, GroupNorm) for m in unet.modules())
-    per_step = {"flash_attn_fwd": attn, "flash_attn_bwd_dq": attn, "flash_attn_bwd_dkdv": attn,
-                "flash_attn_fwd_narrow": attn, "flash_attn_bwd_dq_narrow": attn,
+    per_step = {"flash_attn_fwd_narrow": attn, "flash_attn_bwd_dq_narrow": attn,
                 "flash_attn_bwd_dkdv_narrow": attn, "gn_stats_fold": n_gn, "gn_affine_act": n_gn,
                 "gn_bwd_stats": n_gn, "gn_bwd_apply": n_gn, **opt_launches(trainer.opt)}
     expect = launches(**per_step)
@@ -4981,14 +4908,14 @@ def phase_maisi():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with flash_capture() as seen, gn_recorder() as gns:
-        _reset_counts()
-        gn.gn_bwd_apply.grad_copies = 0
+        kernel_table.reset()
         loss = trainer.train_step(z, cond=cond)
         torch.cuda.synchronize()
-        counts = _read_counts()
+        counts = kernel_table.launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    copies = (_input_copies(), gn.gn_bwd_apply.grad_copies, adamw.adamw_update.grad_copies)
-    scalar, scalar_bwd = _scalar_stats(), _scalar_bwd()
+    copies = (kernel_table.total("input_copies"), kernel_table.read("gn_bwd_apply.grad_copies"),
+              kernel_table.read("adamw_update.grad_copies"))
+    scalar = _scalar_launches()
     step_ms = time_ms(lambda: trainer.train_step(z, cond=cond), 1, 3)
     expect_seen = {(kind, s, s[1]) for kind in ("fwd", "bwd") for s in MAISI_FLASH}
     missing = seen - FLASH_CHECKED
@@ -5001,17 +4928,17 @@ def phase_maisi():
         f"{attn} attention, each pass on the narrow kernels, {n_gn} GroupNorm); flash calls "
         f"{sorted(seen)} (unchecked {sorted(missing)}); GroupNorm shapes {len(gns)} (not in "
         f"GN_SHAPES {sorted(gn_missing)}); copies (flash inputs, GroupNorm gradients, optimizer "
-        f"gradients) {copies}; launches without 16-byte loads: stats+fold {scalar}, backward "
-        f"{scalar_bwd}; {step_ms:.3f} ms a step (CUDA events, median of 3); peak "
+        f"gradients) {copies}; GroupNorm launches without 16-byte loads {scalar}; "
+        f"{step_ms:.3f} ms a step (CUDA events, median of 3); peak "
         f"{peak:.3f} GiB")
     if (counts != expect or attn != 11 or n_gn != 56 or seen != expect_seen or missing
-            or gn_missing or any(copies) or scalar or any(scalar_bwd.values()) or not finite):
+            or gn_missing or any(copies) or any(scalar.values()) or not finite):
         raise AssertionError("[maisi] the step's launches, flash or GroupNorm shapes, copies "
                              "or loss are not as predicted (see the line above)")
     del trainer, unet, z
     torch.cuda.empty_cache()
     log(f"[maisi] {gpu}: phase {time.perf_counter() - t_phase:.1f} s")
-    return {"kernels": kernels, "per_step": per_step, "step_ms": step_ms, "peak_gib": peak}
+    return {"kernels": kernels, "per_step": expect, "step_ms": step_ms, "peak_gib": peak}
 
 
 def main() -> int:

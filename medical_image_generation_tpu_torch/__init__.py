@@ -10,15 +10,11 @@ Layout: public functions take and return the JAX package's layout
 ``torch.channels_last_3d`` memory, i.e. contiguous (B, Z*Y*X, C) buffers,
 which is the operand the hand-written GroupNorm kernels read in place.
 
-Hand-written Hopper kernels (``csrc/``), each with a plain PyTorch twin in
-the same module and a launch counter on its wrapper:
-
-* ``ops.flash_attention.flash_attention``   <- ``csrc/flash_attn_fwd.cu``
-* ``ops.groupnorm.stats_fold``               <- ``csrc/groupnorm.cu``
-* ``ops.groupnorm.affine_act``               <- ``csrc/groupnorm.cu``
-
-A wrapper given a CUDA tensor launches its kernel or raises; the plain
-version runs only for CPU tensors.
+Hand-written Hopper kernels (``csrc/``): ``ops/kernels.py`` is their table
+(source, C entry point, device names, launch counters), and each has a
+wrapper with a plain PyTorch twin in ``ops/flash_attention.py``,
+``ops/groupnorm.py`` or ``ops/adamw.py``. A wrapper given a CUDA tensor
+launches its kernel or raises; the plain version runs only for CPU tensors.
 
 Several cards: one process a card under torchrun, on the (data, model) mesh
 of ``parallel/`` (``mesh.py``, ``comm.py``, ``sharding.py``), with ring

@@ -38,7 +38,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from medical_image_generation_tpu_torch.bench import kernel_counters, randomize_
+from medical_image_generation_tpu_torch.bench import randomize_
+from medical_image_generation_tpu_torch.ops import kernels
 from medical_image_generation_tpu_torch.parallel.mesh import (
     get_mesh,
     maybe_initialize_distributed,
@@ -110,16 +111,14 @@ def run_ldm(steps: int = 3, batch: int = 2) -> dict:
         average(grads)
 
     tr.data_axis.all_reduce_mean_ = recorded_mean_
-    ctr = kernel_counters()
-    for c in ctr.values():
-        c.launches = 0
+    kernels.reset()
     losses, norms, ms = [], [], []
     for _ in range(steps):
         loss, t = _timed(dev, lambda: float(tr.train_step(local)))
         losses.append(loss)
         ms.append(t)
         norms.append(float(tr.opt.last_norm))
-    launches = {k: c.launches / steps for k, c in ctr.items()}
+    launches = {k: n / steps for k, n in kernels.launches().items()}
     sums = [float(sum(p.detach().double().sum() for p in tr.params)),
             float(sum(p.detach().double().abs().sum() for p in tr.params))]
     rank_sums = _ranks_gather(sums)

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with ``nvcc`` into a shared library under ``build/torch_kernels/`` beside the
 package (git-ignored), named by a hash of its source and flags, then loaded
 with ``ctypes``. No PyTorch headers are compiled, so a build takes seconds.
-``build_all`` starts one ``nvcc`` per source, all at once.
+``build_all`` starts one ``nvcc`` per source, all at once; ``bind`` types a
+C function of one. The kernel table (``ops/kernels.py``) names the sources
+(``kernels.SOURCES``) and binds through ``bind``.
 
 Nothing here runs at import time: the CPU tests import every module and have
 no ``nvcc``.
@@ -18,13 +20,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_narrow_fwd", "flash_attn_narrow_bwd",
-           "groupnorm", "groupnorm_bwd", "adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -50,8 +50,8 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
-def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
-    """Compile every missing library in parallel. Returns {name: nvcc log}
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """Compile every missing library of ``csrc/<name>.cu`` in parallel. Returns {name: nvcc log}
     (ptxas register / shared-memory report) for the sources it built."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
@@ -85,7 +85,9 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(path)
 
 
-def check(err: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a C entry point."""
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+def bind(name: str, symbol: str, argtypes: Sequence, restype: Optional[type]):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, typed (a
+    new function object each call: the callers keep it)."""
+    fn = load(name)[symbol]
+    fn.argtypes, fn.restype = list(argtypes), restype
+    return fn

@@ -30,9 +30,9 @@ peak memory holds it) and the norm.
 Plain versions: ``global_norm`` / ``clip_by_global_norm`` (optax's
 ``where(norm < max, g, g / norm * max)``) and ``adamw_plain_``, which CPU
 tensors take (``training/common.py`` ``AdamW``). CUDA tensors launch the
-kernels or raise. ``sq_norm.launches`` / ``adamw_update.launches`` count
-launches, ``adamw_update.grad_copies`` the gradients copied into their
-param's layout.
+kernels (the entries ``sq_norm`` and ``adamw_update`` of ``ops/kernels.py``,
+which count the launches) or raise; ``adamw_update.grad_copies`` there
+counts the gradients copied into their param's layout.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from medical_image_generation_tpu_torch.ops import _build
+from medical_image_generation_tpu_torch.ops import kernels
 from medical_image_generation_tpu_torch.parallel.comm import AxisGroup
 
 # Mirrors of csrc/adamw.cu (checked against the library when it loads)
@@ -55,6 +55,7 @@ BLOCKS_PER_SM = 4  # the persistent grid: blocks an SM
 SHARDED, VEC = 1, 2  # AdamwTable.flags bits
 KERNEL_PARAM_BYTES = 32764  # sm_90, CUDA >= 12.1
 _MU_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SQ_NORM, _UPDATE = kernels.KERNELS["sq_norm"], kernels.KERNELS["adamw_update"]
 
 
 class AdamwTable(ctypes.Structure):
@@ -96,23 +97,15 @@ class Hyper(NamedTuple):
 
 
 @functools.cache
-def _lib():
-    lib = _build.load("adamw")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.medimgen_adamw_layout.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-    lib.medimgen_adamw_layout.restype = None
-    lib.medimgen_adamw_sq_norm.argtypes = [ctypes.POINTER(AdamwTable), vp, vp, vp, i32, i32, vp]
-    lib.medimgen_adamw_sq_norm.restype = i32
-    lib.medimgen_adamw_update.argtypes = [ctypes.POINTER(AdamwTable), ctypes.POINTER(AdamwHyper),
-                                          vp, vp, i32, i32, vp]
-    lib.medimgen_adamw_update.restype = i32
+def _check_layout() -> None:
+    """Raise unless csrc/adamw.cu's structs and constants are the mirrors'
+    (asked of the library once)."""
     got = (ctypes.c_longlong * 6)()
-    lib.medimgen_adamw_layout(got)
+    kernels.query("medimgen_adamw_layout")(got)
     want = (ctypes.sizeof(AdamwTable), ctypes.sizeof(AdamwHyper), MAX_TENSORS, TILE, THREADS,
             BLOCKS_PER_SM)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/adamw.cu layout {tuple(got)} != the wrapper's {want}")
-    return lib
 
 
 # ------------------------------------------------------------------- plain
@@ -250,10 +243,10 @@ class Plan:
                 4 * m.element_size()) == 0
             base.append((SHARDED if sharded and sharded[i] else 0) | (VEC if vec else 0))
         self.base_flags = base
-        self.launches = partition([p.numel() for p in params])
+        self.parts = partition([p.numel() for p in params])
         self.tables = []
         self._g_views, self._flag_views = [], []
-        for ln in self.launches:
+        for ln in self.parts:
             t = AdamwTable()
             t.n = ln.hi - ln.lo
             for j, i in enumerate(range(ln.lo, ln.hi)):
@@ -269,7 +262,7 @@ class Plan:
         if sms is None:
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
         self.grid_max = max(1, sms * BLOCKS_PER_SM)
-        self.grids = [max(1, min(ln.tile_start[-1], self.grid_max)) for ln in self.launches]
+        self.grids = [max(1, min(ln.tile_start[-1], self.grid_max)) for ln in self.parts]
         self.device = dev
 
     def set_grads(self, grads: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
@@ -278,8 +271,8 @@ class Plan:
         or layout than its param's fp32 one (``torch.autograd.grad`` does
         not restride as ``.grad`` accumulation does) is first copied into
         it, as the plain version's ``g.float()`` takes any, and counted in
-        ``adamw_update.grad_copies``; returns those copies, which the caller
-        holds until the kernels are launched. A gradient off 16-byte
+        ``adamw_update.grad_copies`` (``ops/kernels.py``); returns those
+        copies, which the caller holds until the kernels are launched. A gradient off 16-byte
         alignment takes its tensor off the 16-byte path."""
         if len(grads) != len(self.shapes):
             raise ValueError(f"{len(grads)} gradients for {len(self.shapes)} params")
@@ -300,10 +293,10 @@ class Plan:
             ptr = g.data_ptr()
             ptrs.append(ptr)
             flags.append(self.base_flags[i] & ~VEC if ptr % 16 else self.base_flags[i])
-        for ln, gv, fv in zip(self.launches, self._g_views, self._flag_views):
+        for ln, gv, fv in zip(self.parts, self._g_views, self._flag_views):
             gv[:] = ptrs[ln.lo:ln.hi]
             fv[:] = flags[ln.lo:ln.hi]
-        adamw_update.grad_copies += len(copies)
+        kernels.add("adamw_update.grad_copies", len(copies))
         return copies
 
 
@@ -312,21 +305,16 @@ class Plan:
 def sq_norm(plan: Plan) -> torch.Tensor:
     """The gradients' [sharded, replicated] sums of squares, fp32 (2,) on
     the device, one read of each gradient."""
-    lib = _lib()
+    _check_layout()
     stream = torch.cuda.current_stream(plan.device).cuda_stream
     # [partials (2 a block) | sums (2) | ticket (uint32, 0 between launches)]
     g2 = 2 * plan.grid_max
     scratch = torch.zeros(g2 + 3, dtype=torch.float32, device=plan.device)
     base = scratch.data_ptr()
     for k, (t, grid) in enumerate(zip(plan.tables, plan.grids)):
-        _build.check(lib.medimgen_adamw_sq_norm(ctypes.byref(t), base, base + 4 * g2,
-                                                base + 4 * (g2 + 2), grid, int(k > 0), stream),
-                     "adamw sq_norm launch")
-        sq_norm.launches += 1
+        _SQ_NORM(ctypes.byref(t), base, base + 4 * g2, base + 4 * (g2 + 2), grid, int(k > 0),
+                 stream)
     return scratch[g2:g2 + 2]
-
-
-sq_norm.launches = 0
 
 
 def adamw_update(plan: Plan, h: Hyper, sums: Optional[torch.Tensor],
@@ -335,7 +323,7 @@ def adamw_update(plan: Plan, h: Hyper, sums: Optional[torch.Tensor],
     sqrt(sums[0] + sums[1]) of ``sq_norm``'s sums, read on the device) and
     the AdamW step, in place on the plan's params, mu and nu. Returns the
     norm (0-d fp32 on the device) or None without a clip."""
-    lib = _lib()
+    _check_layout()
     dev = plan.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     clip = bool(max_norm)
@@ -345,13 +333,6 @@ def adamw_update(plan: Plan, h: Hyper, sums: Optional[torch.Tensor],
     norm = torch.empty((), dtype=torch.float32, device=dev) if clip else None
     ch = h.to_c(max_norm)
     for t, grid in zip(plan.tables, plan.grids):
-        _build.check(lib.medimgen_adamw_update(
-            ctypes.byref(t), ctypes.byref(ch), sums.data_ptr() if clip else None,
-            norm.data_ptr() if clip else None, _MU_DTYPES[plan.mu_dtype], grid, stream),
-            "adamw update launch")
-        adamw_update.launches += 1
+        _UPDATE(ctypes.byref(t), ctypes.byref(ch), sums.data_ptr() if clip else None,
+                norm.data_ptr() if clip else None, _MU_DTYPES[plan.mu_dtype], grid, stream)
     return norm
-
-
-adamw_update.launches = 0
-adamw_update.grad_copies = 0

@@ -28,24 +28,22 @@ the same math a chunk of query rows at a time, for sequences whose Sq x Sk
 matrix cannot be held.
 
 CPU tensors go to the plain versions; CUDA tensors launch the kernels or
-raise. Launch counters: ``flash_attention.launches`` (forward),
-``flash_bwd_dq.launches`` and ``flash_bwd_dkdv.launches`` (the two backward
-passes) count every launch, ``narrow_launches`` beside each those of the
-narrow design. The bf16 kernels load through TMA, which needs 16-byte aligned
-bases and D and strides in multiples of 8 elements; inputs that are not are
-copied first (``tma_inputs``), and the copies are counted in
-``flash_attention.input_copies``, ``flash_bwd_dq.input_copies`` and
-``flash_bwd_dkdv.input_copies``.
+raise. ``_design`` picks a pass's kernel entry (``ops/kernels.py``), which
+counts its launches. The bf16 kernels load through TMA, which needs 16-byte
+aligned bases and D and strides in multiples of 8 elements; inputs that are
+not are copied first (``tma_inputs``), and the copies are counted under the
+kernel's ``<name>.input_copies``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
-from medical_image_generation_tpu_torch.ops import _build
+from medical_image_generation_tpu_torch.ops import kernels
+from medical_image_generation_tpu_torch.ops.kernels import KERNELS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 NARROW_MAX_D = 64  # padded head dims the narrow kernels take (csrc/flash_narrow.cuh)
@@ -166,55 +164,6 @@ def _check(q, k, v):
                              f"(strides [..., {D}, 1]), got strides {t.stride()}")
 
 
-@functools.cache
-def _lib_fwd():
-    lib = _build.load("flash_attn_fwd")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.medimgen_flash_attn_fwd.argtypes = (
-        [vp] * 5 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp])
-    lib.medimgen_flash_attn_fwd.restype = i32
-    lib.medimgen_flash_attn_smem_bytes.argtypes = [i32, i32]
-    lib.medimgen_flash_attn_smem_bytes.restype = i64
-    lib.medimgen_flash_attn_smem_limit.argtypes = []
-    lib.medimgen_flash_attn_smem_limit.restype = i64
-    return lib
-
-
-@functools.cache
-def _lib_narrow_fwd():
-    lib = _build.load("flash_attn_narrow_fwd")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.medimgen_flash_narrow_fwd.argtypes = (
-        [vp] * 5 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp])
-    lib.medimgen_flash_narrow_fwd.restype = i32
-    return lib
-
-
-@functools.cache
-def _lib_narrow_bwd():
-    lib = _build.load("flash_attn_narrow_bwd")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.medimgen_flash_narrow_bwd_dq, lib.medimgen_flash_narrow_bwd_dkdv):
-        fn.argtypes = [vp] * 8 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp]
-        fn.restype = i32
-    return lib
-
-
-@functools.cache
-def _lib_bwd():
-    lib = _build.load("flash_attn_bwd")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.medimgen_flash_attn_bwd_dq.argtypes = (
-        [vp] * 8 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp])
-    lib.medimgen_flash_attn_bwd_dq.restype = i32
-    lib.medimgen_flash_attn_bwd_dkdv.argtypes = (
-        [vp] * 8 + [i32] * 6 + [i64] * 6 + [ctypes.c_float, i32, vp])
-    lib.medimgen_flash_attn_bwd_dkdv.restype = i32
-    lib.medimgen_flash_attn_bwd_smem_bytes.argtypes = [i32, i32]
-    lib.medimgen_flash_attn_bwd_smem_bytes.restype = i64
-    return lib
-
-
 def _vec_ok(D: int, itemsize: int, *tensors) -> bool:
     """16-byte vector loads: D and every row/batch stride a multiple of 16
     bytes' worth of elements, and every base pointer 16-byte aligned."""
@@ -240,93 +189,97 @@ def tma_inputs(D: int, *tensors):
     return tuple(copies), Dp, len(copies)
 
 
-def _check_smem(need: int, D: int, what: str):
-    limit = _lib_fwd().medimgen_flash_attn_smem_limit()
+class _Pass(NamedTuple):
+    """A flash pass's two kernels, and the C function (of ``kernels.QUERIES``)
+    of the wide one's shared-memory need at (D, dtype code)."""
+    wide: kernels.Kernel
+    narrow: kernels.Kernel
+    smem_bytes: str
+
+
+_FWD = _Pass(KERNELS["flash_attn_fwd"], KERNELS["flash_attn_fwd_narrow"],
+             "medimgen_flash_attn_smem_bytes")
+_DQ = _Pass(KERNELS["flash_attn_bwd_dq"], KERNELS["flash_attn_bwd_dq_narrow"],
+            "medimgen_flash_attn_bwd_smem_bytes")
+_DKDV = _Pass(KERNELS["flash_attn_bwd_dkdv"], KERNELS["flash_attn_bwd_dkdv_narrow"],
+              "medimgen_flash_attn_bwd_smem_bytes")
+
+
+@functools.cache
+def _check_smem(kernel: kernels.Kernel, smem_bytes: str, D: int, dt: int) -> None:
+    """Raise unless a block of the wide ``kernel`` has the shared memory its
+    head dim D takes (asked of the library once a kernel, D and dtype)."""
+    need = kernels.query(smem_bytes)(D, dt)
+    limit = kernels.query("medimgen_flash_attn_smem_limit")()
     if need > limit:
-        raise ValueError(f"{what} at head dim {D} needs {need} bytes of shared memory per "
-                         f"block, more than the {limit} a block can have")
+        raise ValueError(f"{kernel.symbol} at head dim {D} needs {need} bytes of shared "
+                         f"memory per block, more than the {limit} a block can have")
+
+
+def _design(p: _Pass, q, *inputs):
+    """(kernel, inputs, D', vec) of pass p on CUDA inputs (q first): the
+    narrow kernel where ``takes_narrow`` holds, else the wide one. bf16
+    inputs go through ``tma_inputs`` (the copies counted under the kernel's
+    name) and take 16-byte loads; fp32 ones where ``_vec_ok`` holds."""
+    D = q.shape[-1]
+    if takes_narrow(q.dtype, D):
+        kernel = p.narrow
+    else:
+        kernel = p.wide
+        _check_smem(kernel, p.smem_bytes, D, _DTYPES[q.dtype])
+    if q.dtype != torch.bfloat16:
+        return kernel, (q, *inputs), D, _vec_ok(D, 4, q, *inputs)
+    inputs, Dp, copies = tma_inputs(D, q, *inputs)
+    if copies:
+        kernels.add(f"{kernel.name}.input_copies", copies)
+    return kernel, inputs, Dp, True
 
 
 def _strides(q, k, v):
     return (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _fwd(q, k, v, scale: float):
-    """Forward on checked inputs: the plain version on the CPU, else the kernel."""
+    """Forward on checked inputs: the plain version on the CPU, else a kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    dt = _DTYPES[q.dtype]
-    narrow = takes_narrow(q.dtype, D)
-    if narrow:
-        launch = _lib_narrow_fwd().medimgen_flash_narrow_fwd
-    else:
-        lib = _lib_fwd()
-        _check_smem(lib.medimgen_flash_attn_smem_bytes(D, dt), D, "the flash forward")
-        launch = lib.medimgen_flash_attn_fwd
-    Dk = D
-    if q.dtype == torch.bfloat16:
-        (q, k, v), Dk, n_copies = tma_inputs(D, q, k, v)
-        flash_attention.input_copies += n_copies
+    kernel, (q, k, v), Dk, vec = _design(_FWD, q, k, v)
     o = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, H, Sq, Sk, Dk, dt, *_strides(q, k, v),
-        float(scale), int(_vec_ok(Dk, q.element_size(), q, k, v)),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, f"{launch.__name__} launch")
-    flash_attention.launches += 1
-    flash_attention.narrow_launches += narrow
+    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+           B, H, Sq, k.shape[1], Dk, _DTYPES[q.dtype], *_strides(q, k, v), float(scale),
+           int(vec), _stream(q))
     return (o if Dk == D else o[..., :D].contiguous()), lse
 
 
-def _bwd_args(q, k, v, o, lse, do, narrow: bool):
-    """(library, dtype code, vec, stream) of a backward pass: the narrow
-    library, or the wide one once it has room for head dim D."""
-    B, S, H, D = q.shape
+def _check_bwd(q, o, lse, do):
+    B, S, H, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o and dO must be {tuple(q.shape)} in {q.dtype}")
     if lse.shape != (B * H, S) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 ({B * H}, {S})")
-    dt = _DTYPES[q.dtype]
-    if narrow:
-        lib = _lib_narrow_bwd()
-    else:
-        lib = _lib_bwd()
-        _check_smem(lib.medimgen_flash_attn_bwd_smem_bytes(D, dt), D, "the flash backward")
-    vec = _vec_ok(D, q.element_size(), q, k, v, o, do)
-    return lib, dt, vec, torch.cuda.current_stream(q.device).cuda_stream
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, scale: float):
     """dQ pass (o, do, lse contiguous): returns (dq, delta), dq of q's shape
     and delta = rowsum(dO * o) as fp32 (B*H, Sq). The plain version on the
-    CPU. In bf16
-    the kernel also reads o and dO with 16-byte loads, so all five inputs go
-    through ``tma_inputs``."""
+    CPU. In bf16 the kernel also reads o and dO with 16-byte loads, so all
+    five inputs go through ``tma_inputs``."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, o, lse, do, scale)
+    _check_bwd(q, o, lse, do)
     B, Sq, H, D = q.shape
-    narrow = takes_narrow(q.dtype, D)
-    lib, dt, vec, stream = _bwd_args(q, k, v, o, lse, do, narrow)
-    launch = lib.medimgen_flash_narrow_bwd_dq if narrow else lib.medimgen_flash_attn_bwd_dq
-    Dk = D
-    if q.dtype == torch.bfloat16:
-        (q, k, v, o, do), Dk, n_copies = tma_inputs(D, q, k, v, o, do)
-        flash_bwd_dq.input_copies += n_copies
-        vec = True
+    kernel, (q, k, v, o, do), Dk, vec = _design(_DQ, q, k, v, o, do)
     dq = torch.empty((B, Sq, H, Dk), dtype=q.dtype, device=q.device)
     delta = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[1], Dk, dt, *_strides(q, k, v),
-        float(scale),
-        int(vec), stream)
-    _build.check(err, f"{launch.__name__} launch")
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.narrow_launches += narrow
+    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[1], Dk, _DTYPES[q.dtype],
+           *_strides(q, k, v), float(scale), int(vec), _stream(q))
     return (dq if Dk == D else dq[..., :D].contiguous()), delta
 
 
@@ -335,28 +288,17 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, scale: float):
     k's shape. The plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, scale)
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    narrow = takes_narrow(q.dtype, D)
-    lib, dt, vec, stream = _bwd_args(q, k, v, do, lse, do, narrow)
-    launch = lib.medimgen_flash_narrow_bwd_dkdv if narrow else lib.medimgen_flash_attn_bwd_dkdv
+    _check_bwd(q, do, lse, do)
     if delta.shape != lse.shape or delta.dtype != torch.float32 or not delta.is_contiguous():
         raise ValueError(f"delta must be contiguous fp32 {tuple(lse.shape)}")
-    Dk = D
-    if q.dtype == torch.bfloat16:
-        (q, k, v, do), Dk, n_copies = tma_inputs(D, q, k, v, do)
-        flash_bwd_dkdv.input_copies += n_copies
-        vec = True
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    kernel, (q, k, v, do), Dk, vec = _design(_DKDV, q, k, v, do)
     dk = torch.empty((B, Sk, H, Dk), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    err = launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, Dk, dt,
-        *_strides(q, k, v),
-        float(scale), int(vec), stream)
-    _build.check(err, f"{launch.__name__} launch")
-    flash_bwd_dkdv.launches += 1
-    flash_bwd_dkdv.narrow_launches += narrow
+    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, Sk, Dk, _DTYPES[q.dtype],
+           *_strides(q, k, v), float(scale), int(vec), _stream(q))
     if Dk != D:
         dk, dv = dk[..., :D].contiguous(), dv[..., :D].contiguous()
     return dk, dv
@@ -395,13 +337,3 @@ def flash_attention(q, k, v, scale: float):
     _check(q, k, v)
     return FlashAttentionFn.apply(q, k, v, float(scale))
 
-
-flash_attention.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkdv.launches = 0
-flash_attention.narrow_launches = 0
-flash_bwd_dq.narrow_launches = 0
-flash_bwd_dkdv.narrow_launches = 0
-flash_attention.input_copies = 0
-flash_bwd_dq.input_copies = 0
-flash_bwd_dkdv.input_copies = 0

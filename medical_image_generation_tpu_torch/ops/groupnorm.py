@@ -22,7 +22,8 @@ The forward kernels live in ``csrc/groupnorm.cu``, the backward ones in
 NCDHW tensor in ``torch.channels_last_3d`` memory lies (M = Z*Y*X).
 ``group_norm`` views the activation that way without a copy and raises if it
 is not channels-last contiguous; an incoming gradient that is not
-channels-last is made so by one copy (counted in ``gn_bwd_apply.grad_copies``).
+channels-last is made so by one copy (counted in ``gn_bwd_apply.grad_copies``
+of ``ops/kernels.py``'s store).
 
 Numerics: fp32 statistics, eps inside the rsqrt, and the folded affine
 applied in fp32 with one rounding at the store, as the Pallas ``affine_act``
@@ -31,21 +32,20 @@ in the compute dtype; in bf16 that differs by about one bf16 rounding of the
 output (tolerance stated in the tests). The backward works in fp32 from the
 forward's saved channel sums and folded affine, as ``_gn_vjp_bwd`` does.
 
-CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise. ``stats_fold.launches`` / ``affine_act.launches`` /
-``gn_bwd_stats.launches`` / ``gn_bwd_apply.launches`` count launches;
+CPU tensors take the plain versions; CUDA tensors launch the kernels (the
+entries ``gn_stats_fold``, ``gn_affine_act``, ``gn_bwd_stats`` and
+``gn_bwd_apply`` of ``ops/kernels.py``, which count the launches) or raise.
 ``stats_fold``, ``gn_bwd_stats`` and ``gn_bwd_apply`` also count in
-``vector_launches`` the launches that took 16-byte loads.
+``<kernel>.vector_launches`` the launches that took 16-byte loads.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
-from medical_image_generation_tpu_torch.ops import _build
+from medical_image_generation_tpu_torch.ops import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # blocks a launch aims for per SM (256 threads each), and the fewest rows a
@@ -54,30 +54,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # groupnorm_bwd.cu)
 _STATS_BLOCKS_PER_SM, _STATS_UNROLL = 4, 4
 _BWD_BLOCKS_PER_SM, _BWD_UNROLL = {"stats": 2, "apply": 4}, 4
-
-
-@functools.cache
-def _lib():
-    lib = _build.load("groupnorm")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.medimgen_gn_stats_fold.argtypes = (
-        [vp] * 7 + [i32, i64, i32, i32, ctypes.c_float, i32, i64, i32, i32, vp])
-    lib.medimgen_gn_stats_fold.restype = i32
-    lib.medimgen_gn_affine_act.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, i32, i32, vp]
-    lib.medimgen_gn_affine_act.restype = i32
-    return lib
-
-
-@functools.cache
-def _lib_bwd():
-    lib = _build.load("groupnorm_bwd")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.medimgen_gn_bwd_stats.argtypes = (
-        [vp] * 10 + [i32, i64, i32, i32, ctypes.c_float, i32, i32, i64, i32, i32, vp])
-    lib.medimgen_gn_bwd_stats.restype = i32
-    lib.medimgen_gn_bwd_apply.argtypes = [vp] * 6 + [i32, i64, i32, i32, i32, i64, i32, i32, vp]
-    lib.medimgen_gn_bwd_apply.restype = i32
-    return lib
+_STATS_FOLD, _AFFINE_ACT, _BWD_STATS, _BWD_APPLY = (
+    kernels.KERNELS[k] for k in ("gn_stats_fold", "gn_affine_act", "gn_bwd_stats",
+                                 "gn_bwd_apply"))
 
 
 def _vec(t, C: int) -> bool:
@@ -161,15 +140,10 @@ def affine_act(x2, A, b, silu: bool):
     A, b = A.contiguous(), b.contiguous()
     y = torch.empty_like(x2)
     vec = C % (16 // x2.element_size()) == 0 and x2.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
-    err = _lib().medimgen_gn_affine_act(
-        x2.data_ptr(), A.data_ptr(), b.data_ptr(), y.data_ptr(), B, M, C, _DTYPES[x2.dtype],
-        int(silu), int(vec), torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, "gn affine_act launch")
-    affine_act.launches += 1
+    _AFFINE_ACT(x2.data_ptr(), A.data_ptr(), b.data_ptr(), y.data_ptr(), B, M, C,
+                _DTYPES[x2.dtype], int(silu), int(vec),
+                torch.cuda.current_stream(x2.device).cuda_stream)
     return y
-
-
-affine_act.launches = 0
 
 
 def fold_affine_plain(stats, weight, bias, num_groups: int, n_spatial: int, eps: float):
@@ -218,18 +192,11 @@ def stats_fold(x2, weight, bias, num_groups: int, eps: float):
     part = torch.empty((B, nblk, 2, C), dtype=torch.float32, device=x2.device)
     out = torch.empty((4, B, C), dtype=torch.float32, device=x2.device)
     stats, A, b = out[:2].view(B, 2, C), out[2], out[3]
-    err = _lib().medimgen_gn_stats_fold(
-        x2.data_ptr(), w.data_ptr(), bf.data_ptr(), part.data_ptr(), stats.data_ptr(),
-        A.data_ptr(), b.data_ptr(), B, M, C, num_groups, float(eps), _DTYPES[x2.dtype], rows,
-        nblk, int(vec), torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, "gn stats_fold launch")
-    stats_fold.launches += 1
-    stats_fold.vector_launches += int(vec)
+    _STATS_FOLD(x2.data_ptr(), w.data_ptr(), bf.data_ptr(), part.data_ptr(), stats.data_ptr(),
+                A.data_ptr(), b.data_ptr(), B, M, C, num_groups, float(eps), _DTYPES[x2.dtype],
+                rows, nblk, int(vec), torch.cuda.current_stream(x2.device).cuda_stream)
+    kernels.add("gn_stats_fold.vector_launches", vec)
     return stats, A, b
-
-
-stats_fold.launches = 0
-stats_fold.vector_launches = 0  # launches that took the 16-byte loads
 
 
 def _check_coef(x2, *coefs):
@@ -312,19 +279,12 @@ def gn_bwd_stats(x2, g2, A, b, stats, weight, num_groups: int, eps: float, silu:
     dscale = torch.empty((C,), dtype=torch.float32, device=x2.device)
     dbias = torch.empty_like(dscale)
     A, b, stats = A.contiguous(), b.contiguous(), stats.contiguous()
-    err = _lib_bwd().medimgen_gn_bwd_stats(
-        x2.data_ptr(), g2.data_ptr(), A.data_ptr(), b.data_ptr(), stats.data_ptr(),
-        w.data_ptr(), part.data_ptr(), coef.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-        B, M, C, num_groups, float(eps), _DTYPES[x2.dtype], int(silu), rows, nblk, int(vec),
-        torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, "gn bwd_stats launch")
-    gn_bwd_stats.launches += 1
-    gn_bwd_stats.vector_launches += int(vec)
+    _BWD_STATS(x2.data_ptr(), g2.data_ptr(), A.data_ptr(), b.data_ptr(), stats.data_ptr(),
+               w.data_ptr(), part.data_ptr(), coef.data_ptr(), dscale.data_ptr(),
+               dbias.data_ptr(), B, M, C, num_groups, float(eps), _DTYPES[x2.dtype], int(silu),
+               rows, nblk, int(vec), torch.cuda.current_stream(x2.device).cuda_stream)
+    kernels.add("gn_bwd_stats.vector_launches", vec)
     return coef, dscale, dbias
-
-
-gn_bwd_stats.launches = 0
-gn_bwd_stats.vector_launches = 0  # launches that took the 16-byte loads
 
 
 def gn_bwd_apply_plain(x2, g2, A, b, coef, silu: bool):
@@ -346,19 +306,11 @@ def gn_bwd_apply(x2, g2, A, b, coef, silu: bool):
     vec = all(_vec(t, C) for t in (x2, g2, dx))
     rows, nblk = _bwd_slabs("apply", B, M, C, 16 // x2.element_size() if vec else 1,
                             _sm_count(x2.device.index or 0))
-    err = _lib_bwd().medimgen_gn_bwd_apply(
-        x2.data_ptr(), g2.data_ptr(), A.data_ptr(), b.data_ptr(), coef.data_ptr(),
-        dx.data_ptr(), B, M, C, _DTYPES[x2.dtype], int(silu), rows, nblk, int(vec),
-        torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check(err, "gn bwd_apply launch")
-    gn_bwd_apply.launches += 1
-    gn_bwd_apply.vector_launches += int(vec)
+    _BWD_APPLY(x2.data_ptr(), g2.data_ptr(), A.data_ptr(), b.data_ptr(), coef.data_ptr(),
+               dx.data_ptr(), B, M, C, _DTYPES[x2.dtype], int(silu), rows, nblk, int(vec),
+               torch.cuda.current_stream(x2.device).cuda_stream)
+    kernels.add("gn_bwd_apply.vector_launches", vec)
     return dx
-
-
-gn_bwd_apply.launches = 0
-gn_bwd_apply.vector_launches = 0  # launches that took the 16-byte loads
-gn_bwd_apply.grad_copies = 0  # incoming gradients that had to be made channels-last
 
 
 def group_norm_bwd_plain(x2, g2, stats, weight, bias, num_groups: int, eps: float,
@@ -409,7 +361,7 @@ class GroupNormFn(torch.autograd.Function):
         gp = gy.to(x.dtype).permute(0, *range(2, gy.dim()), 1)
         if not gp.is_contiguous():
             gp = gp.contiguous()
-            gn_bwd_apply.grad_copies += 1
+            kernels.add("gn_bwd_apply.grad_copies")
         g2 = gp.reshape(x2.shape)
         coef, dscale, dbias = gn_bwd_stats(x2, g2, A, b, stats, weight, num_groups, eps, silu)
         dx = gn_bwd_apply(x2, g2, A, b, coef, silu) if ctx.needs_input_grad[0] else None

@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from medical_image_generation_tpu_torch.ops import flash_attention as fa
+from medical_image_generation_tpu_torch.ops import kernels
 from medical_image_generation_tpu_torch.parallel.comm import AxisGroup
 
 # |x_ring - x_ref| <= rtol |x_ref| + atol (o) or + atol max |x_ref| (dq, dk, dv)
@@ -192,13 +193,12 @@ def ring_attention_sharded(q, k, v, axis: AxisGroup, scale: float):
     holds whole: each rank takes its S/n rows of q, k and v (``scatter``: the
     backward all-gathers the rows' gradients), runs the ring, and the output
     rows are all-gathered along S (``gather``: the backward takes this
-    rank's rows, with no sum). Returns the whole o."""
+    rank's rows, with no sum). Returns the whole o. Counted in
+    ``ring_attention.calls`` (``ops/kernels.py``)."""
     if q.shape[1] % axis.size:
         raise ValueError(f"sequence {q.shape[1]} not divisible by model={axis.size}")
-    ring_attention_sharded.calls += 1
+    kernels.add("ring_attention.calls")
     o, _ = ring_attention(axis.scatter(q, 1), axis.scatter(k, 1), axis.scatter(v, 1), axis,
                           scale)
     return axis.gather(o, 1)
 
-
-ring_attention_sharded.calls = 0

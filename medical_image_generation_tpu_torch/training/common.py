@@ -101,7 +101,6 @@ from medical_image_generation_tpu_torch.parallel.sharding import (
 from medical_image_generation_tpu_torch.training import checkpoints as ckpt
 from medical_image_generation_tpu_torch.training import plots
 from medical_image_generation_tpu_torch.utils.profiling import (
-    count,
     host_syncs,
     maybe_progress,
     profile_trace,
@@ -213,7 +212,6 @@ class AdamW:
         del copies  # enqueued: the stream orders any reuse of their memory after the kernels
         if self.clip:
             self.last_norm = norm
-        count("adamw_kernel_steps")
         return True
 
     def state(self) -> Dict[str, Any]:

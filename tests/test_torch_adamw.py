@@ -21,8 +21,8 @@ import pytest
 import torch
 
 from medical_image_generation_tpu_torch.ops import adamw as ta
+from medical_image_generation_tpu_torch.ops import kernels as tk
 from medical_image_generation_tpu_torch.training import common as tcommon
-from medical_image_generation_tpu_torch.utils import profiling
 
 
 @pytest.fixture
@@ -30,6 +30,10 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def _opt_launches():
+    return tk.read("sq_norm"), tk.read("adamw_update")
 
 
 def _state(shapes, device, mu_dtype=torch.float32, seed=0):
@@ -167,9 +171,9 @@ def test_plan_copies_a_gradient_of_another_layout_or_dtype(make):
     w = torch.zeros(4, 3, 2, 2, 2).contiguous(memory_format=torch.channels_last_3d)
     plan = ta.Plan([w], [torch.zeros_like(w)], [torch.zeros_like(w)], sms=1)
     g = make(w)
-    before = ta.adamw_update.grad_copies
+    before = tk.read("adamw_update.grad_copies")
     copies = plan.set_grads([g])
-    assert ta.adamw_update.grad_copies - before == 1 and len(copies) == 1
+    assert tk.read("adamw_update.grad_copies") - before == 1 and len(copies) == 1
     c = copies[0]
     assert c.dtype == torch.float32 and c.stride() == w.stride()
     assert plan.tables[0].g[0] == c.data_ptr()
@@ -205,9 +209,8 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing(mu_dtype):
     opt = tcommon.AdamW(params, lambda s: 2e-3, 1.0, 1e-2, mu_dtype=mu_dtype)
     rmu = [torch.zeros_like(p, dtype=mu_dtype) for p in ref]
     rnu = [torch.zeros_like(p) for p in ref]
-    launches = (ta.sq_norm.launches, ta.adamw_update.launches)
+    launches = tk.launches()
     gen = np.random.default_rng(1)
-    profiling.RECORDER.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         for i in range(4):
             gs = [torch.from_numpy(gen.standard_normal(s).astype(np.float32))
@@ -220,8 +223,7 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing(mu_dtype):
             for a, b in zip(params + opt.mu + opt.nu, ref + rmu + rnu):
                 assert torch.equal(a, b)
     assert opt._plan is None and opt.last_norm.device.type == "cpu"
-    assert (ta.sq_norm.launches, ta.adamw_update.launches) == launches
-    assert "adamw_kernel_steps" not in profiling.RECORDER.counters
+    assert tk.launches() == launches
 
 
 # ------------------------------------------------------------------ on GPU
@@ -271,18 +273,18 @@ def test_kernels_match_plain_over_five_steps_on_gpu(cuda, mu_dtype, wd):
     the plain one by its summation order (rtol 1e-5); driven by the
     kernels' norm, the plain step gives the same params, mu and nu (rtol
     1e-6). At most 4 launches a step (the scratch's zero fill, sq_norm,
-    adamw_update), no per-parameter temporary, the norm a 0-d device
-    tensor, and ``adamw_kernel_steps`` counts the steps."""
+    adamw_update), one launch of each kernel a step, no per-parameter
+    temporary, and the norm a 0-d device tensor."""
     from torch.profiler import ProfilerActivity, profile
 
     params, mu, nu = _gpu_state(cuda, mu_dtype)
     rp, rmu, rnu = [p.clone() for p in params], [m.clone() for m in mu], [v.clone() for v in nu]
     opt = tcommon.AdamW(params, lambda s: 2e-3 * (1 + s), 1.0, wd, mu_dtype=mu_dtype)
     ref = tcommon.AdamW(rp, lambda s: 2e-3 * (1 + s), 1.0, wd, mu_dtype=mu_dtype)
-    profiling.RECORDER.reset()
+    first = _opt_launches()
     for step in range(5):
         grads = _grads(params, step)
-        before = (ta.sq_norm.launches, ta.adamw_update.launches)
+        before = _opt_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -296,7 +298,7 @@ def test_kernels_match_plain_over_five_steps_on_gpu(cuda, mu_dtype, wd):
         # per-parameter temporary (the largest tensor here is 48 KB)
         assert torch.cuda.max_memory_allocated() - held <= 8192
         assert torch.cuda.memory_allocated() - held <= 512  # the scratch is freed
-        assert (ta.sq_norm.launches - before[0], ta.adamw_update.launches - before[1]) == (1, 1)
+        assert tuple(n - b for n, b in zip(_opt_launches(), before)) == (1, 1)
         norm = opt.last_norm
         assert norm.dim() == 0 and norm.is_cuda and norm.dtype == torch.float32
         plain_norm = ta.global_norm([torch.zeros_like(p) if g is None else g
@@ -305,7 +307,7 @@ def test_kernels_match_plain_over_five_steps_on_gpu(cuda, mu_dtype, wd):
         _plain_step(rp, rmu, rnu, grads, norm, ref._hyper())
         _assert_close(params + opt.mu + opt.nu, rp + rmu + rnu, 1e-6)
         assert (float(norm) > 1.0) == (step % 2 == 0)
-    assert profiling.RECORDER.counters.get("adamw_kernel_steps") == 5
+    assert tuple(n - b for n, b in zip(_opt_launches(), first)) == (5, 5)
     assert opt.count == 5
 
 
@@ -378,9 +380,9 @@ def test_a_list_past_one_table_takes_two_launches_a_pass_on_gpu(cuda):
     ref = tcommon.AdamW(rp, lambda s: 1e-3, 1.0, 1e-2, mu_dtype=torch.bfloat16)
     gen = torch.Generator(device=cuda).manual_seed(3)
     grads = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
-    before = (ta.sq_norm.launches, ta.adamw_update.launches)
+    before = _opt_launches()
     opt.step(grads)
-    assert (ta.sq_norm.launches - before[0], ta.adamw_update.launches - before[1]) == (2, 2)
+    assert tuple(n - b for n, b in zip(_opt_launches(), before)) == (2, 2)
     torch.testing.assert_close(opt.last_norm, ta.global_norm(grads), rtol=1e-5, atol=0)
     _plain_step(rp, rmu, rnu, grads, opt.last_norm, ref._hyper())
     _assert_close(params + opt.mu + opt.nu, rp + rmu + rnu, 1e-6)
@@ -429,9 +431,9 @@ def test_gradients_of_another_layout_or_dtype_on_gpu(cuda):
     grads = _grads(params, 0)
     grads[0] = grads[0].contiguous()  # params[0] is channels-last
     grads[4] = grads[4].to(torch.bfloat16)
-    before = ta.adamw_update.grad_copies
+    before = tk.read("adamw_update.grad_copies")
     opt.step(grads)
-    assert ta.adamw_update.grad_copies - before == 2
+    assert tk.read("adamw_update.grad_copies") - before == 2
     _plain_step(rp, rmu, rnu, [g if g is None else g.float() for g in grads], opt.last_norm,
                 ref._hyper())
     _assert_close(params + opt.mu + opt.nu, rp + rmu + rnu, 1e-6)

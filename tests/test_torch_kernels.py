@@ -13,6 +13,7 @@ import torch
 
 from medical_image_generation_tpu_torch.ops import flash_attention as tfa
 from medical_image_generation_tpu_torch.ops import groupnorm as tgn
+from medical_image_generation_tpu_torch.ops import kernels as tk
 
 
 def nd(shape, seed=0, scale=1.0, shift=0.0):
@@ -24,6 +25,19 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+FLASH_PASSES = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv")
+
+
+def _flash(dtype, D, passes=FLASH_PASSES):
+    """The table entries the flash passes take at (dtype, D): the narrow
+    design's where ``takes_narrow`` holds."""
+    return tuple(p + ("_narrow" if tfa.takes_narrow(dtype, D) else "") for p in passes)
+
+
+def _reads(names):
+    return tuple(tk.read(n) for n in names)
 
 
 # (rtol, atol) on o: fp32 summation order only; bf16 one ulp of o plus P
@@ -46,10 +60,11 @@ FLASH_SHAPES = [(2, 64, 2, 8), (1, 1000, 1, 96), (2, 512, 1, 768), (2, 4096, 1, 
 @pytest.mark.parametrize("B,S,H,D", FLASH_SHAPES)
 def test_flash_kernel_matches_plain_on_gpu(cuda, B, S, H, D, dtype):
     q, k, v = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, dtype) for s in range(3))
-    before = tfa.flash_attention.launches
+    (fwd,) = _flash(dtype, D, FLASH_PASSES[:1])
+    before = tk.read(fwd)
     o, lse = tfa.flash_attention(q, k, v, D ** -0.5)
     ro, rlse = tfa.flash_attention_plain(q, k, v, D ** -0.5)
-    assert tfa.flash_attention.launches == before + 1
+    assert tk.read(fwd) == before + 1
     rtol, atol = FLASH_TOL[dtype]
     torch.testing.assert_close(o.float(), ro.float(), rtol=rtol, atol=atol)
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
@@ -64,6 +79,7 @@ FLASH_BWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2**-7, 2**-8)}
 # in another order can flip its rounding); fp32 summation order only.
 GN_BWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2**-7, 1e-5)}
 GN_PARAM_GRAD_TOL = 1e-4  # dscale, dbias: max abs error / max |ref|, fp32 sums
+GN_BWD = ("gn_bwd_stats", "gn_bwd_apply")
 
 
 def _close(got, ref, rtol, atol_rel):
@@ -80,11 +96,11 @@ def test_flash_backward_kernels_match_plain_on_gpu(cuda, B, S, H, D, dtype):
     q, k, v, do = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, dtype) for s in range(4))
     scale = D ** -0.5
     o, lse = tfa.flash_attention_plain(q, k, v, scale)
-    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkdv.launches)
+    names = _flash(dtype, D, FLASH_PASSES[1:])
+    before = _reads(names)
     got = tfa.flash_attention_bwd(q, k, v, o, lse, do, scale)
     ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
-    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkdv.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert _reads(names) == (before[0] + 1, before[1] + 1)
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.dtype == dtype
         _close(g, r, *FLASH_BWD_TOL[dtype])
@@ -127,11 +143,11 @@ def test_flash_strided_views_on_gpu(cuda, kind):
     q, k, v = _views(kind, B, S, H, D, cuda, torch.bfloat16)
     do = torch.from_numpy(nd((B, S, H, D), 42)).to(cuda, torch.bfloat16)
     scale = D ** -0.5
-    counters = (tfa.flash_attention, tfa.flash_bwd_dq, tfa.flash_bwd_dkdv)
-    before = tuple(c.input_copies for c in counters)
+    counters = [f"{n}.input_copies" for n in _flash(torch.bfloat16, D)]
+    before = _reads(counters)
     o, lse = tfa.flash_attention(q, k, v, scale)
     got = tfa.flash_attention_bwd(q, k, v, o, lse, do, scale)
-    after = tuple(c.input_copies for c in counters)
+    after = _reads(counters)
     expect = (3, 5, 4) if kind == "misaligned" else (0, 0, 0)
     assert tuple(a - b for a, b in zip(after, before)) == expect
     ro, rlse = tfa.flash_attention_plain(q, k, v, scale)
@@ -166,13 +182,11 @@ def test_flash_function_backward_launches_kernels_on_gpu(cuda):
     """The autograd Function on CUDA: forward kernel, then both backward kernels."""
     q, k, v = (torch.from_numpy(nd((2, 128, 1, 64), s)).to(cuda, torch.bfloat16)
                .requires_grad_() for s in range(3))
-    before = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
-              tfa.flash_bwd_dkdv.launches)
+    names = _flash(torch.bfloat16, 64)
+    before = _reads(names)
     o, _ = tfa.flash_attention(q, k, v, 0.125)
     o.float().square().sum().backward()
-    after = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
-             tfa.flash_bwd_dkdv.launches)
-    assert after == tuple(b + 1 for b in before)
+    assert _reads(names) == tuple(b + 1 for b in before)
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
@@ -187,11 +201,10 @@ def test_groupnorm_backward_kernels_match_plain_on_gpu(cuda, B, M, C, G, dtype, 
     bias = torch.from_numpy(nd((C,), 24, 0.1)).to(cuda)
     stats = tgn.channel_stats_plain(x)
     A, b = tgn.fold_affine_plain(stats, w, bias, G, M, 1e-6)
-    before = (tgn.gn_bwd_stats.launches, tgn.gn_bwd_apply.launches)
+    before = _reads(GN_BWD)
     coef, dscale, dbias = tgn.gn_bwd_stats(x, g, A, b, stats, w, G, 1e-6, silu)
     dx = tgn.gn_bwd_apply(x, g, A, b, coef, silu)
-    assert (tgn.gn_bwd_stats.launches, tgn.gn_bwd_apply.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert _reads(GN_BWD) == (before[0] + 1, before[1] + 1)
     rdx, rds, rdb = tgn.group_norm_bwd_plain(x, g, stats, w, bias, G, 1e-6, silu)
     _close(dx, rdx, *GN_BWD_TOL[dtype])
     for got, ref in ((dscale, rds), (dbias, rdb)):
@@ -204,10 +217,9 @@ def test_group_norm_function_backward_launches_kernels_on_gpu(cuda):
     x = x.contiguous(memory_format=torch.channels_last_3d).requires_grad_()
     w = torch.ones(16, device=cuda, requires_grad=True)
     b = torch.zeros(16, device=cuda, requires_grad=True)
-    before = (tgn.gn_bwd_stats.launches, tgn.gn_bwd_apply.launches)
+    before = _reads(GN_BWD)
     tgn.group_norm(x, w, b, 4, 1e-6, True).float().square().sum().backward()
-    assert (tgn.gn_bwd_stats.launches, tgn.gn_bwd_apply.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert _reads(GN_BWD) == (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(t.grad).all() for t in (x, w, b))
 
 
@@ -227,14 +239,15 @@ def test_groupnorm_backward_is_bit_identical_across_runs_on_gpu(cuda, B, M, C, G
     bias = torch.from_numpy(nd((C,), 27, 0.1)).to(cuda)
     stats = tgn.channel_stats_plain(x)
     A, b = tgn.fold_affine_plain(stats, w, bias, G, M, 1e-6)
-    vec = (tgn.gn_bwd_stats.vector_launches, tgn.gn_bwd_apply.vector_launches)
+    vec_names = [f"{n}.vector_launches" for n in GN_BWD]
+    vec = _reads(vec_names)
     runs = []
     for _ in range(2):
         coef, dscale, dbias = tgn.gn_bwd_stats(x, g, A, b, stats, w, G, 1e-6, True)
         runs.append((coef, dscale, dbias, tgn.gn_bwd_apply(x, g, A, b, coef, True)))
     wide = C % (16 // x.element_size()) == 0 and offset == 0
-    assert (tgn.gn_bwd_stats.vector_launches - vec[0],
-            tgn.gn_bwd_apply.vector_launches - vec[1]) == ((2, 2) if wide else (0, 0))
+    assert tuple(n - v for n, v in zip(_reads(vec_names), vec)) == \
+        ((2, 2) if wide else (0, 0))
     assert all(torch.equal(a_, b_) for a_, b_ in zip(*runs))
     rdx, rds, rdb = tgn.group_norm_bwd_plain(x, g, stats, w, bias, G, 1e-6, True)
     _close(runs[0][3], rdx, *GN_BWD_TOL[dtype])
@@ -261,9 +274,9 @@ def test_groupnorm_kernels_match_plain_on_gpu(cuda, B, M, C, G, dtype):
     x = torch.from_numpy(nd((B, M, C), 11, 1.3, 0.7)).to(cuda, dtype)
     w = torch.from_numpy(nd((C,), 12, 0.1, 1.0)).to(cuda)
     bias = torch.from_numpy(nd((C,), 13, 0.1)).to(cuda)
-    vec = tgn.stats_fold.vector_launches
+    vec = tk.read("gn_stats_fold.vector_launches")
     st, A, b = tgn.stats_fold(x, w, bias, G, 1e-6)
-    assert tgn.stats_fold.vector_launches == vec + 1  # C allows 16-byte loads
+    assert tk.read("gn_stats_fold.vector_launches") == vec + 1  # C allows 16-byte loads
     _stats_fold_close((st, A, b), tgn.stats_fold_plain(x, w, bias, G, 1e-6))
     for silu in (False, True):
         y, ry = tgn.affine_act(x, A, b, silu), tgn.affine_act_plain(x, A, b, silu)
@@ -286,9 +299,9 @@ def test_channel_stats_is_bit_identical_across_runs_on_gpu(cuda, B, M, C, G, off
     x = flat[offset:].view(B, M, C)
     w = torch.from_numpy(nd((C,), 15, 0.1, 1.0)).to(cuda)
     bias = torch.from_numpy(nd((C,), 16, 0.1)).to(cuda)
-    vec = tgn.stats_fold.vector_launches
+    vec = tk.read("gn_stats_fold.vector_launches")
     first, second = (tgn.stats_fold(x, w, bias, G, 1e-6) for _ in range(2))
-    assert tgn.stats_fold.vector_launches - vec == (2 if tgn._vec(x, C) else 0)
+    assert tk.read("gn_stats_fold.vector_launches") - vec == (2 if tgn._vec(x, C) else 0)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     _stats_fold_close(first, tgn.stats_fold_plain(x, w, bias, G, 1e-6))
 
@@ -299,11 +312,11 @@ def test_group_norm_forward_is_two_wrapper_launches_on_gpu(cuda):
     and fold) and one affine_act launch."""
     x = torch.from_numpy(nd((2, 32, 4, 4, 4), 31)).to(cuda, torch.bfloat16)
     x = x.contiguous(memory_format=torch.channels_last_3d)
-    before = (tgn.stats_fold.launches, tgn.affine_act.launches)
+    before = _reads(("gn_stats_fold", "gn_affine_act"))
     with torch.no_grad():
         y = tgn.group_norm(x, torch.ones(32, device=cuda), torch.zeros(32, device=cuda), 8,
                            1e-6, True)
-    assert (tgn.stats_fold.launches, tgn.affine_act.launches) == (before[0] + 1, before[1] + 1)
+    assert _reads(("gn_stats_fold", "gn_affine_act")) == (before[0] + 1, before[1] + 1)
     assert torch.isfinite(y).all()
 
 
@@ -398,9 +411,9 @@ def test_group_norm_under_remat_on_gpu(cuda, policy):
 
     def run(remat):
         y = remat_call(blk, x, remat)
-        n = tgn.stats_fold.launches
+        n = tk.read("gn_stats_fold")
         grads = torch.autograd.grad(y.float().square().sum(), [x, *blk.parameters()])
-        return y, grads, tgn.stats_fold.launches - n
+        return y, grads, tk.read("gn_stats_fold") - n
 
     y0, g0, n0 = run(None)
     y1, g1, n1 = run(policy)
@@ -514,8 +527,8 @@ def test_flash_kernels_at_another_key_length_match_plain_on_gpu(cuda, B, Sq, Sk,
     q, do = (torch.from_numpy(nd((B, Sq, H, D), s)).to(cuda, dtype) for s in (0, 3))
     k, v = (torch.from_numpy(nd((B, Sk, H, D), s)).to(cuda, dtype) for s in (1, 2))
     scale = D ** -0.5
-    before = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
-              tfa.flash_bwd_dkdv.launches)
+    names = _flash(dtype, D)
+    before = _reads(names)
     o, lse = tfa.flash_attention(q, k, v, scale)
     ro, rlse = tfa.flash_attention_plain(q, k, v, scale)
     p_bound = _p_rounding_bound(q, k, v, scale) if dtype == torch.bfloat16 else 0.0
@@ -524,8 +537,7 @@ def test_flash_kernels_at_another_key_length_match_plain_on_gpu(cuda, B, Sq, Sk,
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
     got = tfa.flash_attention_bwd(q, k, v, ro, rlse, do, scale)
     ref = tfa.flash_attention_bwd_plain(q, k, v, ro, rlse, do, scale)
-    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
-            tfa.flash_bwd_dkdv.launches) == tuple(n + 1 for n in before)
+    assert _reads(names) == tuple(n + 1 for n in before)
     bounds = _single_key_bounds(q, k, v, do, scale) if Sk == 1 else (None, None)
     for g, r, t, b in zip(got, ref, (q, k, v), (*bounds, None)):
         assert g.shape == t.shape and g.dtype == dtype
@@ -545,12 +557,11 @@ def test_flash_takes_keys_of_another_length_on_gpu(cuda, monkeypatch):
     ro, _ = tfa.flash_attention_plain(q, k, v, 8 ** -0.5)
     monkeypatch.setattr(tfa, "flash_attention_plain",
                         lambda *a, **kw: pytest.fail("the plain attention ran on the card"))
-    before = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
-              tfa.flash_bwd_dkdv.launches)
+    names = _flash(q.dtype, 8)
+    before = _reads(names)
     o, _ = tfa.flash_attention(q, k, v, 8 ** -0.5)
     o.sum().backward()
-    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
-            tfa.flash_bwd_dkdv.launches) == tuple(n + 1 for n in before)
+    assert _reads(names) == tuple(n + 1 for n in before)
     torch.testing.assert_close(o, ro, rtol=0.0, atol=1e-5)
     assert k.grad.shape == k.shape and v.grad.shape == v.shape
 
@@ -591,8 +602,8 @@ def test_narrow_flash_kernels_match_plain_on_gpu(cuda, D, Sk, layout):
     q, k, v = _narrow_inputs(layout, B, Sq, Sk, H, D, cuda)
     do = torch.from_numpy(nd((B, Sq, H, D), 66)).to(cuda, torch.bfloat16)
     scale = D ** -0.5
-    counters = (tfa.flash_attention, tfa.flash_bwd_dq, tfa.flash_bwd_dkdv)
-    before = tuple(c.narrow_launches for c in counters)
+    counters = [f"{n}_narrow" for n in FLASH_PASSES]
+    before = _reads(counters)
     o, lse = tfa.flash_attention(q, k, v, scale)
     ro, rlse = tfa.flash_attention_plain(q, k, v, scale)
     rtol, atol = FLASH_TOL[torch.bfloat16]
@@ -601,7 +612,7 @@ def test_narrow_flash_kernels_match_plain_on_gpu(cuda, D, Sk, layout):
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
     dq, delta = tfa.flash_bwd_dq(q, k, v, ro, rlse, do, scale)
     dk, dv = tfa.flash_bwd_dkdv(q, k, v, do, rlse, delta, scale)
-    assert tuple(c.narrow_launches for c in counters) == tuple(n + 1 for n in before)
+    assert _reads(counters) == tuple(n + 1 for n in before)
     r_dq, r_delta = tfa.flash_bwd_dq_plain(q, k, v, ro, rlse, do, scale)
     r_dk, r_dv = tfa.flash_bwd_dkdv_plain(q, k, v, do, rlse, r_delta, scale)
     _close(delta, r_delta, 1e-5, 1e-5)
@@ -632,32 +643,54 @@ def test_takes_narrow_by_the_padded_head_dim(dtype, D, narrow):
     assert tfa.takes_narrow(torch.bfloat16, D) == (Dp <= tfa.NARROW_MAX_D)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "flash_bwd_dq", "flash_bwd_dkdv"])
+def _counters():
+    return {n: tk.read(n) for n in (*tk.KERNELS, *tk.SIDE_COUNTS)}
+
+
+def _plain_call(name):
+    """A CPU call of the wrapper that launches kernel ``name`` on CUDA, with
+    inputs that pick that kernel there."""
+    gen = torch.Generator().manual_seed(0)
+    if name.startswith("flash"):
+        dtype = torch.bfloat16 if name.endswith("_narrow") else torch.float32
+        assert name in _flash(dtype, 32)
+        q, k, v, do = (torch.randn((1, 16, 2, 32), generator=gen).to(dtype) for _ in range(4))
+        o, lse = tfa.flash_attention(q, k, v, 32 ** -0.5)
+        _, delta = tfa.flash_bwd_dq(q, k, v, o, lse, do, 32 ** -0.5)
+        tfa.flash_bwd_dkdv(q, k, v, do, lse, delta, 32 ** -0.5)
+    elif name.startswith("gn_"):
+        x = torch.randn((2, 8, 2, 4, 4), generator=gen)
+        x = x.contiguous(memory_format=torch.channels_last_3d).requires_grad_()
+        w, b = torch.ones(8, requires_grad=True), torch.zeros(8, requires_grad=True)
+        tgn.group_norm(x, w, b, 4, 1e-6, True).square().sum().backward()
+    else:
+        from medical_image_generation_tpu_torch.training import common
+
+        opt = common.AdamW([torch.randn((5, 3), generator=gen)], lambda s: 1e-3, 1.0, 1e-2)
+        opt.step([torch.randn((5, 3), generator=gen)])
+
+
+@pytest.mark.parametrize("name", list(tk.KERNELS))
 def test_narrow_counters_are_left_alone_by_the_plain_path(name):
-    """Each wrapper has a narrow_launches counter beside launches; on the CPU
-    (the plain versions) neither moves."""
-    fn = getattr(tfa, name)
-    before = (fn.launches, fn.narrow_launches)
-    assert isinstance(before[1], int)
-    q, k, v, do = (torch.from_numpy(nd((1, 16, 2, 32), s)).to(torch.bfloat16) for s in range(4))
-    o, lse = tfa.flash_attention(q, k, v, 32 ** -0.5)
-    _, delta = tfa.flash_bwd_dq(q, k, v, o, lse, do, 32 ** -0.5)
-    tfa.flash_bwd_dkdv(q, k, v, do, lse, delta, 32 ** -0.5)
-    assert (fn.launches, fn.narrow_launches) == before
+    """On the CPU the wrapper of every kernel of the table (the flash passes
+    at the dtype that picks the entry's design, GroupNorm forward and
+    backward, a clipped AdamW step) runs its plain version: no counter of the
+    table moves, launches nor side counts."""
+    before = _counters()
+    _plain_call(name)
+    assert _counters() == before
 
 
 def test_narrow_counters_start_at_zero():
-    """A fresh process imports the wrappers with every counter at 0, and the
-    kernel counter table lists the narrow kernels beside the wide ones."""
+    """A fresh process imports the kernel table and its wrappers with every
+    counter at 0: each kernel's launches and every side count."""
     import subprocess
     import sys
 
-    code = ("from medical_image_generation_tpu_torch.bench import kernel_counters\n"
-            "c = kernel_counters()\n"
-            "names = [k for k in c if k.startswith('flash')]\n"
-            "print(names, [c[k].launches for k in names])\n")
+    code = ("from medical_image_generation_tpu_torch.ops import adamw, flash_attention, "
+            "groupnorm, kernels, ring_attention\n"
+            "print(sorted({kernels.read(n) for n in (*kernels.KERNELS, *kernels.SIDE_COUNTS)}), "
+            "len(kernels.KERNELS), len(kernels.SIDE_COUNTS))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, timeout=300).stdout.strip().splitlines()[-1]
-    names = ["flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkdv",
-             "flash_attn_fwd_narrow", "flash_attn_bwd_dq_narrow", "flash_attn_bwd_dkdv_narrow"]
-    assert out == f"{names} {[0] * 6}"
+    assert out == f"[0] 12 {len(tk.SIDE_COUNTS)}"

@@ -20,6 +20,7 @@ from medical_image_generation_tpu_torch.models import blocks as tblocks
 from medical_image_generation_tpu_torch.ops import attention as tattn
 from medical_image_generation_tpu_torch.ops import flash_attention as tfa
 from medical_image_generation_tpu_torch.ops import groupnorm as tgn
+from medical_image_generation_tpu_torch.ops import kernels
 from medical_image_generation_tpu_torch.training import common as tcommon
 from torch_parity import internal, nd
 
@@ -143,9 +144,9 @@ def test_gn_bwd_takes_a_non_channels_last_gradient():
     w, b = torch.ones(8, requires_grad=True), torch.zeros(8, requires_grad=True)
     y = tgn.group_norm(x, w, b, 2, 1e-6, True)
     gy = _t(nd((1, 8, 3, 4, 5), 51))  # NCDHW-contiguous
-    before = tgn.gn_bwd_apply.grad_copies
+    before = kernels.read("gn_bwd_apply.grad_copies")
     got = torch.autograd.grad(y, (x, w, b), gy, retain_graph=True)
-    assert tgn.gn_bwd_apply.grad_copies == before + 1
+    assert kernels.read("gn_bwd_apply.grad_copies") == before + 1
     ref = torch.autograd.grad(y, (x, w, b), gy.contiguous(memory_format=torch.channels_last_3d))
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r)

@@ -108,7 +108,7 @@ def _ddpm_step(dd, mesh):
     clipped gradient's norm, the ring's calls, the sharding layout and local
     shapes, and the gathered params and Adam first moments."""
     from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
-    from medical_image_generation_tpu_torch.ops import ring_attention
+    from medical_image_generation_tpu_torch.ops import kernels
     from medical_image_generation_tpu_torch.parallel import mesh as pmesh
     from medical_image_generation_tpu_torch.training.train_ddpm import DDPMTrainer
 
@@ -117,9 +117,9 @@ def _ddpm_step(dd, mesh):
     unet.load_state_dict(_tensors(dd["unet"]))
     tr = DDPMTrainer(dd["cfg"], unet, device="cpu", mesh=mesh)
     off, cnt = pmesh.data_axis_rows(mesh, dd["x"].shape[0])
-    before = ring_attention.ring_attention_sharded.calls
+    before = kernels.read("ring_attention.calls")
     loss = float(tr.train_step(torch.from_numpy(dd["x"][off:off + cnt]), draws=dd["draws"]))
-    calls = ring_attention.ring_attention_sharded.calls - before
+    calls = kernels.read("ring_attention.calls") - before
     payload = tr.checkpoint_payload(0, loss)
     return dict(loss=loss, norm=float(tr.opt.last_norm), ring_calls=calls,
                 layout=dict(tr.layout),
@@ -213,7 +213,7 @@ def ring_checks(rank, world, inp):
     the ring inside the tiny 2D U-Net against the same U-Net without it, and
     a tiny DDPM step on the data 2 x model 2 mesh."""
     from medical_image_generation_tpu_torch.models.diffusion_unet import DiffusionUNet
-    from medical_image_generation_tpu_torch.ops import attention, ring_attention
+    from medical_image_generation_tpu_torch.ops import attention, kernels, ring_attention
     from medical_image_generation_tpu_torch.ops.flash_attention import flash_attention_plain
     from medical_image_generation_tpu_torch.parallel.comm import AxisGroup
     from medical_image_generation_tpu_torch.parallel.mesh import get_mesh
@@ -237,13 +237,13 @@ def ring_checks(rank, world, inp):
     calls = {}
 
     def counted(label, mesh, *qkv):
-        before = ring_attention.ring_attention_sharded.calls
+        before = kernels.read("ring_attention.calls")
         if mesh is None:
             o = attention.dot_product_attention(*qkv)
         else:
             with mesh:
                 o = attention.dot_product_attention(*qkv)
-        calls[label] = ring_attention.ring_attention_sharded.calls - before
+        calls[label] = kernels.read("ring_attention.calls") - before
         return o
 
     o_ring = counted("engaged", meshes[2], a, b, c)
@@ -264,11 +264,11 @@ def ring_checks(rank, world, inp):
     def grads(gate):
         os.environ["MEDIMGEN_RING_MIN_SEQ"] = str(gate)
         unet.zero_grad(set_to_none=True)
-        before = ring_attention.ring_attention_sharded.calls
+        before = kernels.read("ring_attention.calls")
         with meshes[2]:
             torch.mean(unet(x, t) ** 2).backward()
         return ({n: p.grad.clone() for n, p in unet.named_parameters()},
-                ring_attention.ring_attention_sharded.calls - before)
+                kernels.read("ring_attention.calls") - before)
 
     g_ring, n_ring = grads(32)
     g_ref, n_ref = grads(1 << 30)
