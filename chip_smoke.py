@@ -8,9 +8,10 @@ Phases (any failure raises and exits non-zero):
 
 1. build        -- compile every kernel in medical_image_generation_tpu_torch/csrc
                    with nvcc (one process per source, in parallel), print each
-                   instantiation's registers and spills, and check in the SASS
-                   (cuobjdump) that every bf16 flash forward, dQ and dK/dV
-                   kernel issues HGMMA (wgmma).
+                   instantiation's registers and spills and ptxas's notes of
+                   serialized wgmmas (none allowed in the bf16 dK/dV pass),
+                   and check in the SASS (cuobjdump) that every bf16 flash
+                   forward, dQ and dK/dV kernel issues HGMMA (wgmma).
 2. kernels      -- each forward kernel against its plain PyTorch version on
                    CUDA tensors at the flagship path's shapes, bf16 and fp32:
                    max error against a stated tolerance, and median kernel /
@@ -23,7 +24,10 @@ Phases (any failure raises and exits non-zero):
                    GroupNorm(+SiLU) backward stats and apply); dQ (with
                    delta), dK/dV and both GroupNorm backward passes must give
                    the same bits twice, and the GroupNorm backward must take
-                   its 16-byte loads at every flagship shape.
+                   its 16-byte loads at every flagship shape. The flash
+                   passes also at BWD_SHAPES (bf16: the 3D U-Net's sites at
+                   the benchmark's batch, the KL-VAE's D = 128), with the
+                   dK/dV pass's device ms.
 4. parity       -- the tiny 3D config (seeded random weights, fp32, TF32 off)
                    through one U-Net forward and one decode, and through one
                    whole train step from the same weights and random draws,
@@ -222,8 +226,9 @@ Phases (any failure raises and exits non-zero):
                    launches held). Then a context of its own length and
                    width: the flash forward, dQ and dK/dV at every
                    CONTEXT_PAIRS (q shape, Sk) against their plain versions
-                   (bf16; fp32 at CONTEXT_F32), with ms, the bound, plain ms
-                   and SDPA's forward and forward + backward; the tiny fp32
+                   (bf16; fp32 at CONTEXT_F32), the backward the same bits
+                   twice, with ms, the bound, plain ms and SDPA's forward
+                   and forward + backward; the tiny fp32
                    U-Net built with context_dim 12, CPU vs GPU, forward and
                    backward with a (2, 7, 12) context; and the flagship-width
                    U-Net with context_dim 768 (bf16, batch 2 of the 32^3 x 8
@@ -371,6 +376,9 @@ GN_SHAPES = [  # (M, C, groups) of every GroupNorm on the flagship and MAISI pat
     (32768, 128, 32), (32768, 384, 32)]
 FLASH_SHAPES = [(2, 4096, 1, 512), (2, 512, 1, 768), (2, 1000, 3, 96)]  # (B, S, H, D)
 FLAGSHIP_FLASH = FLASH_SHAPES[:2]  # the U-Net's two attention sites
+# the backward alone, bf16: the 3D U-Net's two sites at the benchmark's batch
+# of 4 and the KL-VAE's single-head attention at D = 128
+BWD_SHAPES = [(4, 4096, 1, 512), (4, 512, 1, 768), (1, 4096, 1, 128)]
 FLASH_TILE = 32  # keys a tile of the forward kernel, queries a tile of the dK/dV kernel
 DQ_TILE = 16     # keys a tile of the dQ kernel at the flagship sites (its smallest tile)
 
@@ -417,6 +425,14 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # ptxas's "Potential Performance Loss" notes (C7510-C7519): wgmmas it
+    # serialized; the pipelined dK/dV pass must compile without them
+    serialized = [line.strip() for text in logs.values() for line in text.splitlines()
+                  if "Potential Performance Loss" in line]
+    for line in serialized:
+        log(f"[build] {line}")
+    if any("flash_bwd_dkdv_bf16" in line for line in serialized):
+        raise AssertionError("ptxas serializes the wgmmas of the bf16 dK/dV pass")
     check_hgmma(_build)
 
 
@@ -620,8 +636,9 @@ def phase_kernels_bwd():
     rec = {}
 
     # ---- flash backward: dQ pass, then dK/dV pass
-    for (B, S, H, D) in FLASH_SHAPES:
-        for dt in (torch.bfloat16, torch.float32):
+    for (B, S, H, D) in FLASH_SHAPES + BWD_SHAPES:
+        for dt in ((torch.bfloat16, torch.float32) if (B, S, H, D) in FLASH_SHAPES
+                   else (torch.bfloat16,)):
             q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
                            for _ in range(4))
             scale = D ** -0.5
@@ -664,6 +681,10 @@ def phase_kernels_bwd():
                 isz = q.element_size()
                 ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, scale))
                 ms_kv = time_ms(lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale))
+                dev = [x for n_, x in _kernel_device_ms(
+                    lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, scale)).items()
+                    if kernel_table.owner(n_) == "flash_attn_bwd_dkdv"]
+                dev_kv = sum(m for m, _ in dev) / max(1, sum(c for _, c in dev))
                 plain_dq = time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, o, lse, do, scale), 1, 5)
                 plain_kv = time_ms(lambda: fa.flash_bwd_dkdv_plain(q, k, v, do, lse, delta,
                                                                     scale), 1, 5)
@@ -685,12 +706,13 @@ def phase_kernels_bwd():
                 fl = B * H * S * S * D
                 line += (f" | dq ms={ms_dq:.4f} plain_ms={plain_dq:.4f} bound_ms={b_dq[0]:.4f}"
                          f" ({b_dq[1]}; {6 * fl / ms_dq / 1e9:.1f} TFLOP/s) | dkdv ms={ms_kv:.4f}"
-                         f" plain_ms={plain_kv:.4f} bound_ms={b_kv[0]:.4f} ({b_kv[1]}; "
+                         f" (device {dev_kv:.4f}) plain_ms={plain_kv:.4f} bound_ms={b_kv[0]:.4f}"
+                         f" ({b_kv[1]}; "
                          f"{8 * fl / ms_kv / 1e9:.1f} TFLOP/s) | pair ms={ms_dq + ms_kv:.4f} "
                          f"bound_ms={b_all[0]:.4f} ({b_all[1]}, 5 S^2 D matmuls) | SDPA "
                          f"backward (fwd+bwd - fwd) ms={lib_ms:.4f} (pair "
                          f"{(ms_dq + ms_kv) / lib_ms:.2f}x its time), top kernel {backend!r}")
-                if (B, S, H, D) in FLAGSHIP_FLASH:
+                if (B, S, H, D) in FLAGSHIP_FLASH + BWD_SHAPES:
                     for name, ms, pl, b_, e, f_ in (
                             ("flash_attn_bwd_dq", ms_dq, plain_dq, b_dq, res["dq"][1], 6 * fl),
                             ("flash_attn_bwd_dkdv", ms_kv, plain_kv, b_kv,
@@ -4217,10 +4239,11 @@ def _cond_flagship(gpu):
 
 # (q shape (B, Sq, H, D), Sk): a context of 1 and 77 tokens at the 3D U-Net's
 # two sites and 77 at the 2D level-1 site, keys longer than the queries at
-# the D = 768 cluster site, and a ragged pair of three heads
+# the D = 768 cluster site, and ragged pairs (no length a multiple of a tile)
+# of three heads, of one head at D = 256 and of two at D = 200
 CONTEXT_PAIRS = [((2, 4096, 1, 512), 1), ((2, 4096, 1, 512), 77), ((2, 512, 1, 768), 1),
                  ((2, 512, 1, 768), 77), ((2, 512, 1, 768), 4096), ((48, 1024, 1, 512), 77),
-                 ((2, 1000, 3, 96), 200)]
+                 ((2, 1000, 3, 96), 200), ((2, 1000, 1, 256), 333), ((3, 77, 2, 200), 1000)]
 CONTEXT_F32 = [((2, 4096, 1, 512), 77), ((2, 1000, 3, 96), 200)]  # also checked in fp32
 CONTEXT_WIDTH = 768  # a text encoder's embedding width (77 tokens) or covariates (1)
 
@@ -4280,9 +4303,9 @@ def _context_case(shape, Sk, dt, gen):
     the bound of rounding P to bf16 (``p_rounding_bound``), the backward
     within FLASH_BWD_TOL, and with one key dq and dk, which vanish, within
     their fp32 rounding bound of 0 (``single_key_bounds``). Also the lse (LSE_TOL), delta, launches,
-    and a skipped key tile caught. With ms, bound, plain ms and SDPA's
-    forward and forward + backward ms in bf16. Returns ({kernel: record},
-    log line)."""
+    a skipped key tile caught, and dq, delta, dk and dv the same bits on a
+    second launch. With ms, bound, plain ms and SDPA's forward and forward +
+    backward ms in bf16. Returns ({kernel: record}, log line)."""
     from medical_image_generation_tpu_torch.ops import flash_attention as fa
 
     B, Sq, H, D = shape
@@ -4298,6 +4321,10 @@ def _context_case(shape, Sk, dt, gen):
     r_dk, r_dv = fa.flash_bwd_dkdv_plain(q, k, v, do, lse_ref, r_delta, scale)
     torch.cuda.synchronize()
     launched = {k_: n - n0[k_] for k_, n in kernel_table.launches().items()}
+    dq2, delta2 = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, scale)
+    dk2, dv2 = fa.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, scale)
+    same = all(torch.equal(a_, b_) for a_, b_ in
+               ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
     p_bound = p_rounding_bound(q, k, v, scale) if dt == torch.bfloat16 else 0.0
     rtol, atol = FLASH_TOL[dt]
     res = {"o": held(o, o_ref, atol + rtol * o_ref.float().abs(), p_bound)}
@@ -4317,7 +4344,7 @@ def _context_case(shape, Sk, dt, gen):
     d_ok, d_err, _ = within(delta, r_delta, 1e-5, 1e-5)
     shapes_ok = dk.shape == dv.shape == k.shape and dq.shape == q.shape
     ok = (all(x[0] for x in res.values()) and lerr <= LSE_TOL and cut_seen and d_ok
-          and shapes_ok and launched["flash_attn_fwd"] == launched["flash_attn_bwd_dq"]
+          and same and shapes_ok and launched["flash_attn_fwd"] == launched["flash_attn_bwd_dq"]
           == launched["flash_attn_bwd_dkdv"] == 1)
     line = (f"q {shape} Sk={Sk} {str(dt)[6:]}: "
             + " ".join(f"max|{nm}-plain|={x[1]:.3e} ({x[2]:.3f} of its allowance"
@@ -4325,7 +4352,8 @@ def _context_case(shape, Sk, dt, gen):
                           else f"; {x[3]:.3f} of FLASH_TOL alone)" if nm == "o" else ")")
                        for nm, x in res.items())
             + f" max|lse-plain|={lerr:.3e} max|delta-plain|={d_err:.3e} one-tile-skip "
-            f"caught={cut_seen}{' (no tile to skip)' if Sk <= FLASH_TILE else ''}; launches "
+            f"caught={cut_seen}{' (no tile to skip)' if Sk <= FLASH_TILE else ''}; backward "
+            f"bit-identical on a rerun={same}; launches "
             f"{ {k_: n for k_, n in launched.items() if n} }")
     err = res["o"][1]
     rec = {}
@@ -4957,7 +4985,7 @@ def main() -> int:
     rec = phase_kernels()
     flash_checked("fwd", FLASH_SHAPES)
     rec.update(phase_kernels_bwd())
-    flash_checked("bwd", FLASH_SHAPES)
+    flash_checked("bwd", FLASH_SHAPES + BWD_SHAPES)
     if "--maisi" in sys.argv[1:]:
         maisi = phase_maisi()
         check_flash_listed()

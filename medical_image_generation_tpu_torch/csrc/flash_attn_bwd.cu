@@ -64,14 +64,20 @@
 // dk/dv kernel (bf16): the dK and dV accumulators of 64 keys are 2 x 64 x D
 // f32 (65,536 registers at D = 512, the whole register file), so the head
 // dim is split across a cluster of n CTAs: CTA rank r owns the 64-column
-// chunks [r*CPC, (r+1)*CPC) (CPC <= 4; n = 2 at D = 512, 3 at D = 768), and
-// its two consumer warpgroups take one accumulator each (at most 128 floats a
-// thread):
+// chunks [r*CPC, (r+1)*CPC) (CPC <= 4; n = 1 up to D = 256, 2 up to 512, 3
+// up to 768), and its two warpgroups take one accumulator each (at
+// most 128 floats a thread).
+// Its bound is the 4 Sq Sk D products it forms (S^T, dP^T, dV, dK): at
+// (2, 4096, 1, 512) 0.139 ms at 989 TFLOP/s.
 //   * warpgroup 0 forms the partial S^T = K_r Q_r^T (64 keys x 32 queries,
 //     wgmma m64n32k16, both operands K-major in shared memory), warpgroup 1
 //     the partial dP^T = V_r dO_r^T. The cluster's n partials of each are
-//     summed in rank order through DSMEM (mbarrier arrivals at cluster scope,
-//     ld.shared::cluster), so every CTA holds the same bits.
+//     summed in rank order, so every CTA holds the same bits. A pair (n = 2)
+//     pushes its partial into the peer's slot (st.async, each 16 bytes
+//     counted on the peer's mbarrier as transaction bytes), so a CTA waits
+//     only for data the peer sent on its own, never for a reply. A cluster of
+//     3 publishes its partial in its own slot and reads the others' (mbarrier
+//     arrivals at cluster scope, then ld.shared::cluster).
 //   * warpgroup 0 turns S^T into P^T = exp2(scale log2e s - lse log2e) in
 //     registers and passes it to warpgroup 1 through shared memory (mbarrier
 //     handoff, double-buffered); warpgroup 1 forms dS^T = scale P^T (dP^T -
@@ -79,29 +85,62 @@
 //     of dV += P^T dO_r and dK += dS^T Q_r (wgmma m64nNk16, N = 64*CPC), with
 //     dO and Q read MN-major from the same shared-memory tiles the scores read
 //     K-major: nothing is transposed.
+//   * a software pipeline hides the exchange: a warpgroup issues tile j+1's
+//     scores before it waits for tile j's partials, and issues tile j's
+//     product behind them, so the tensor cores hold tile j+1's scores and
+//     tile j-1's product while tile j's partials travel and its exponentials
+//     run. Commit groups complete in order: wgmma wait<1> leaves only the
+//     newest pending. Tile j+1's lse and delta are loaded with its scores
+//     and first read a tile later.
+//   * 256 threads, no producer warp: ptxas caps a thread's registers by the
+//     SM sub-partition holding the most warps, 16,384 / (32 x 3) = 168 with a
+//     ninth warp, and compiles under that cap whatever setmaxnreg later
+//     grants; with two warps a sub-partition the cap is 255, and the pipeline
+//     holds 254 at CPC = 4 with no spill. Thread 0 issues the TMA loads of
+//     K_r, V_r and the first Q_r / dO_r tiles (32 queries, a 3-stage ring,
+//     128-byte swizzle, zero fill outside Sq, Sk and D); thread 128 refills
+//     a stage once both warpgroups have released it (warpgroup 1 releases
+//     last: it waits for warpgroup 0's P^T).
 //   * when the grid would not fill the card once (the 512-token sites, a
 //     short context's one or two key blocks), a
 //     cluster also splits the queries in two halves: twice the CTAs, each
 //     walking half the Q/dO tiles; at the end the half-1 CTA leaves its
 //     accumulators in shared memory and the half-0 CTA adds them (DSMEM, in
 //     that order) and stores dk and dv.
-//   * one producer warpgroup (one thread) loads K_r and V_r once and the
-//     Q_r / dO_r tiles (32 queries) through TMA into a 3-stage ring
-//     (128-byte swizzle, zero fill outside Sq, Sk and D); setmaxnreg moves
-//     registers from the producer (40) to the consumers (232).
 //   * fixed summation orders and no atomics: dk and dv are the same bits on
-//     every run. Queries past Sq get p = ds = 0; keys past Sk are not stored
-//     (their rows of the accumulators hold the products of zero-filled K and
-//     V, and touch no other row).
+//     every run, and the same bits as the unpipelined schedule before it
+//     (the same sums in the same order). Queries past Sq get p = ds = 0; keys
+//     past Sk are not stored (their rows of the accumulators hold the
+//     products of zero-filled K and V, and touch no other row).
 // Shared memory at D = 512: K and V 64 KB, three Q/dO stages 96 KB, partial
 // and P slots 48 KB.
+// On an H100 (80GB HBM3, 700 W; CUDA events, 10 launches) at (2, 4096, 1,
+// 512) a tile took ~9,000 cycles in the unpipelined schedule (1.33 ms): with
+// no exchange 0.86 ms, no lse/delta loads 1.08, no P handoff 1.25, none of
+// the three 0.57. This design takes 0.44 ms (3.2x its bound), (48, 1024, 1,
+// 512) 0.72 from 2.07; the issue of a tile's 16 score wgmmas, which waits
+// for the tensor cores, is its largest part (~1,450 of ~3,500 cycles before
+// the last fix). ptxas reports (C7514) when it serializes wgmmas because it
+// cannot prove a group retired: the wait after the loop sat in a branch,
+// and with it this design took 0.51 ms.
+// Tried on the card and dropped (ms at (2, 4096, 1, 512)): the pipeline with
+// a producer warp (288 threads, capped at 168 registers: 588 bytes of
+// spills) 1.51, with the old producer warpgroup and setmaxnreg 1.78; lse and
+// delta converted as soon as loaded (a tile then waited ~1,300 cycles for
+// the loads) 0.88; a pair that publishes and reads its partials as a cluster of
+// 3 does 0.74; a 4-stage ring that single-buffers the partials behind a
+// "read" signal back 1.04 (then 0.88 with 3 stages); query tiles rotated
+// per key block to spread the L2 reads, and an L2 prefetch of the tile after
+// the one being loaded, within +-3%.
 //
 // f32 (used to check the port against the CPU in fp32): the same two-pass
 // tiling with scalar f32 FMAs and shared-memory accumulators.
 //
-// Not yet: fusing the two passes, a persistent grid, TMA multicast of the
-// Q/dO tiles to the CTAs of a cluster, overlapping one tile's P/dS handoff
-// with the next tile's scores.
+// Not yet: fusing the two passes, a persistent grid (the 2D site's 1,536 CTAs
+// of 32 tiles each run 12 waves), pushed partials for clusters of 3 (their
+// double-buffered slots would need 64 KB beside the ring), 64-query tiles
+// (stages of 64 KB), TMA multicast (the CTAs of a cluster read different
+// columns of Q and dO, so nothing is shared to multicast).
 
 #include "flash_common.cuh"
 
@@ -346,6 +385,7 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant_
 }
 
 constexpr int DKV_STAGES = 3;     // Q/dO ring depth
+constexpr int DKV_THREADS = 256;  // two warpgroups and no producer warp: a 255-register cap
 
 // Head-dim split of one key block: NC 64-column chunks over n CTAs, cpc each
 // (both warpgroups of a CTA work on the same cpc chunks).
@@ -373,9 +413,10 @@ struct DkvLayout {
 // [rank*CPC, (rank+1)*CPC), walking every 32-query Q/dO tile; reads the delta
 // the dq kernel wrote. One CTA of an n-CTA cluster. Warpgroup 0 forms
 // S^T = K Q^T, P^T and dV += P^T dO; warpgroup 1 forms dP^T = V dO^T, dS^T
-// (from warpgroup 0's P^T) and dK += dS^T Q; thread 256 issues the TMA loads.
+// (from warpgroup 0's P^T) and dK += dS^T Q. Thread 0 issues the first TMA
+// loads, thread 128 the ring's refills.
 template <int CPC>
-__global__ void __launch_bounds__(WS_THREADS, 1)
+__global__ void __launch_bounds__(DKV_THREADS, 1)
 flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                     const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -402,6 +443,18 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constan
     const int per = ((Sq + TILE - 1) / TILE + halves - 1) / halves;  // query tiles a half
     const int jb = half * per, ntiles = max(0, min(per, (Sq + TILE - 1) / TILE - jb));
     const bool clustered = n * halves > 1;
+    // stage s of the ring: Q at +0, dO at +CPC tiles
+    auto stage = [&](int j) { return smem + L.qdo + (j % DKV_STAGES) * 2 * CPC * TBOX_BYTES; };
+    auto load_tile = [&](int j) {  // one thread: tile j's Q and dO into its stage
+        const int s = j % DKV_STAGES, q0 = (jb + j) * TILE;
+        unsigned char* sQ = stage(j);
+        mbar_expect_tx(&full[s], 2 * CPC * TBOX_BYTES);
+#pragma unroll 1
+        for (int c = 0; c < CPC; ++c) {
+            tma_load_box(sQ + c * TBOX_BYTES, &mq, col0 + c * BOX, h, q0, b, &full[s]);
+            tma_load_box(sQ + (CPC + c) * TBOX_BYTES, &mdo, col0 + c * BOX, h, q0, b, &full[s]);
+        }
+    };
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < DKV_STAGES; ++s) {
@@ -409,8 +462,8 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constan
             mbar_init(&empty[s], 256);
         }
         for (int s = 0; s < 2; ++s) {
-            mbar_init(&ready[2 * s], n);
-            mbar_init(&ready[2 * s + 1], n);
+            mbar_init(&ready[2 * s], n == 2 ? 1 : n);  // pairs: this CTA's expect-tx
+            mbar_init(&ready[2 * s + 1], n == 2 ? 1 : n);
             mbar_init(&p_ready[s], 128);
             mbar_init(&p_free[s], 128);
         }
@@ -419,163 +472,205 @@ flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constan
     }
     __syncthreads();
     if (clustered) cluster_sync();  // every CTA's barriers exist before any remote arrive
-
-    // warp-uniform role, so that setmaxnreg can size each branch
-    const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-    if (role == 2) {  // ---- producer warpgroup: one thread feeds the Q/dO ring
-        producer_regs();
-        if (threadIdx.x == 256) {
-            mbar_expect_tx(kvbar, 2 * CPC * BOX_BYTES);
+    if (threadIdx.x == 0) {  // K and V of this CTA's columns, then the ring's first tiles
+        mbar_expect_tx(kvbar, 2 * CPC * BOX_BYTES);
 #pragma unroll 1
-            for (int c = 0; c < CPC; ++c) {
-                tma_load_box(smem + L.kv + c * BOX_BYTES, &mk, col0 + c * BOX, h, k0, b, kvbar);
-                tma_load_box(smem + L.kv + (CPC + c) * BOX_BYTES, &mv, col0 + c * BOX, h, k0, b,
-                             kvbar);
-            }
+        for (int c = 0; c < CPC; ++c) {
+            tma_load_box(smem + L.kv + c * BOX_BYTES, &mk, col0 + c * BOX, h, k0, b, kvbar);
+            tma_load_box(smem + L.kv + (CPC + c) * BOX_BYTES, &mv, col0 + c * BOX, h, k0, b,
+                         kvbar);
         }
-        auto load_tile = [&](int j) {
-            const int s = j % DKV_STAGES;
-            if (j >= DKV_STAGES) mbar_wait(&empty[s], ((j / DKV_STAGES) - 1) & 1);
-            unsigned char* sQ = smem + L.qdo + s * 2 * CPC * TBOX_BYTES;
-            unsigned char* sdO = sQ + CPC * TBOX_BYTES;
-            mbar_expect_tx(&full[s], 2 * CPC * TBOX_BYTES);
 #pragma unroll 1
-            for (int c = 0; c < CPC; ++c) {
-                const int q0 = (jb + j) * TILE;
-                tma_load_box(sQ + c * TBOX_BYTES, &mq, col0 + c * BOX, h, q0, b, &full[s]);
-                tma_load_box(sdO + c * TBOX_BYTES, &mdo, col0 + c * BOX, h, q0, b, &full[s]);
+        for (int j = 0; j < min(ntiles, DKV_STAGES); ++j) load_tile(j);
+    }
+    __syncwarp();
+
+    // ---- warpgroups: wg 0 -> dV, wg 1 -> dK
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int w = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+    // wg 0: S^T = K Q^T, then dV += P^T dO; wg 1: dP^T = V dO^T, then dK += dS^T Q.
+    // A warpgroup's score operand (K-major) is its stage's tile +wg, its
+    // product operand (MN-major) the tile +(1 - wg).
+    const unsigned char* sA = smem + L.kv + wg * CPC * BOX_BYTES;
+    // issue tile j's partial S^T (wg 0) or dP^T (wg 1) over this CTA's head-dim columns
+    auto issue_scores = [&](int j, float (&sc)[16]) {
+        const unsigned char* sB = stage(j) + wg * CPC * TBOX_BYTES;
+        mbar_wait(&full[j % DKV_STAGES], (j / DKV_STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < CPC; ++c)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                wgmma_m64n32k16_ss(sc, kmajor_desc(sA + c * BOX_BYTES + kk * 32),
+                                   kmajor_desc(sB + c * TBOX_BYTES + kk * 32), c + kk > 0);
+        wgmma_commit();
+    };
+
+    const float* row_bh = (wg == 0 ? lse : delta) + (long long)bh * Sq;
+    const float past = wg == 0 ? INFINITY : 0.f;  // past Sq: p = 0, delta 0
+    // this thread's 8 query columns of tile j, 8i + 2tq + e: lse or delta as
+    // stored, loaded a tile ahead; nothing reads them before their tile, so
+    // the loads' latency passes behind the tile before.
+    auto load_rows = [&](int j, float (&rv)[8]) {
+        const int i0 = (jb + j) * TILE;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int q = i0 + 8 * i + 2 * tq + e;
+                rv[2 * i + e] = q < Sq ? row_bh[q] : past;
             }
-        };
-        if (threadIdx.x == 256) {
+    };
+    // lse in log2 units for warpgroup 0
+    auto to_log2 = [&](float (&rv)[8]) {
+        if (wg == 0)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) rv[i] *= LOG2E;
+    };
+
+    // sc, rv: tile j's scores and rows; sn, rn: tile j+1's, in flight
+    float acc[NACC], sc[16], sn[16], rv[8], rn[8];
+    unsigned a[2][4];  // tile j's P^T or dS^T as bf16 A fragments
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    mbar_wait(kvbar, 0);
+    if (ntiles > 0) {
+        load_rows(0, rv);
+        issue_scores(0, sc);
+        wgmma_wait<0>();
+        fence_operand(sc);
+        to_log2(rv);
+    }
+
+    // Per tile j the tensor cores run tile j+1's scores and tile j-1's product
+    // while tile j's partials cross the cluster and the warpgroup forms P^T or
+    // dS^T. Commit groups complete in order: wait<1> leaves only the newest
+    // pending.
 #pragma unroll 1
-            for (int j = 0; j < ntiles; ++j) load_tile(j);
-        }
-        if (clustered) end_syncs(halves);  // matches the consumers' cluster barriers
-    } else {  // ---- consumer warpgroups: wg 0 -> dV, wg 1 -> dK
-        consumer_regs();
-        const int wg = role, t = threadIdx.x % 128;
-        const int w = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
-        // wg 0: S^T = K Q^T, then dV += P^T dO; wg 1: dP^T = V dO^T, then dK += dS^T Q
-        const unsigned char* sA = smem + L.kv + wg * CPC * BOX_BYTES;
-        float acc[NACC];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-        const float* row_bh = (wg == 0 ? lse : delta) + (long long)bh * Sq;
-        mbar_wait(kvbar, 0);
-
-        for (int j = 0; j < ntiles; ++j) {
-            const int s = j % DKV_STAGES, buf = j & 1, i0 = (jb + j) * TILE;
-            const unsigned char* sQ = smem + L.qdo + s * 2 * CPC * TBOX_BYTES;
-            const unsigned char* sdO = sQ + CPC * TBOX_BYTES;
-            const unsigned char* sB = wg == 0 ? sQ : sdO;  // score operand (K-major)
-            const unsigned char* sM = wg == 0 ? sdO : sQ;  // product operand (MN-major)
-
-            mbar_wait(&full[s], (j / DKV_STAGES) & 1);
-
-            // partial S^T (wg 0) or dP^T (wg 1) over this CTA's head-dim columns
-            float sc[16];
-            wgmma_fence();
-#pragma unroll
-            for (int c = 0; c < CPC; ++c)
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk)
-                    wgmma_m64n32k16_ss(sc, kmajor_desc(sA + c * BOX_BYTES + kk * 32),
-                                       kmajor_desc(sB + c * TBOX_BYTES + kk * 32), c + kk > 0);
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_operand(sc);
-
-            // this thread's 8 query columns i0 + 8i + 2tq + e: lse (log2 units) or delta
-            float rowv[8];
+    for (int j = 0; j < ntiles; ++j) {
+        const int buf = j & 1;
+        const bool more = j + 1 < ntiles;
+        // a pair's slot receives the peer's partial; a larger cluster's holds this CTA's
+        float4* slot = slots + (3 * buf + wg) * SLOT_F4;
+        uint64_t* got = &ready[2 * buf + wg];
+        if (n == 2) {  // push this CTA's partial of tile j into the peer's slot
+            if (t == 0) mbar_expect_tx(got, SLOT_F4 * 16);  // and expect the peer's
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int q = i0 + 8 * i + 2 * tq + e;
-                    rowv[2 * i + e] = wg == 0 ? (q < Sq ? row_bh[q] * LOG2E : INFINITY)
-                                              : (q < Sq ? row_bh[q] : 0.f);
-                }
-
-            if (n > 1) {  // sum the cluster's n partials of this matrix, in rank order
-                float4* mine = slots + (3 * buf + wg) * SLOT_F4;
-                slot_store(mine, sc, t);
-                slot_publish(&ready[2 * buf + wg], wg, t, n, r0);
-                slot_wait(&ready[2 * buf + wg], (j >> 1) & 1, wg, t);
-                for (int r = 0; r < n; ++r) slot_add(sc, mine, t, r0 + r, true, r == 0);
-            }
-
-            float4* pslot = slots + (3 * buf + 2) * SLOT_F4;
-            if (wg == 0) {  // p^T = exp(scale s^T - lse), 0 past Sq; hand it to wg 1
-#pragma unroll
-                for (int i = 0; i < 16; ++i)
-                    sc[i] = exp2f(fmaf(sc[i], scale_log2, -rowv[2 * (i >> 2) + (i & 1)]));
-                if (j >= 2) mbar_wait(&p_free[buf], ((j >> 1) - 1) & 1);
-                slot_store(pslot, sc, t);
-                mbar_arrive(&p_ready[buf]);
-            } else {  // ds^T = scale p^T (dP^T - delta), p^T read as it is used
-                mbar_wait(&p_ready[buf], (j >> 1) & 1);
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const float4 p = pslot[i * 128 + t];
-                    const float d0 = rowv[2 * i], d1 = rowv[2 * i + 1];
-                    sc[4 * i] = scale * p.x * (sc[4 * i] - d0);
-                    sc[4 * i + 1] = scale * p.y * (sc[4 * i + 1] - d1);
-                    sc[4 * i + 2] = scale * p.z * (sc[4 * i + 2] - d0);
-                    sc[4 * i + 3] = scale * p.w * (sc[4 * i + 3] - d1);
-                }
-                mbar_arrive(&p_free[buf]);
-            }
-
-            // dV += P^T dO_c or dK += dS^T Q_c (dO and Q read MN-major: no transpose)
-            unsigned a[2][4];
-#pragma unroll
-            for (int kk = 0; kk < 2; ++kk) acc_to_a(a[kk], sc, kk);
+                st_async_f4(&slot[i * 128 + t],
+                            make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]),
+                            got, rank ^ 1);
+        } else if (n > 2) {  // publish it in this CTA's slot
+            slot_store(slot, sc, t);
+            slot_publish(got, wg, t, n, r0);
+        }
+        if (more) {
+            issue_scores(j + 1, sn);
+            load_rows(j + 1, rn);
+        }
+        if (j > 0) {  // tile j-1's product is done: its stage and the fragments are free
+            if (more) wgmma_wait<1>();
+            else wgmma_wait<0>();
             fence_operand(acc);
-            wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < 2; ++kk)
-                wgmma_m64k16_rs(acc, a[kk], mnmajor_desc(sM + kk * 16 * 128, TBOX_BYTES));
-            wgmma_commit();
-            wgmma_wait<0>();
-            fence_operand(acc);
-            mbar_arrive(&empty[s]);
+            fence_operand(a);
+            mbar_arrive(&empty[(j - 1) % DKV_STAGES]);
+            // refill it once both warpgroups released it (warpgroup 1 releases last)
+            if (threadIdx.x == 128 && j - 1 + DKV_STAGES < ntiles) {
+                mbar_wait(&empty[(j - 1) % DKV_STAGES], ((j - 1) / DKV_STAGES) & 1);
+                load_tile(j - 1 + DKV_STAGES);
+            }
+            __syncwarp();
+        }
+        if (n == 2) {  // p0 + p1 (the two orders give the same bits)
+            mbar_wait(got, (j >> 1) & 1);
+            slot_add(sc, slot, t, rank, false, false);
+        } else if (n > 2) {  // sum the cluster's n partials of this matrix, in rank order
+            slot_wait(got, (j >> 1) & 1, wg, t);
+            for (int r = 0; r < n; ++r)
+                slot_add(sc, slot, t, r0 + r, unsigned(r0 + r) != rank, r == 0);
         }
 
-        if (halves > 1) {  // dk / dv = the half-0 sums + the half-1 sums, in that order
-            float4* stash = reinterpret_cast<float4*>(smem + L.qdo) + wg * (NACC / 4) * 128;
-            cluster_sync();  // every tile of the cluster is done: stages and slots are free
-            if (half == 1)
+        float4* pslot = slots + (3 * buf + 2) * SLOT_F4;
+        if (wg == 0) {  // p^T = exp(scale s^T - lse), 0 past Sq; hand it to wg 1
 #pragma unroll
-                for (int i = 0; i < NACC / 4; ++i)
-                    stash[i * 128 + t] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                                                     acc[4 * i + 3]);
-            cluster_sync();
-            if (half == 0)
+            for (int i = 0; i < 16; ++i)
+                sc[i] = exp2f(fmaf(sc[i], scale_log2, -rv[2 * (i >> 2) + (i & 1)]));
+            if (j >= 2) mbar_wait(&p_free[buf], ((j >> 1) - 1) & 1);
+            slot_store(pslot, sc, t);
+            mbar_arrive(&p_ready[buf]);
+        } else {  // ds^T = scale p^T (dP^T - delta), p^T read as it is used
+            mbar_wait(&p_ready[buf], (j >> 1) & 1);
 #pragma unroll
-                for (int i = 0; i < NACC / 4; ++i) {
-                    const float4 v = ld_dsmem_f4(&stash[i * 128 + t], rank + n);
-                    acc[4 * i] += v.x; acc[4 * i + 1] += v.y;
-                    acc[4 * i + 2] += v.z; acc[4 * i + 3] += v.w;
-                }
-        }
-        bf16* out = wg == 0 ? dv : dk;
-        if (half == 0) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                const int row = k0 + 16 * w + g + 8 * r;
-                if (row >= Sk) continue;
-                bf16* orow = out + (((long long)b * Sk + row) * H + h) * D;
-#pragma unroll
-                for (int i = 0; i < NACC / 4; ++i) {
-                    const int c = col0 + 8 * i + 2 * tq;
-                    if (c < D)
-                        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-                            __floats2bfloat162_rn(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
-                }
+            for (int i = 0; i < 4; ++i) {
+                const float4 p = pslot[i * 128 + t];
+                const float d0 = rv[2 * i], d1 = rv[2 * i + 1];
+                sc[4 * i] = scale * p.x * (sc[4 * i] - d0);
+                sc[4 * i + 1] = scale * p.y * (sc[4 * i + 1] - d1);
+                sc[4 * i + 2] = scale * p.z * (sc[4 * i + 2] - d0);
+                sc[4 * i + 3] = scale * p.w * (sc[4 * i + 3] - d1);
             }
+            mbar_arrive(&p_free[buf]);
         }
-        if (clustered) cluster_sync();  // no CTA leaves while a peer may read its shared memory
+
+        // dV += P^T dO_c or dK += dS^T Q_c (dO and Q read MN-major: no transpose)
+        const unsigned char* sM = stage(j) + (1 - wg) * CPC * TBOX_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) acc_to_a(a[kk], sc, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+            wgmma_m64k16_rs(acc, a[kk], mnmajor_desc(sM + kk * 16 * 128, TBOX_BYTES));
+        wgmma_commit();
+        if (more) {  // tile j+1's scores are done (tile j's product may still run)
+            wgmma_wait<1>();
+            fence_operand(sn);
+#pragma unroll
+            for (int i = 0; i < 16; ++i) sc[i] = sn[i];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) rv[i] = rn[i];
+            to_log2(rv);
+        }
     }
+    // unconditional: behind a branch, ptxas cannot tell that no group is
+    // pending where it is skipped, and serializes the kernel's wgmmas (C7514)
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (ntiles > 0) mbar_arrive(&empty[(ntiles - 1) % DKV_STAGES]);
+
+    if (halves > 1) {  // dk / dv = the half-0 sums + the half-1 sums, in that order
+        float4* stash = reinterpret_cast<float4*>(smem + L.qdo) + wg * (NACC / 4) * 128;
+        cluster_sync();  // every tile of the cluster is done: stages and slots are free
+        if (half == 1)
+#pragma unroll
+            for (int i = 0; i < NACC / 4; ++i)
+                stash[i * 128 + t] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                                                 acc[4 * i + 3]);
+        cluster_sync();
+        if (half == 0)
+#pragma unroll
+            for (int i = 0; i < NACC / 4; ++i) {
+                const float4 v = ld_dsmem_f4(&stash[i * 128 + t], rank + n);
+                acc[4 * i] += v.x; acc[4 * i + 1] += v.y;
+                acc[4 * i + 2] += v.z; acc[4 * i + 3] += v.w;
+            }
+    }
+    bf16* out = wg == 0 ? dv : dk;
+    if (half == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = k0 + 16 * w + g + 8 * r;
+            if (row >= Sk) continue;
+            bf16* orow = out + (((long long)b * Sk + row) * H + h) * D;
+#pragma unroll
+            for (int i = 0; i < NACC / 4; ++i) {
+                const int c = col0 + 8 * i + 2 * tq;
+                if (c < D)
+                    *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                        __floats2bfloat162_rn(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+            }
+        }
+    }
+    if (clustered) cluster_sync();  // no CTA leaves while a peer may read its shared memory
 }
 
 struct Args {
@@ -649,7 +744,7 @@ int launch_dkdv_bf16(const Args& a, int n) {
     cudaLaunchConfig_t cfg = {};
     const int halves = pick_halves(a, n);
     cfg.gridDim = dim3(n * halves * ((a.Sk + BOX - 1) / BOX), a.B * a.H);
-    cfg.blockDim = dim3(WS_THREADS);
+    cfg.blockDim = dim3(DKV_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = a.st;
     cudaLaunchAttribute attr[1];

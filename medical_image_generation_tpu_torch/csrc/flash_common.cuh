@@ -15,8 +15,9 @@
 //     same offset in another CTA of the cluster (`mbar_arrive_cluster`),
 //     waited for with acquire semantics at cluster scope.
 //   * clusters: the CTA's rank, a whole-cluster barrier, and 16-byte loads
-//     from the shared memory of another CTA of the cluster (DSMEM, `mapa` +
-//     `ld.shared::cluster`).
+//     from and stores into the shared memory of another CTA of the cluster
+//     (DSMEM, `mapa` + `ld.shared::cluster`; `st.async`, whose bytes complete
+//     a transaction on an mbarrier there).
 //   * wgmma: shared-memory matrix descriptors for the 128-byte swizzled boxes
 //     (`sw128_desc`), fence / commit / wait, `fence_operand` (keeps the
 //     compiler from moving register reads or writes across an asynchronous
@@ -255,6 +256,19 @@ __device__ __forceinline__ float4 ld_dsmem_f4(const void* p, unsigned rank) {
                  : "memory");
     return v;
 }
+// 16 bytes into p's offset in the shared memory of CTA `rank` of the cluster,
+// counted as complete-tx bytes on the mbarrier at bar's offset there: the data
+// is visible to a thread of that CTA once it has seen the barrier's phase end.
+__device__ __forceinline__ void st_async_f4(const void* p, float4 v, const uint64_t* bar,
+                                            unsigned rank) {
+    asm volatile(
+        "{\n.reg .b32 ra, rb;\nmapa.shared::cluster.u32 ra, %0, %6;\n"
+        "mapa.shared::cluster.u32 rb, %1, %6;\n"
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [ra], {%2, %3, %4, %5}, "
+        "[rb];\n}\n"
+        ::"r"(smem_u32(p)), "r"(smem_u32(bar)), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(rank)
+        : "memory");
+}
 // Registers a thread of this warpgroup may hold from here on. A CTA of two
 // consumer warpgroups and one producer warpgroup starts at 168 a thread (384
 // x 168 of the 65,536); the producer gives back 128 a thread, exactly what
@@ -266,16 +280,6 @@ __device__ __forceinline__ void producer_regs() {
 }
 __device__ __forceinline__ void consumer_regs() {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-}
-
-// The producer warpgroup's side of the consumers' closing cluster barriers:
-// one more for each extra query half (dK/dV), then the last.
-__device__ __forceinline__ void end_syncs(int halves) {
-    for (int i = 1; i < halves; ++i) {
-        cluster_sync();
-        cluster_sync();
-    }
-    cluster_sync();
 }
 
 // Barrier `id` over the first `count` threads of the CTA.

@@ -3,7 +3,8 @@ against the CUDA sources it names, parsed as text (no GPU, no ``nvcc``):
 every ``__global__`` function belongs to one entry, every source is built,
 and every entry's C entry point (and every query beside them) is declared in
 its source's ``extern "C"`` block with the types the table gives it. Also
-the counter store and the check of a profile against the launches.
+the counter store, the check of a profile against the launches, and that
+the flash sources use no atomic operation.
 
 This file imports no JAX, so it also runs where only PyTorch is installed."""
 
@@ -131,6 +132,33 @@ def test_type_check_rejects_a_wrong_declaration():
         _check_declared(source, "medimgen_adamw_layout", argtypes, ctypes.c_int)
     with pytest.raises(AssertionError):
         _check_declared(k.source, k.symbol, (ctypes.c_int, *k.argtypes[1:]), ctypes.c_int)
+
+
+_FLASH_FILES = sorted(f for f in os.listdir(_build.CSRC_DIR) if f.startswith("flash_"))
+_ATOMIC = re.compile(r"\batomic\w*\s*\(|\batom\.|\bred\.")
+
+
+def _code(text):
+    """``text`` without its // and /* */ comments."""
+    return re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+
+
+@pytest.mark.parametrize("fname", _FLASH_FILES)
+def test_flash_sources_use_no_atomics(fname):
+    """The flash kernels sum in fixed orders and use no atomic operation (C
+    ``atomic*`` calls, PTX ``atom.`` or ``red.``), so every output is the
+    same bits on every run."""
+    assert _ATOMIC.findall(_code(_source(fname))) == []
+
+
+def test_atomic_check_sees_an_atomic():
+    """The pattern above finds the C and PTX forms, and not the words
+    around them (``shared.``, a comment)."""
+    src = "x = 1; // atomicAdd(p, 1)\n/* red.add */ asm(\"ld.shared.f32 %0;\");"
+    assert _ATOMIC.findall(_code(src)) == []
+    for line in ("atomicAdd(p, 1);", "atomicMax (p, v);", 'asm("atom.add.f32 %0;");',
+                 'asm("red.global.add.f32 [%0], %1;");'):
+        assert _ATOMIC.findall(_code(line))
 
 
 def test_counter_store_adds_reads_and_resets():

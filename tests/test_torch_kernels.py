@@ -89,9 +89,13 @@ def _close(got, ref, rtol, atol_rel):
         f"max err {(g - r).abs().max().item():.3e}, max|ref| {r.abs().max().item():.3e}"
 
 
+# beside FLASH_SHAPES, the bf16 dK/dV pass's other cluster sizes: one CTA up
+# to D = 256, a pair that pushes its partial scores to each other up to 512
+# (640 and 768 take a cluster of 3)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,D", FLASH_SHAPES + [(1, 300, 1, 512)])
+@pytest.mark.parametrize("B,S,H,D", FLASH_SHAPES + [(1, 300, 1, 512), (1, 200, 1, 256),
+                                                    (1, 200, 1, 300)])
 def test_flash_backward_kernels_match_plain_on_gpu(cuda, B, S, H, D, dtype):
     q, k, v, do = (torch.from_numpy(nd((B, S, H, D), s)).to(cuda, dtype) for s in range(4))
     scale = D ** -0.5
